@@ -2,11 +2,12 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. It builds the hand-written kernel from
+Run from the root of a checkout. It builds the hand-written kernels from
 `ray_tracing_in_one_weekend_tpu_torch/csrc/` with nvcc (into the ignored
-`build/kernels/`), checks the kernel against its plain PyTorch version on
-the card, and drives the port's main path — the CLI at the bench preset:
-the cover scene, 1200x800, 10 spp, depth 50 — through the kernel.
+`build/kernels/`), checks each against its plain PyTorch version on the
+card, and drives the port's two paths at the bench preset (the cover
+scene, 1200x800, 10 spp, depth 50) through the kernels: the render CLI,
+and the fwd+bwd train step of inverse rendering.
 
 Phases, one line each; any failure raises and the script exits non-zero
 without the result lines:
@@ -24,7 +25,22 @@ without the result lines:
    against the plain version at the main path's shapes (times; the lane
    states must be bit-identical, as the build without FMA contraction
    makes them); and the 150x100 CLI render against the plain version
-   (bit-identical, and block means as in phase 3).
+   (bit-identical, and block means as in phase 3);
+7. the gradient path (`ops/cuda_grad.py`, `csrc/grad_kernel.cu`):
+   a. at 64x32, spp 4, depth 8: `render_cuda_diff`'s value bit-identical
+      to `render_cuda` with and without work_hint; the hand-written bounce
+      adjoint against torch.autograd of the plain bounce on every
+      recorded bounce; the kernel's gradient against the plain version's
+      per scene field (relative L2 gate), bit-identical run to run and
+      for bwd_tile 128 and 256;
+   b. at the bench preset, the kernel against the plain version on 16384
+      lanes drawn across the image (same gate, times), and the reduction
+      against its plain version on the same events;
+   c. the main path of the slice: `render_grads_cuda` at the bench preset
+      with a zero target, a cold step then warm steps with the work_hint
+      carry (seconds, Mrays/s, launch counts, peak memory, finite
+      gradients);
+   d. the inverse-render demo on the card: exit 0 (albedo error halved).
 
 Then it prints nvidia-smi's line, a JSON line of per-kernel results, and
 last `{"ok": true, "device": {...}}`. It imports no JAX.
@@ -86,6 +102,160 @@ def torch_sync():
     import torch
 
     torch.cuda.synchronize()
+
+
+# Gradient gate: per scene field, ||g_kernel - g_plain|| <= GRAD_GATE * ||g_plain||.
+# The replay takes the forward's paths, so only the adjoint's rounding and the
+# summation order differ: measured at most 4.7e-5 (H100), gate 2e-4.
+GRAD_GATE = 2e-4
+# The hand adjoint against autograd of the plain bounce, per output: measured
+# at most 2.7e-6, gate 3e-5.
+ADJOINT_GATE = 3e-5
+
+
+def field_errors(scene, pk, pp):
+    """Per scene field, the relative L2 error of the kernel's gradient `pk`
+    against the plain version's `pp` (both [16, N] packed-scene cotangents),
+    and the largest absolute difference over all fields."""
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_grad as cg
+    from ray_tracing_in_one_weekend_tpu_torch.probes import rel_l2
+
+    fk, fp = cg.params_vjp(scene, pk), cg.params_vjp(scene, pp)
+    rel = {k: rel_l2(fk[k], fp[k]) for k in cg.DIFF_FIELDS}
+    return rel, max(float((fk[k] - fp[k]).abs().max()) for k in cg.DIFF_FIELDS)
+
+
+def phase_adjoint(scene, cam):
+    """7a, first part: the hand-written bounce adjoint against
+    torch.autograd of the plain `_bounce_f`, on every continuing bounce
+    recorded over the image, with random output cotangents."""
+    from ray_tracing_in_one_weekend_tpu_torch.probes import adjoint_errors
+
+    m, errs = adjoint_errors(scene, cam)
+    for name, e in errs.items():
+        check(e <= ADJOINT_GATE,
+              f"phase 7a: hand adjoint vs autograd, {name}: rel L2 {e:.2e} > {ADJOINT_GATE}")
+    return m, errs
+
+
+def phase_grad_small(scene, cam):
+    """7a: the gradient path at 64x32: the value, the kernel against the
+    plain version, and reproducibility across runs and tiles."""
+    import torch
+
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_grad as cg
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_render as cr
+    from ray_tracing_in_one_weekend_tpu_torch.probes import random_cotangent
+
+    img, work = cg.render_cuda_diff(scene, cam, return_work=True)
+    check(torch.equal(img, cr.render_cuda(scene, cam)), "phase 7a: value differs from render_cuda")
+    check(torch.equal(cg.render_cuda_diff(scene, cam, work_hint=work), img),
+          "phase 7a: value with work_hint differs from render_cuda")
+    spp, depth, n = cam.samples_per_pixel, cam.max_depth, cam.num_pixels
+    p_mat, cam_vec = cr.pack_scene(scene), cr.pack_camera(cam)
+    table, work = p_mat.T.contiguous(), work.reshape(-1)
+    grad_rad = random_cotangent((3, n), 1, DEVICE)
+    scalars = (0, 0, 0, n)
+    runs = {}
+    for tile in (128, 256, 128):
+        pix, g = cg._bwd_lanes(work, grad_rad, spp, tile)
+        runs.setdefault(tile, []).append(build.grad_pass(table, cam_vec, scalars, pix, g, work, tile,
+                                                         spp, depth))
+    pk = runs[128][0]
+    check(torch.equal(pk, runs[128][1]), "phase 7a: two kernel runs differ")
+    check(torch.equal(pk, runs[256][0]), "phase 7a: bwd_tile 128 and 256 differ")
+    pix, g = cg._bwd_lanes(work, grad_rad, spp, 128)
+    pp = cg._grad_pass_plain(p_mat, cam_vec, scalars, pix, g, spp, depth)
+    errs, _ = field_errors(scene, pk, pp)
+    for k, e in errs.items():
+        check(e <= GRAD_GATE, f"phase 7a: {k} gradient, kernel vs plain rel L2 {e:.2e} > {GRAD_GATE}")
+    return errs
+
+
+def phase_grad_subset(scene, cam, n_lanes=16384):
+    """7b: at the bench preset, the kernel against the plain version on
+    `n_lanes` pixels drawn across the whole image (numpy, seed 0); the
+    kernel takes pixel ids as data, so the plain version stays affordable
+    at full spp and depth. Times both, and the reduction against its plain
+    version on the same events."""
+    import numpy as np
+    import torch
+
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_grad as cg
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_render as cr
+    from ray_tracing_in_one_weekend_tpu_torch.probes import cuda_ms, random_cotangent, rel_l2
+
+    spp, depth, n = cam.samples_per_pixel, cam.max_depth, cam.num_pixels
+    p_mat, cam_vec = cr.pack_scene(scene), cr.pack_camera(cam)
+    table = p_mat.T.contiguous()
+    _, work = cr.render_cuda(scene, cam, return_work=True)
+    work = work.reshape(-1)
+    pix = np.random.default_rng(0).choice(n, size=n_lanes, replace=False)
+    pix = torch.from_numpy(pix.astype(np.int32)).to(DEVICE)
+    g = random_cotangent((3, n_lanes), 2, DEVICE) / spp
+    args = (table, cam_vec, (0, 0, 0, n), pix, g, work, 128, spp, depth)
+    events = build.grad_replay(*args)
+    pk = build.grad_reduce(events, p_mat.shape[1])
+    replay_ms = cuda_ms(lambda: build.grad_replay(*args), reps=3)
+    reduce_ms = cuda_ms(lambda: build.grad_reduce(events, p_mat.shape[1]), reps=3)
+    t0 = time.perf_counter()
+    pp = cg._grad_pass_plain(p_mat, cam_vec, (0, 0, 0, n), pix, g, spp, depth)
+    torch_sync()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    pr = cg._reduce_events_plain(events, p_mat.shape[1])
+    torch_sync()
+    reduce_plain_ms = (time.perf_counter() - t0) * 1e3
+    errs, max_abs = field_errors(scene, pk, pp)
+    for k, e in errs.items():
+        check(e <= GRAD_GATE, f"phase 7b: {k} gradient, kernel vs plain rel L2 {e:.2e} > {GRAD_GATE}")
+    reduce_err = rel_l2(pk, pr)
+    reduce_abs_err = float((pk - pr).abs().max())
+    check(reduce_err <= 1e-5, f"phase 7b: reduction vs plain rel L2 {reduce_err:.2e} > 1e-5")
+    return dict(errs=errs, max_abs_err=max_abs, replay_ms=replay_ms, reduce_ms=reduce_ms, plain_ms=plain_ms,
+                reduce_plain_ms=reduce_plain_ms, reduce_err=reduce_err,
+                reduce_abs_err=reduce_abs_err, n_events=events.shape[0])
+
+
+def phase_train_step(scene, cam, warm_reps=3):
+    """7c: the main path of the gradient slice, `render_grads_cuda` at the
+    bench preset with a zero target: a cold step, then warm steps with the
+    work_hint carry. Returns times, launch counts and peak memory."""
+    import torch
+
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_grad as cg
+
+    params = cg.scene_params(scene)
+    target = torch.zeros(cam.image_height, cam.image_width, 3, device=DEVICE)
+    rays = cam.num_pixels * cam.samples_per_pixel
+    torch.cuda.reset_peak_memory_stats()
+    torch_sync()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    (loss, work), grads = cg.render_grads_cuda(params, scene, cam, target, return_work=True)
+    torch_sync()
+    cold_s = time.perf_counter() - t0
+    warm = []
+    for _ in range(warm_reps):
+        t0 = time.perf_counter()
+        (loss, work), grads = cg.render_grads_cuda(params, scene, cam, target, return_work=True,
+                                                   work_hint=work)
+        torch_sync()
+        warm.append(time.perf_counter() - t0)
+    launches = dict(build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(bool(torch.isfinite(loss)) and float(loss) > 0.0, "phase 7c: bad loss")
+    for k, v in grads.items():
+        check(bool(torch.isfinite(v).all()), f"phase 7c: non-finite {k} gradient")
+    check(sum(float(v.abs().sum()) for v in grads.values()) > 0.0, "phase 7c: all gradients zero")
+    for name in ("render_kernel", "grad_kernel", "grad_reduce"):
+        check(launches[name] > 0, f"phase 7c: the train step never launched {name}")
+    return dict(cold_s=cold_s, warm_s=warm, mrays=[rays / t / 1e6 for t in warm],
+                cold_mrays=rays / cold_s / 1e6, launches=launches, peak_gb=peak_gb,
+                loss=float(loss))
 
 
 def main() -> int:
@@ -215,8 +385,43 @@ def main() -> int:
         f"mean diff {a150.mean_diff:.4f}; "
         f"mean gap {mean_gap:.4f}")
 
+    # 7. the gradient path
+    cam_small = small_camera(DEVICE)
+    m, adj = phase_adjoint(ref, cam_small)
+    small_errs = phase_grad_small(ref, cam_small)
+    say(f"phase 7a gradient (64x32, spp 4, depth 8): value bit-identical to render_cuda with and "
+        f"without work_hint; hand adjoint vs autograd on {m} bounces, rel L2 "
+        + ", ".join(f"{k} {e:.2e}" for k, e in adj.items())
+        + f" (gate {ADJOINT_GATE}); kernel vs plain gradient rel L2 "
+        + ", ".join(f"{k} {e:.2e}" for k, e in small_errs.items())
+        + f" (gate {GRAD_GATE}); bit-identical run to run and for bwd_tile 128 vs 256")
+    sub = phase_grad_subset(scene, cam)
+    say(f"phase 7b gradient at the bench preset, 16384 lanes: {sub['n_events']} events; kernel vs "
+        f"plain rel L2 " + ", ".join(f"{k} {e:.2e}" for k, e in sub["errs"].items())
+        + f" (gate {GRAD_GATE}); replay {sub['replay_ms']:.2f} ms + reduce {sub['reduce_ms']:.3f} ms "
+        f"vs plain {sub['plain_ms']:.0f} ms; reduce vs plain reduce ({sub['reduce_plain_ms']:.2f} ms) "
+        f"rel L2 {sub['reduce_err']:.2e} [{smi}]")
+    step = phase_train_step(scene, cam)
+    say(f"phase 7c train step (render_grads_cuda, bench preset, zero target): cold "
+        f"{step['cold_s']:.4f}s = {step['cold_mrays']:.2f} Mrays/s; warm (work_hint carry) "
+        + ", ".join(f"{t:.4f}s" for t in step["warm_s"]) + " = "
+        + ", ".join(f"{r:.2f}" for r in step["mrays"]) + f" Mrays/s; launches {step['launches']}; "
+        f"peak memory {step['peak_gb']:.2f} GB; gradients finite on every field [{smi}]")
+    from ray_tracing_in_one_weekend_tpu_torch.examples import inverse_render
+
+    demo_dir = REPO / "build" / "inverse_render"
+    rc = inverse_render.main(["--device", DEVICE, "--outdir", str(demo_dir)])
+    check(rc == 0, f"phase 7d: the inverse-render demo exited {rc}")
+    check((demo_dir / "inverse_recovered.ppm").read_bytes().startswith(b"P3\n64 32\n255\n"),
+          "phase 7d: bad recovered PPM")
+    say("phase 7d inverse render: the demo recovered sphere 1's albedo (error at least halved)")
+
     check("jax" not in sys.modules and "flax" not in sys.modules, "JAX was imported")
     say(smi)
+    grad_tol = (f"max_abs_err: largest |g_kernel - g_plain| of any scene-field gradient at the "
+                f"bench preset, 16384 lanes; gates: per field rel L2 <= {GRAD_GATE} there and at "
+                f"64x32 spp 4, bit-identical run to run and across bwd_tile 128/256, hand adjoint "
+                f"vs autograd rel L2 <= {ADJOINT_GATE}")
     say(json.dumps({"kernels": [{
         "name": "render_kernel",
         "route": "cuda",
@@ -235,6 +440,35 @@ def main() -> int:
         "block_mad": full.block_mad,
         "render_s": run.render_s,
         "mrays_per_s": run.mrays_per_s,
+    }, {
+        "name": "grad_kernel",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/grad_kernel.cu",
+        "replaces": "ray_tracing_in_one_weekend_tpu/ops/pallas_grad.py:151",
+        "launches": step["launches"]["grad_kernel"],
+        "max_abs_err": sub["max_abs_err"],
+        "ms": sub["replay_ms"],
+        "plain_ms": sub["plain_ms"],
+        "tolerance": grad_tol,
+        "shapes": "bench preset, 16384 lanes drawn across the image (ms and plain_ms alike)",
+        "rel_l2": sub["errs"],
+        "rel_l2_64x32": small_errs,
+        "adjoint_rel_l2": adj,
+        "step_cold_s": step["cold_s"],
+        "step_warm_s": step["warm_s"],
+        "step_mrays_per_s": step["mrays"],
+        "peak_memory_gb": step["peak_gb"],
+    }, {
+        "name": "grad_reduce",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/grad_kernel.cu",
+        "replaces": "ray_tracing_in_one_weekend_tpu/ops/pallas_grad.py:476",
+        "launches": step["launches"]["grad_reduce"],
+        "max_abs_err": sub["reduce_abs_err"],
+        "ms": sub["reduce_ms"],
+        "plain_ms": sub["reduce_plain_ms"],
+        "tolerance": "rel L2 <= 1e-5 against index_add over the same events (summation order)",
+        "rel_l2": sub["reduce_err"],
     }]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,11 +1,14 @@
 """Path tracer on PyTorch with a hand-written CUDA kernel for Hopper.
 
 The port of `ray_tracing_in_one_weekend_tpu` (JAX/Pallas on a TPU) to
-PyTorch on an NVIDIA H100; the JAX package is its reference. This slice
-is the forward render of the cover scene: scene and camera
+PyTorch on an NVIDIA H100; the JAX package is its reference. So far it
+holds the forward render of the cover scene: scene and camera
 (`models/`), the render kernel and its plain PyTorch version
 (`ops/cuda_render.py`, `csrc/`, `kernels/`), 8-bit output and PPM
-(`ops/image.py`, `utils/ppm.py`), and the CLI (`utils/cli.py`).
+(`ops/image.py`, `utils/ppm.py`), and the CLI (`utils/cli.py`); and the
+gradient path: the backward render kernel, the differentiable render and
+the inverse-rendering train step (`ops/cuda_grad.py`,
+`examples/inverse_render.py`).
 
 It imports torch and numpy only, never jax or flax.
 """
@@ -17,6 +20,12 @@ from ray_tracing_in_one_weekend_tpu_torch.models.scene import (
     cover_scene_reference,
     single_sphere_scene,
     three_sphere_scene,
+)
+from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_grad import (
+    render_cuda_diff,
+    render_grads_cuda,
+    render_loss_cuda,
+    train_step_cuda,
 )
 from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import render_cuda
 from ray_tracing_in_one_weekend_tpu_torch.utils.config import RenderConfig
@@ -32,5 +41,9 @@ __all__ = [
     "single_sphere_scene",
     "three_sphere_scene",
     "render_cuda",
+    "render_cuda_diff",
+    "render_loss_cuda",
+    "render_grads_cuda",
+    "train_step_cuda",
     "RenderConfig",
 ]

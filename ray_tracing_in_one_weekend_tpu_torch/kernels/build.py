@@ -5,9 +5,12 @@ interface under `build/kernels/` at the repo root, at first use, and
 again whenever a hash of the sources and flags changes (the hash names
 the library). No PyTorch header is compiled, so a build takes seconds.
 
-`render_pass` is the wrapper of `csrc/render_kernel.cu`: it checks its
-tensors, allocates the outputs, launches on PyTorch's current stream,
-raises if the launch failed, and counts its launches in `LAUNCHES`.
+`render_pass` is the wrapper of `csrc/render_kernel.cu`; `grad_replay`
+and `grad_reduce` (joined in `grad_pass`) are those of the two kernels of
+`csrc/grad_kernel.cu`, the backward replay and its reduction. Each checks
+its tensors, allocates the outputs, launches on PyTorch's
+current stream, raises if the launch failed, and counts its launches in
+`LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ NVCC_FLAGS = (
 
 # Launches per kernel since the last `reset_launches()`: what a run reads
 # to show that its main path went through the kernels.
-LAUNCHES = {"render_kernel": 0}
+LAUNCHES = {"render_kernel": 0, "grad_kernel": 0, "grad_reduce": 0, "bounce_adjoint": 0}
 
 _LIB = None
 # The default per-block shared-memory limit (no opt-in), less the kernel's
@@ -120,6 +123,21 @@ def load() -> ctypes.CDLL:
         ]
         lib.rt_max_tile.restype = i32
         lib.rt_max_tile.argtypes = []
+        lib.rt_grad_pass.restype = i32
+        lib.rt_grad_pass.argtypes = [
+            ptr, i32, ptr, ptr, ptr,  # table, n_spheres, cam, pix, g
+            ptr, ptr, ptr, ptr, ptr,  # ev_start, ev_count, traj, events, flags
+            i32, i32, i32, i32, i32, i32, i32,  # n_lanes, tile, n_live, seed, sample_offset, spp, max_depth
+            ptr,  # stream
+        ]
+        lib.rt_grad_reduce.restype = i32
+        lib.rt_grad_reduce.argtypes = [ptr, ctypes.c_longlong, i32, ptr, ptr, ptr]
+        lib.rt_bounce_adjoint.restype = i32
+        lib.rt_bounce_adjoint.argtypes = [ptr, ctypes.c_float, i32, *([ptr] * 12)]
+        lib.rt_max_grad_tile.restype = i32
+        lib.rt_max_grad_tile.argtypes = []
+        lib.rt_chunk_events.restype = ctypes.c_longlong
+        lib.rt_chunk_events.argtypes = []
         lib.rt_error_string.restype = ctypes.c_char_p
         lib.rt_error_string.argtypes = [i32]
         _LIB = lib
@@ -183,10 +201,162 @@ def render_pass(table, cam_vec, scalars, sf, si, tile, spp, max_depth):
             of.data_ptr(), oi.data_ptr(), n_lanes, tile, seed, sample_offset, budget,
             int(spp), int(max_depth), stream,
         )
-    if err != 0:
-        raise RuntimeError(
-            f"render_kernel launch failed: CUDA error {err} "
-            f"({lib.rt_error_string(err).decode()})"
-        )
+    _raise_on(lib, err, "render_kernel")
     LAUNCHES["render_kernel"] += 1
     return of, oi
+
+
+def grad_pass(table, cam_vec, scalars, pix, g, work, tile, spp, max_depth):
+    """The backward of `csrc/grad_kernel.cu` on CUDA tensors -> [16, N]
+    f32, the cotangent of the packed scene: `grad_replay`, then
+    `grad_reduce` over its events."""
+    return grad_reduce(grad_replay(table, cam_vec, scalars, pix, g, work, tile, spp, max_depth),
+                       table.shape[0])
+
+
+def grad_replay(table, cam_vec, scalars, pix, g, work, tile, spp, max_depth):
+    """The replay and reverse walk of `grad_kernel` on CUDA tensors ->
+    events [E, 16] f32, one record per bounce (word 0 the winning sphere
+    as int32 bits, -1 for none; words 1-13 the cotangent of its rows 0-3,
+    5-9, 12-15).
+
+    table [N, 16] f32 (the transposed packed scene), cam_vec [24] f32, pix
+    [P] i32 (each lane's global pixel id, in any order; ids >= n_live
+    idle), g [3, P] f32 (each lane's radiance cotangent per sample), work
+    [n_live - pixel_offset] f32 (the forward's per-pixel bounce count in
+    pixel order: it sizes each lane's event slots), all contiguous on one
+    CUDA device; scalars = (seed, pixel_offset, sample_offset, n_live)
+    ints. `tile` lanes per block: a multiple of 128, at most the kernel's
+    maximum, dividing P. Raises if the replay did not take the forward's
+    path (a lane's bounce count differs from `work`): nothing is
+    truncated."""
+    device = g.device
+    if device.type != "cuda":
+        raise ValueError(f"grad_replay runs on CUDA tensors, got {device}")
+    n_lanes = pix.shape[0] if pix.dim() == 1 else -1
+    n_spheres = table.shape[0] if table.dim() == 2 else -1
+    seed, pixel_offset, sample_offset, n_live = (int(v) for v in scalars)
+    _check_tensor("table", table, torch.float32, (n_spheres, 16), device)
+    _check_tensor("cam_vec", cam_vec, torch.float32, (24,), device)
+    _check_tensor("pix", pix, torch.int32, (n_lanes,), device)
+    _check_tensor("g", g, torch.float32, (3, n_lanes), device)
+    _check_tensor("work", work, torch.float32, (n_live - pixel_offset,), device)
+    if not 0 < n_spheres * 64 <= _MAX_TABLE_BYTES:
+        raise ValueError(f"{n_spheres} spheres do not fit the kernel's 48 KB shared-memory table")
+    lib = load()
+    max_tile = lib.rt_max_grad_tile()
+    if tile <= 0 or tile % 128 or tile > max_tile:
+        raise ValueError(f"tile ({tile}) must be a multiple of 128 no larger than {max_tile}")
+    if n_lanes <= 0 or n_lanes % tile:
+        raise ValueError(f"lane count ({n_lanes}) must be a positive multiple of tile ({tile})")
+    if not 0 <= pixel_offset < n_live:
+        raise ValueError(f"pixel range [{pixel_offset}, {n_live}) is empty")
+    if spp < 1 or max_depth < 1:
+        raise ValueError(f"spp ({spp}) and max_depth ({max_depth}) must be >= 1")
+    for name, v in (("seed", seed), ("sample_offset", sample_offset), ("n_live", n_live),
+                    ("spp", spp), ("max_depth", max_depth)):
+        _check_int32(name, v)
+
+    # Event slots: a lane owns as many as its pixel's bounce count, and the
+    # ranges follow the lanes' pixel ids in increasing order (an exclusive
+    # prefix sum), so the event buffer, and the reduction over it, do not
+    # depend on the lane order or the tile.
+    if not torch.equal(work.round(), work):
+        raise ValueError("work must hold whole bounce counts")
+    local = pix.to(torch.int64) - pixel_offset
+    live = (local >= 0) & (pix < n_live)
+    counts = torch.where(live, work.to(torch.int64)[torch.where(live, local, 0)], 0)
+    order = torch.argsort(torch.where(live, local, 1 << 40), stable=True)
+    ev_start = torch.empty_like(counts)
+    ev_start[order] = torch.cumsum(counts[order], 0) - counts[order]
+    ev_count = counts.to(torch.int32)
+    n_events = int(counts.sum())
+
+    traj = torch.empty(max_depth * 10 * n_lanes, dtype=torch.float32, device=device)
+    events = torch.empty((n_events, 16), dtype=torch.float32, device=device)
+    flags = torch.zeros(2, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        err = lib.rt_grad_pass(
+            table.data_ptr(), n_spheres, cam_vec.data_ptr(), pix.data_ptr(), g.data_ptr(),
+            ev_start.data_ptr(), ev_count.data_ptr(), traj.data_ptr(), events.data_ptr(),
+            flags.data_ptr(), n_lanes, tile, n_live, seed, sample_offset, int(spp),
+            int(max_depth), torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_on(lib, err, "grad_kernel")
+    LAUNCHES["grad_kernel"] += 1
+    over, under = flags.tolist()
+    if over or under:
+        raise RuntimeError(
+            "grad_kernel: the replay diverged from the forward render (a lane had "
+            f"{'more' if over else 'fewer'} bounces than its pixel's work count)"
+        )
+    return events
+
+
+def grad_reduce(events, n_spheres):
+    """The fixed-order reduction of `csrc/grad_kernel.cu` on CUDA tensors:
+    events [E, 16] f32 from `grad_replay` -> [16, n_spheres] f32, each
+    sphere's cotangent summed over its events. The same bits for the same
+    events, run after run."""
+    device = events.device
+    if device.type != "cuda":
+        raise ValueError(f"grad_reduce runs on CUDA tensors, got {device}")
+    n_events = events.shape[0] if events.dim() == 2 else -1
+    _check_tensor("events", events, torch.float32, (n_events, 16), device)
+    if not 0 < n_spheres * 64 <= _MAX_TABLE_BYTES:
+        raise ValueError(f"{n_spheres} spheres: at most {_MAX_TABLE_BYTES // 64}")
+    lib = load()
+    n_chunks = -(-n_events // lib.rt_chunk_events())
+    partials = torch.empty((max(n_chunks, 1), 16, n_spheres), dtype=torch.float32, device=device)
+    out = torch.empty((16, n_spheres), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        err = lib.rt_grad_reduce(events.data_ptr(), n_events, n_spheres, partials.data_ptr(),
+                                 out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(lib, err, "grad_reduce")
+    LAUNCHES["grad_reduce"] += 1
+    return out
+
+
+def bounce_adjoint(table, t_min, rec, ob, db, ab):
+    """The hand-written adjoint of `csrc/grad_device.cuh` on recorded
+    bounces that continue: the checks' way to hold it against autograd.
+
+    `rec` maps o, d, att ([3, n] f32), winner, lo, hi, depth ([n] i32:
+    the winning sphere, the stream words as int32 bits, the bounce depth);
+    ob, db, ab [3, n] f32 are the cotangents of the bounce's outputs.
+    Returns the cotangents of its inputs (ob, db, ab) and of the winner's
+    parameter column, pbar [16, n]."""
+    device = ob.device
+    if device.type != "cuda":
+        raise ValueError(f"bounce_adjoint runs on CUDA tensors, got {device}")
+    n = ob.shape[1] if ob.dim() == 2 else -1
+    n_spheres = table.shape[0] if table.dim() == 2 else -1
+    _check_tensor("table", table, torch.float32, (n_spheres, 16), device)
+    for name in ("o", "d", "att"):
+        _check_tensor(name, rec[name], torch.float32, (3, n), device)
+    for name in ("winner", "lo", "hi", "depth"):
+        _check_tensor(name, rec[name], torch.int32, (n,), device)
+    ob, db, ab = (x.clone().contiguous() for x in (ob, db, ab))
+    for name, x in (("ob", ob), ("db", db), ("ab", ab)):
+        _check_tensor(name, x, torch.float32, (3, n), device)
+    if n <= 0 or int(rec["winner"].min()) < 0 or int(rec["winner"].max()) >= n_spheres:
+        raise ValueError("winner indices must name spheres of the table")
+    lib = load()
+    pbar = torch.empty((16, n), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        err = lib.rt_bounce_adjoint(
+            table.data_ptr(), float(t_min), n,
+            *(rec[k].data_ptr() for k in ("o", "d", "att", "winner", "lo", "hi", "depth")),
+            ob.data_ptr(), db.data_ptr(), ab.data_ptr(), pbar.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_on(lib, err, "bounce_adjoint")
+    LAUNCHES["bounce_adjoint"] += 1
+    return ob, db, ab, pbar
+
+
+def _raise_on(lib, err, name):
+    if err != 0:
+        raise RuntimeError(
+            f"{name} launch failed: CUDA error {err} ({lib.rt_error_string(err).decode()})"
+        )

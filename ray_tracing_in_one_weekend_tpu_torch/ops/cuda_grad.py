@@ -1,0 +1,461 @@
+"""Scene-parameter gradients: the backward render kernel and the train step.
+
+The PyTorch counterpart of ray_tracing_in_one_weekend_tpu/ops/pallas_grad.py.
+`_DiffRender` is a `torch.autograd.Function` around the packed scene
+matrix:
+
+* forward: `_multipass`, the forward render of `ops/cuda_render.py`
+  (the CUDA kernel on the card), which also gives the per-lane cost map.
+  The value of `render_cuda_diff` is `render_cuda`'s bit for bit.
+* backward: `_grad_pass` replays every (pixel, sample) path with the
+  forward's own device functions, so the replay takes the forward's
+  discrete decisions, then walks each sample's bounces in reverse through
+  the vector-Jacobian product of the bounce `_bounce_f`, with the
+  decisions frozen. Each bounce's cotangent of the winning sphere's
+  16-row parameter column is added into a [16, N] result. On CUDA
+  tensors that is `csrc/grad_kernel.cu` (a hand-written adjoint, see its
+  source note); on CPU tensors `_grad_pass_plain`, which gets the same
+  vector-Jacobian products from `torch.autograd.grad`.
+
+Gradients reach center, radius, albedo, fuzz and ior through `pack_scene`
+(autograd follows its row writes, including the fused -2c and
+|c|^2 - r^2 rows). The camera gets none, as in the JAX package.
+
+The semantics are the Monte-Carlo-discrete gradient of the JAX kernel:
+adjoints start at zero for every sample, each step's adjoints and
+parameter cotangent are clipped to +-1e6, and a sample that ends absorbed
+or at the depth limit adds nothing (its radiance is 0).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ray_tracing_in_one_weekend_tpu_torch.models.camera import Camera
+from ray_tracing_in_one_weekend_tpu_torch.models.scene import Scene
+from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import (
+    _CSQR2,
+    _CX,
+    _CY,
+    _CZ,
+    _IOR,
+    _M2CX,
+    _M2CY,
+    _M2CZ,
+    _PLAIN_CHUNK,
+    _R,
+    _U32,
+    DEFAULT_TILE,
+    P_ROWS,
+    _as_i32,
+    _camera_ray_block,
+    _check_tile,
+    _cost_perm,
+    _default_budget,
+    _dot3,
+    _hit_and_scatter,
+    _init_state,
+    _multipass,
+    _pcg,
+    _perm_from_hint,
+    _render_pass,
+    _scatter_block,
+    _sky,
+    _sqrt,
+    _surface,
+    _u32,
+    _unpack_cam,
+    pack_camera,
+    pack_scene,
+)
+
+# Lanes per CUDA block of the backward kernel.
+DEFAULT_BWD_TILE = 128
+
+# Per-step clip of the adjoints and the parameter cotangent
+# (ray_tracing_in_one_weekend_tpu/ops/pallas_grad.py:468-472): a bounce's
+# Jacobian is unbounded at ill-conditioned events (a near-degenerate
+# lambertian direction), and one inf lane would poison every sphere.
+GRAD_CLIP = 1e6
+
+# Scene leaves that receive gradients; mat_type and active are structure.
+DIFF_FIELDS = ("center", "radius", "albedo", "fuzz", "ior")
+
+
+def scene_params(scene: Scene) -> dict:
+    """The differentiable fields of a Scene, by name."""
+    return {f: getattr(scene, f) for f in DIFF_FIELDS}
+
+
+def scene_with_params(scene: Scene, params: dict) -> Scene:
+    return scene.replace(**params)
+
+
+# ---------------------------------------------------------------------------
+# The plain backward.
+# ---------------------------------------------------------------------------
+
+
+def _bounce_f(o, d, att, pcols, cont, miss, stream, ctr, t_min):
+    """One bounce as a pure function of its continuous inputs -> (o', d',
+    att', radiance term), the `F` of the JAX kernel. `pcols` [16, L] is
+    the winner's parameter column; `cont` and `miss` [1, L] are the
+    replayed event; front_face, the material branch, the lambertian
+    fallback, metal's `ok` and the dielectric choice are recomputed from
+    the same values as in the forward, so they are the replay's. Guards:
+    lanes that do not continue see a safe column (radius 1, ior 1) and
+    disc = 1, and the sqrt argument is floored at 1e-12, so no
+    reciprocal or sqrt derivative is infinite."""
+    safe = torch.zeros(P_ROWS, 1, dtype=pcols.dtype, device=pcols.device)
+    safe[_R] = 1.0
+    safe[_IOR] = 1.0
+    pc = torch.where(cont, pcols, safe)
+    o_dot_d = _dot3(o, d)
+    o_sq = _dot3(o, o)
+    d_dot_c = pc[_CX : _CX + 1] * d[0:1] + pc[_CY : _CY + 1] * d[1:2] + pc[_CZ : _CZ + 1] * d[2:3]
+    cc_part = (
+        pc[_CSQR2 : _CSQR2 + 1]
+        + pc[_M2CX : _M2CX + 1] * o[0:1]
+        + pc[_M2CY : _M2CY + 1] * o[1:2]
+        + pc[_M2CZ : _M2CZ + 1] * o[2:3]
+    )
+    half_b = o_dot_d - d_dot_c
+    cc = o_sq + cc_part
+    disc = torch.where(cont, half_b * half_b - cc, 1.0)
+    sqrt_d = _sqrt(torch.clamp(disc, min=1e-12))
+    root_near = -half_b - sqrt_d
+    root_far = -half_b + sqrt_d
+    t = torch.where(root_near > t_min, root_near, root_far)
+    p, n_vec, front_face = _surface(o, d, torch.where(cont, t, 1.0), pc)
+    new_dir, mat_atten, _ = _scatter_block(d, n_vec, front_face, pc, stream, ctr)
+    o2 = torch.where(cont, p, o)
+    d2 = torch.where(cont, new_dir, d)
+    att2 = torch.where(cont, att * mat_atten, att)
+    return o2, d2, att2, torch.where(miss, att * _sky(d), 0.0)
+
+
+def _bounce_vjp(o, d, att, pcols, cont, miss, stream, ctr, t_min, cotangents):
+    """(o_bar, d_bar, att_bar, pcols_bar) of `_bounce_f` at the given
+    point for the cotangents of its four outputs."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_() for x in (o, d, att, pcols)]
+        outs = _bounce_f(*leaves, cont, miss, stream, ctr, t_min)
+        bars = torch.autograd.grad(outs, leaves, grad_outputs=cotangents, allow_unused=True)
+    return [torch.zeros_like(x) if b is None else b for x, b in zip(leaves, bars)]
+
+
+@dataclasses.dataclass
+class _Step:
+    """One bounce of the lanes `live` still on their path: the pre-bounce
+    state, the winner's parameter column and index, and the event."""
+
+    live: torch.Tensor  # [L] positions among the replayed lanes
+    o: torch.Tensor
+    d: torch.Tensor
+    att: torch.Tensor
+    params: torch.Tensor  # [16, L]; 0 on a miss
+    best: torch.Tensor  # [1, L] winning sphere
+    cont: torch.Tensor  # [1, L] bool
+    miss: torch.Tensor  # [1, L] bool
+    stream: tuple
+    depth: int
+
+
+def _lanes(camc, seed, pix):
+    """(px, py, h0) of global pixel ids `pix` [1, L] int64."""
+    width = camc[-1]
+    return (pix % width).to(torch.float32), (pix // width).to(torch.float32), _pcg(
+        _u32(pix) ^ _pcg(seed & _U32)
+    )
+
+
+def _replay(p_mat, camc, t_min, lanes, s_global, max_depth):
+    """Replay global sample `s_global` of every lane with the forward's
+    plain functions -> its bounces, a list of `_Step`."""
+    px, py, h0 = lanes
+    o, d, lo, hi = _camera_ray_block(camc, h0, px, py, torch.full_like(h0, s_global))
+    o = o.clone()  # without defocus it is a broadcast view of the camera center
+    att = torch.ones_like(o)
+    live = torch.arange(o.shape[1], device=o.device)
+    steps = []
+    for depth in range(max_depth):
+        if live.numel() == 0:
+            break
+        o_l, d_l, att_l = o[:, live], d[:, live], att[:, live]
+        stream = (lo[:, live], hi[:, live])
+        hit, params, best, p, new_dir, mat_atten, ok = _hit_and_scatter(
+            p_mat, t_min, o_l, d_l, depth, stream
+        )
+        cont = hit & ok & (depth + 1 < max_depth)
+        steps.append(_Step(live, o_l, d_l, att_l, params, best, cont, ~hit, stream, depth))
+        c = cont[0]
+        live = live[c]
+        o[:, live], d[:, live] = p[:, c], new_dir[:, c]
+        att[:, live] = att_l[:, c] * mat_atten[:, c]
+    return steps
+
+
+def record_bounces(p_mat, cam_vec, seed, pix, spp, max_depth):
+    """The bounces that continue, replayed for global pixel ids `pix` [L]
+    over samples [0, spp): dict of o, d, att [3, n] f32 and winner, lo,
+    hi, depth [n] int32 (stream words as int32 bits) — the inputs of the
+    hand-written adjoint's check against `_bounce_f`."""
+    camc = _unpack_cam(cam_vec)
+    lanes = _lanes(camc, seed, pix.to(torch.int64)[None])
+    rec = {k: [] for k in ("o", "d", "att", "winner", "lo", "hi", "depth")}
+    for s in range(spp):
+        for st in _replay(p_mat, camc, float(cam_vec[20]), lanes, s, max_depth):
+            c = st.cont[0]
+            for k, v in (("o", st.o), ("d", st.d), ("att", st.att)):
+                rec[k].append(v[:, c])
+            rec["winner"].append(st.best[0, c])
+            rec["lo"].append(st.stream[0][0, c])
+            rec["hi"].append(st.stream[1][0, c])
+            rec["depth"].append(torch.full_like(st.best[0, c], st.depth))
+    out = {k: torch.cat(v, dim=-1) for k, v in rec.items()}
+    return {k: _as_i32(v) if v.dtype == torch.int64 else v for k, v in out.items()}
+
+
+def _grad_lanes(p_mat, camc, t_min, seed, sample_offset, n_live, spp, max_depth, pix, g, grads):
+    """The plain backward over one chunk of lanes, added into `grads`."""
+    keep = (pix < n_live).nonzero()[:, 0]
+    if keep.numel() == 0:
+        return
+    lanes = _lanes(camc, seed, pix[keep].to(torch.int64)[None])
+    g = g[:, keep]
+    zeros3 = torch.zeros(3, keep.numel(), dtype=torch.float32, device=pix.device)
+    for s in range(spp):
+        steps = _replay(p_mat, camc, t_min, lanes, s + sample_offset, max_depth)
+        # Reverse: adjoints start at zero for the sample.
+        obar, dbar, attbar = zeros3.clone(), zeros3.clone(), zeros3.clone()
+        for st in reversed(steps):
+            live = st.live
+            cot = (obar[:, live], dbar[:, live], attbar[:, live], g[:, live])
+            bars = _bounce_vjp(st.o, st.d, st.att, st.params, st.cont, st.miss, st.stream,
+                               8 + st.depth * 16, t_min, cot)
+            ob, db, ab, pb = (torch.clamp(b, -GRAD_CLIP, GRAD_CLIP) for b in bars)
+            obar[:, live], dbar[:, live], attbar[:, live] = ob, db, ab
+            grads.index_add_(1, st.best[0], pb)
+
+
+def _grad_pass_plain(p_mat, cam_vec, scalars, pix, g, spp, max_depth):
+    """The backward over lanes in plain PyTorch -> [16, N] cotangent of
+    `p_mat`.
+
+    The same computation as `csrc/grad_kernel.cu`, vectorized over lanes
+    in chunks. `scalars` = (seed, pixel_offset, sample_offset, n_live);
+    `pix` [P] int holds each lane's global pixel id in any order (lanes
+    with id >= n_live are idle); `g` [3, P] the matching radiance
+    cotangent of one sample (the image cotangent / spp)."""
+    seed, _pixel_offset, sample_offset, n_live = (int(v) for v in scalars)
+    camc = _unpack_cam(cam_vec)
+    t_min = float(cam_vec[20])
+    grads = torch.zeros_like(p_mat)
+    chunk = _PLAIN_CHUNK.get(pix.device.type, _PLAIN_CHUNK["cpu"])
+    for a in range(0, pix.shape[0], chunk):
+        _grad_lanes(p_mat, camc, t_min, seed, sample_offset, n_live, spp, max_depth,
+                    pix[a : a + chunk], g[:, a : a + chunk], grads)
+    return grads
+
+
+# Words 1-13 of a backward kernel event hold these rows of a sphere's
+# cotangent; r^2, mat and active (rows 4, 10, 11) never get one.
+_EVENT_ROWS = (0, 1, 2, 3, 5, 6, 7, 8, 9, 12, 13, 14, 15)
+
+
+def _reduce_events_plain(events, n_spheres):
+    """The plain version of the backward kernel's reduction: events
+    [E, 16] (word 0 the winner as int32 bits, -1 for none) -> [16, N]."""
+    idx = events[:, 0].contiguous().view(torch.int32).to(torch.int64)
+    keep = idx >= 0
+    out = torch.zeros(P_ROWS, n_spheres, dtype=torch.float32, device=events.device)
+    out[list(_EVENT_ROWS)] = out[list(_EVENT_ROWS)].index_add(1, idx[keep], events[keep, 1:14].T)
+    return out
+
+
+def _grad_pass(p_mat, cam_vec, scalars, pix, g, work, tile, spp, max_depth):
+    """The backward: the CUDA kernel for CUDA tensors (it raises if it
+    cannot launch or if its replay diverges from the forward; there is no
+    fallback), the plain version for CPU tensors. `work` [n_live] is the
+    forward's per-pixel bounce count in pixel order: the kernel's event
+    slots. The plain version does not need it."""
+    if g.device.type == "cuda":
+        from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+
+        return build.grad_pass(
+            p_mat.T.contiguous(), cam_vec, scalars, pix, g, work, tile, spp, max_depth
+        )
+    return _grad_pass_plain(p_mat, cam_vec, scalars, pix, g, spp, max_depth)
+
+
+# ---------------------------------------------------------------------------
+# The differentiable render.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class _DiffCfg:
+    n_pixels: int
+    seed: int
+    spp: int
+    max_depth: int
+    tile: int
+    bwd_tile: int
+    n_passes: int
+    budget: int
+    sample_offset: int
+
+
+class _DiffRender(torch.autograd.Function):
+    """(p_mat, cam_vec, hint) -> (rad [3, n], work [n]): the render with the
+    backward kernel as its vector-Jacobian product. `work`, the per-pixel
+    bounce count, is scheduling metadata and has no gradient."""
+
+    @staticmethod
+    def forward(ctx, p_mat, cam_vec, cfg: _DiffCfg, hint):
+        n = cfg.n_pixels
+        padded = -(-n // cfg.tile) * cfg.tile
+        sf, si = _init_state(0, padded, n, cfg.spp, p_mat.device)
+        work_perm = None
+        if hint is not None:
+            # Warm start: lanes sorted by a previous step's cost map.
+            padded_hint = torch.zeros(padded, dtype=torch.float32, device=p_mat.device)
+            padded_hint[:n] = hint
+            work_perm = _perm_from_hint(padded_hint)
+        rad, work = _multipass(
+            p_mat, cam_vec, (cfg.seed, 0, cfg.sample_offset, 0), sf, si, cfg.tile, cfg.spp,
+            cfg.max_depth, cfg.budget, cfg.n_passes, _render_pass, work_perm=work_perm,
+        )
+        rad, work = rad[:, :n].contiguous(), work[:n].contiguous()
+        ctx.save_for_backward(p_mat, cam_vec, work)
+        ctx.cfg = cfg
+        ctx.mark_non_differentiable(work)
+        return rad, work
+
+    @staticmethod
+    def backward(ctx, grad_rad, _grad_work):
+        p_mat, cam_vec, work = ctx.saved_tensors
+        cfg = ctx.cfg
+        pix, g = _bwd_lanes(work, grad_rad, cfg.spp, cfg.bwd_tile)
+        grads = _grad_pass(
+            p_mat, cam_vec, (cfg.seed, 0, cfg.sample_offset, cfg.n_pixels), pix, g, work,
+            cfg.bwd_tile, cfg.spp, cfg.max_depth,
+        )
+        return grads, None, None, None
+
+
+def _bwd_lanes(work, grad_rad, spp, bwd_tile):
+    """The backward's lanes -> (pix [P] int32, g [3, P]): lane i replays
+    pixel pix[i], the pixels sorted by descending cost (`work`, this
+    step's own cost map: each block then holds paths of similar length),
+    with its radiance cotangent per sample (the pixel's / spp, since the
+    output is the mean over samples). Pad lanes carry ids past the image
+    and idle."""
+    n = work.numel()
+    padded = -(-n // bwd_tile) * bwd_tile
+    g = torch.zeros(3, padded, dtype=torch.float32, device=work.device)
+    if grad_rad is not None:
+        g[:, :n] = grad_rad / spp
+    cost = torch.zeros(padded, dtype=torch.float32, device=work.device)
+    cost[:n] = work
+    perm = _cost_perm(cost)
+    return perm.to(torch.int32), g[:, perm].contiguous()
+
+
+def params_vjp(scene: Scene, p_bar: torch.Tensor) -> dict:
+    """Gradients of the scene's differentiable fields from a cotangent
+    `p_bar` [16, N] of its packed matrix (the chain rule through
+    `pack_scene`, as the backward of `render_cuda_diff` applies it)."""
+    leaves = {k: v.detach().requires_grad_() for k, v in scene_params(scene).items()}
+    with torch.enable_grad():
+        p_mat = pack_scene(scene_with_params(scene, leaves))
+        grads = torch.autograd.grad(p_mat, list(leaves.values()), grad_outputs=p_bar)
+    return dict(zip(leaves, grads))
+
+
+def render_cuda_diff(
+    scene: Scene,
+    cam: Camera,
+    seed: int = 0,
+    spp: int | None = None,
+    max_depth: int | None = None,
+    tile: int = DEFAULT_TILE,
+    bwd_tile: int = DEFAULT_BWD_TILE,
+    n_passes: int = 1,
+    budget: int | None = None,
+    sample_offset: int = 0,
+    work_hint: torch.Tensor | None = None,
+    return_work: bool = False,
+):
+    """Differentiable render -> [H, W, 3] float32 on the scene's device.
+
+    Its value equals `render_cuda`'s bit for bit. Under autograd, the
+    scene's center, radius, albedo, fuzz and ior get gradients from the
+    backward kernel (`csrc/grad_kernel.cu` on a CUDA scene, the plain
+    version on a CPU scene); the camera gets none.
+
+    `work_hint` ([H, W] or flat: a previous step's cost map) sorts the
+    forward's lanes by cost before the first pass; with `return_work` the
+    step's own map comes back for the next step. Neither changes a pixel
+    or a gradient. `n_passes` is 1 by default with or without a hint: the
+    port has no tail compaction, so more passes buy nothing. The JAX
+    package's `interpret` and `bwd_group` are TPU scheduling knobs and
+    have no counterpart: the backward runs one sample after another in
+    each lane."""
+    _check_tile(tile)
+    _check_tile(bwd_tile)
+    spp = cam.samples_per_pixel if spp is None else spp
+    max_depth = cam.max_depth if max_depth is None else max_depth
+    n = cam.num_pixels
+    cfg = _DiffCfg(
+        n_pixels=n, seed=seed, spp=spp, max_depth=max_depth, tile=tile, bwd_tile=bwd_tile,
+        n_passes=n_passes, budget=_default_budget(spp) if budget is None else budget,
+        sample_offset=sample_offset,
+    )
+    p_mat = pack_scene(scene)
+    cam_vec = pack_camera(cam).to(scene.device)
+    hint = None
+    if work_hint is not None:
+        hint = work_hint.reshape(-1)[:n].to(device=scene.device, dtype=torch.float32)
+    rad, work = _DiffRender.apply(p_mat, cam_vec, cfg, hint)
+    img = rad.T.reshape(cam.image_height, cam.image_width, 3)
+    if return_work:
+        return img, work.reshape(cam.image_height, cam.image_width)
+    return img
+
+
+def render_loss_cuda(params: dict, scene: Scene, cam: Camera, target: torch.Tensor,
+                     return_work: bool = False, **kw):
+    """Mean squared pixel error of the render of `scene` with `params`
+    against `target`; with `return_work`, (loss, [H, W] cost map)."""
+    out = render_cuda_diff(scene_with_params(scene, params), cam, return_work=return_work, **kw)
+    img, work = out if return_work else (out, None)
+    loss = torch.mean((img - target) ** 2)
+    return (loss, work) if return_work else loss
+
+
+def render_grads_cuda(params: dict, scene: Scene, cam: Camera, target: torch.Tensor,
+                      return_work: bool = False, **kw):
+    """(loss, grads) of the render with respect to `params`, one gradient
+    per field; with `return_work`, ((loss, work), grads)."""
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    out = render_loss_cuda(leaves, scene, cam, target, return_work=return_work, **kw)
+    loss, work = out if return_work else (out, None)
+    grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    loss = loss.detach()
+    return ((loss, work), grads) if return_work else (loss, grads)
+
+
+def train_step_cuda(params: dict, scene: Scene, cam: Camera, target: torch.Tensor,
+                    lr: float = 1e-2, work_hint=None, return_work: bool = False, **kw):
+    """One SGD step of inverse rendering -> (loss, new_params), or (loss,
+    new_params, work) with `return_work`. Pass the previous step's `work`
+    back as `work_hint` to warm-start the forward (the warm carry): the
+    loss and gradients do not change."""
+    (loss, work), grads = render_grads_cuda(
+        params, scene, cam, target, return_work=True, work_hint=work_hint, **kw
+    )
+    new_params = {k: (params[k] - lr * grads[k]).detach() for k in params}
+    return (loss, new_params, work) if return_work else (loss, new_params)

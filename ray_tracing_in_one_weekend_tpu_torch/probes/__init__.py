@@ -4,6 +4,7 @@ needs one CUDA GPU with nvcc:
 
     python -m ray_tracing_in_one_weekend_tpu_torch.probes.fma_contraction
     python -m ray_tracing_in_one_weekend_tpu_torch.probes.device_idle
+    python -m ray_tracing_in_one_weekend_tpu_torch.probes.grad_step
 
 Nothing on the render path imports them.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import subprocess
 
+import numpy as np
 import torch
 
 from ray_tracing_in_one_weekend_tpu_torch.models.camera import make_camera
@@ -50,6 +52,41 @@ def lane_inputs(scene, cam, tile=128):
     n = cam.image_width * cam.image_height
     sf, si = cr._init_state(0, -(-n // tile) * tile, n, cam.samples_per_pixel, scene.device)
     return cr.pack_scene(scene), cr.pack_camera(cam), sf, si, n
+
+
+def random_cotangent(shape, seed, device) -> torch.Tensor:
+    """Standard normal float32 of `shape` from numpy's generator `seed`."""
+    x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    return torch.from_numpy(x).to(device)
+
+
+def rel_l2(a, b) -> float:
+    return float((a - b).double().norm() / b.double().norm().clamp_min(1e-30))
+
+
+def adjoint_errors(scene, cam, seed=0):
+    """The hand-written bounce adjoint (`csrc/grad_device.cuh`) against
+    torch.autograd of the plain `_bounce_f`, on every continuing bounce of
+    `cam`'s image with random output cotangents -> (bounce count, relative
+    L2 error of each input cotangent: o, d, att, params)."""
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_grad as cg
+
+    dev = scene.device
+    p_mat, cam_vec = cr.pack_scene(scene), cr.pack_camera(cam)
+    rec = cg.record_bounces(p_mat, cam_vec, seed, torch.arange(cam.num_pixels, device=dev),
+                            cam.samples_per_pixel, cam.max_depth)
+    m = rec["o"].shape[1]
+    cot = [random_cotangent((3, m), 10 + i, dev) for i in range(3)]
+    kernel = build.bounce_adjoint(p_mat.T.contiguous(), float(cam_vec[20]), rec, *cot)
+    ones = torch.ones(1, m, dtype=torch.bool, device=dev)
+    plain = cg._bounce_vjp(
+        rec["o"], rec["d"], rec["att"], p_mat[:, rec["winner"].long()], ones, ~ones,
+        (cr._u32(rec["lo"])[None], cr._u32(rec["hi"])[None]), 8 + 16 * rec["depth"].long()[None],
+        float(cam_vec[20]), (*cot, torch.zeros_like(cot[0])),
+    )
+    names = ("o", "d", "att", "params")
+    return m, {name: rel_l2(k, p) for name, k, p in zip(names, kernel, plain)}
 
 
 def ptxas_summary(log: str) -> str:

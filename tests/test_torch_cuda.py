@@ -1,8 +1,8 @@
 """The CUDA kernel against its plain PyTorch version, on the card.
 
 These tests need an NVIDIA GPU with nvcc (they build csrc/ on first use)
-and skip without one. They repeat phases 3-5 of chip_smoke.py, and check
-that the wrapper refuses what the kernel does not take. On the card:
+and skip without one. They repeat phases 3-5 and 7a of chip_smoke.py, and
+check that the wrappers refuse what the kernels do not take. On the card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 """
@@ -101,3 +101,75 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
     big = cr.pack_scene(scene_lib.three_sphere_scene(pad_to=1024, device=dev)).T.contiguous()
     with pytest.raises(ValueError, match="shared-memory"):
         build.render_pass(big, *args)
+
+
+def test_hand_adjoint_matches_autograd_of_bounce_f(dev):
+    """grad_device.cuh's adjoint against torch.autograd of the plain
+    `_bounce_f` on every continuing bounce of the cover scene at 64x32,
+    spp 4, depth 8, with random output cotangents: relative L2 <= 3e-5 on
+    each of the four input cotangents (chip_smoke.py phase 7a's gate)."""
+    from ray_tracing_in_one_weekend_tpu_torch.probes import adjoint_errors
+
+    m, errs = adjoint_errors(scene_lib.cover_scene_reference(device=dev), _cam(dev))
+    assert m > 1000
+    for name, e in errs.items():
+        assert e <= 3e-5, (name, e)
+
+
+def test_gradients_reproducible_across_runs_and_tiles(dev):
+    """The kernel's gradient is the same bits run after run and for
+    bwd_tile 128 and 256 (no float atomics; a fixed reduction order), and
+    agrees with the plain version on the card per field to 2e-4 relative
+    L2 (chip_smoke.py phase 7a's gate)."""
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_grad as cg
+    from ray_tracing_in_one_weekend_tpu_torch.probes import rel_l2
+
+    scene = scene_lib.cover_scene_reference(device=dev)
+    cam = _cam(dev)
+    target = torch.zeros(cam.image_height, cam.image_width, 3, device=dev)
+    params = cg.scene_params(scene)
+    _, g1 = cg.render_grads_cuda(params, scene, cam, target)
+    _, g2 = cg.render_grads_cuda(params, scene, cam, target)
+    _, g3 = cg.render_grads_cuda(params, scene, cam, target, bwd_tile=256)
+    img, work = cg.render_cuda_diff(scene, cam, return_work=True)
+    n = cam.num_pixels
+    pix, g = cg._bwd_lanes(work.reshape(-1), (2.0 / (3 * n) * img).reshape(n, 3).T, 4, 128)
+    p_mat, cam_vec = cr.pack_scene(scene), cr.pack_camera(cam)
+    gp = cg.params_vjp(scene, cg._grad_pass_plain(p_mat, cam_vec, (0, 0, 0, n), pix, g, 4, 8))
+    for k in cg.DIFF_FIELDS:
+        assert torch.equal(g1[k], g2[k]) and torch.equal(g1[k], g3[k]), k
+        assert bool(torch.isfinite(g1[k]).all()), k
+        assert rel_l2(g1[k], gp[k]) <= 2e-4, (k, rel_l2(g1[k], gp[k]))
+
+
+def test_grad_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_grad as cg
+
+    scene = scene_lib.three_sphere_scene(pad_to=128, device=dev)
+    cam = _cam(dev)
+    n = cam.num_pixels
+    p_mat, cam_vec = cr.pack_scene(scene), cr.pack_camera(cam)
+    table = p_mat.T.contiguous()
+    _, work = cr.render_cuda(scene, cam, return_work=True)
+    work = work.reshape(-1)
+    pix, g = cg._bwd_lanes(work, torch.ones(3, n, device=dev), 4, 128)
+    args = (cam_vec, (0, 0, 0, n), pix, g, work, 128, 4, 8)
+    assert build.grad_replay(table, *args).shape == (int(work.sum()), 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        build.grad_replay(p_mat.T, *args)
+    with pytest.raises(TypeError, match="dtype"):
+        build.grad_replay(table, cam_vec, (0, 0, 0, n), pix.long(), g, work, 128, 4, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        build.grad_replay(table.cpu(), cam_vec.cpu(), (0, 0, 0, n), pix.cpu(), g.cpu(), work.cpu(),
+                          128, 4, 8)
+    for tile in (100, 1024):
+        with pytest.raises(ValueError, match="tile"):
+            build.grad_replay(table, cam_vec, (0, 0, 0, n), pix, g, work, tile, 4, 8)
+    with pytest.raises(ValueError, match="whole bounce counts"):
+        build.grad_replay(table, cam_vec, (0, 0, 0, n), pix, g, work + 0.5, 128, 4, 8)
+    with pytest.raises(RuntimeError, match="diverged"):
+        build.grad_replay(table, cam_vec, (0, 0, 0, n), pix, g, work + 1.0, 128, 4, 8)
+    big = cr.pack_scene(scene_lib.three_sphere_scene(pad_to=1024, device=dev)).T.contiguous()
+    with pytest.raises(ValueError, match="shared-memory"):
+        build.grad_replay(big, *args)
