@@ -5,9 +5,10 @@
 Run from the root of a checkout. It builds the hand-written kernels from
 `ray_tracing_in_one_weekend_tpu_torch/csrc/` with nvcc (into the ignored
 `build/kernels/`), checks each against its plain PyTorch version on the
-card, and drives the port's two paths at the bench preset (the cover
-scene, 1200x800, 10 spp, depth 50) through the kernels: the render CLI,
-and the fwd+bwd train step of inverse rendering.
+card, and drives the port's three paths at the bench preset (the cover
+scene, 1200x800, 10 spp, depth 50) through the kernels: the render CLI
+with its lane scheduler, the fwd+bwd train step of inverse rendering, and
+the occupancy and roofline probes.
 
 Phases, one line each; any failure raises and the script exits non-zero
 without the result lines:
@@ -21,7 +22,8 @@ without the result lines:
    and NaN-as-miss: rays aimed away from every sphere all see the sky;
 5. n_passes=3, budget=3 bit-identical to one pass;
 6. the main path: the CLI at full width through the kernel (launch count
-   > 0, P3 header, finite pixels, render seconds and Mrays/s); the kernel
+   > 0, P3 header, finite pixels, render seconds and Mrays/s; the timed
+   render is the warm one, a hit of the schedule cache); the kernel
    against the plain version at the main path's shapes (times; the lane
    states must be bit-identical, as the build without FMA contraction
    makes them); and the 150x100 CLI render against the plain version
@@ -40,7 +42,20 @@ without the result lines:
       with a zero target, a cold step then warm steps with the work_hint
       carry (seconds, Mrays/s, launch counts, peak memory, finite
       gradients);
-   d. the inverse-render demo on the card: exit 0 (albedo error halved).
+   d. the inverse-render demo on the card: exit 0 (albedo error halved);
+8. the lane scheduler on the card: at 64x32 and at the bench preset, the
+   3-pass compacted render, a work_hint render and a warm cache hit each
+   bit-identical to one pixel-order pass; a render of another seed misses
+   the cache and runs cold; then render times at the bench preset, cold
+   for 1-4 passes and warm for 1-4 passes (best and median of 7 rounds
+   that take the settings in turn);
+9. the probe path (`probes/kernel_parts.py`, `probes/perf_probe.py`,
+   `csrc/probe_kernels.cu`): each of the five probe kernels against its
+   plain version at 256 columns and at the scripts' 2048 columns, within
+   its gate (`kernel_parts.GATES`); then both probes through their entry
+   points (launch counts of all five kernels and render_kernel), and the
+   kernels' times at 2048 columns and at 131072 (enough to fill the card)
+   with their bounds and the torch.matmul yardsticks.
 
 Then it prints nvidia-smi's line, a JSON line of per-kernel results, and
 last `{"ok": true, "device": {...}}`. It imports no JAX.
@@ -186,6 +201,7 @@ def phase_grad_subset(scene, cam, n_lanes=16384):
     from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_grad as cg
     from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_render as cr
     from ray_tracing_in_one_weekend_tpu_torch.probes import cuda_ms, random_cotangent, rel_l2
+    from ray_tracing_in_one_weekend_tpu_torch.probes import kernel_parts as kp
 
     spp, depth, n = cam.samples_per_pixel, cam.max_depth, cam.num_pixels
     p_mat, cam_vec = cr.pack_scene(scene), cr.pack_camera(cam)
@@ -214,9 +230,24 @@ def phase_grad_subset(scene, cam, n_lanes=16384):
     reduce_err = rel_l2(pk, pr)
     reduce_abs_err = float((pk - pr).abs().max())
     check(reduce_err <= 1e-5, f"phase 7b: reduction vs plain rel L2 {reduce_err:.2e} > 1e-5")
+    # The library yardstick of the reduction: one index_add_ of the same
+    # events' cotangent rows into their spheres' columns.
+    idx = events[:, 0].contiguous().view(torch.int32).to(torch.int64)
+    keep = idx >= 0
+    idx, vals = idx[keep], events[keep, 1:14].T.contiguous()
+    acc = torch.zeros(13, p_mat.shape[1], device=DEVICE)
+    library_ms = cuda_ms(lambda: acc.index_add_(1, idx, vals), reps=3)
+    # Bounds: the replay's sweep (15 operations per sphere test, one sweep
+    # per bounce; the adjoint's own operations not counted) against its
+    # inputs and the events it writes; the reduction's event reads.
+    n_events, n_slots = events.shape[0], p_mat.shape[1]
+    replay_bytes = 4.0 * (16 * n_slots + 24 + n_lanes * 4 + work.numel()) + 64.0 * n_events
+    replay_bound = kp.bound_ms(float(n_events) * n_slots * kp.OPS_PER_SPHERE_TEST, replay_bytes)
+    reduce_bound = kp.bound_ms(13.0 * n_events, 64.0 * n_events + 4.0 * 16 * n_slots)
     return dict(errs=errs, max_abs_err=max_abs, replay_ms=replay_ms, reduce_ms=reduce_ms, plain_ms=plain_ms,
                 reduce_plain_ms=reduce_plain_ms, reduce_err=reduce_err,
-                reduce_abs_err=reduce_abs_err, n_events=events.shape[0])
+                reduce_abs_err=reduce_abs_err, n_events=n_events, replay_bound=replay_bound,
+                reduce_bound=reduce_bound, reduce_library_ms=library_ms)
 
 
 def phase_train_step(scene, cam, warm_reps=3):
@@ -227,6 +258,7 @@ def phase_train_step(scene, cam, warm_reps=3):
 
     from ray_tracing_in_one_weekend_tpu_torch.kernels import build
     from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_grad as cg
+    from ray_tracing_in_one_weekend_tpu_torch.probes import kernel_parts as kp
 
     params = cg.scene_params(scene)
     target = torch.zeros(cam.image_height, cam.image_width, 3, device=DEVICE)
@@ -247,6 +279,12 @@ def phase_train_step(scene, cam, warm_reps=3):
         warm.append(time.perf_counter() - t0)
     launches = dict(build.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # Full-width bounds of the backward's two kernels, from this step's
+    # bounce count: the replay's sweep (one per bounce) against its
+    # 64-byte events, and the reduction's event reads.
+    n_events, n_slots = float(work.double().sum()), params["center"].shape[0]
+    replay_bound = kp.bound_ms(n_events * n_slots * kp.OPS_PER_SPHERE_TEST, 64.0 * n_events)
+    reduce_bound = kp.bound_ms(13.0 * n_events, 64.0 * n_events)
     check(bool(torch.isfinite(loss)) and float(loss) > 0.0, "phase 7c: bad loss")
     for k, v in grads.items():
         check(bool(torch.isfinite(v).all()), f"phase 7c: non-finite {k} gradient")
@@ -255,7 +293,150 @@ def phase_train_step(scene, cam, warm_reps=3):
         check(launches[name] > 0, f"phase 7c: the train step never launched {name}")
     return dict(cold_s=cold_s, warm_s=warm, mrays=[rays / t / 1e6 for t in warm],
                 cold_mrays=rays / cold_s / 1e6, launches=launches, peak_gb=peak_gb,
-                loss=float(loss))
+                loss=float(loss), n_events=n_events, replay_bound=replay_bound,
+                reduce_bound=reduce_bound)
+
+
+def phase_scheduler(scene, cam, label):
+    """8: compaction, a work_hint and a warm cache hit against one
+    pixel-order pass (bit-identical), and a miss on another seed runs the
+    cold schedule (DEFAULT_PASSES launches) and refills the entry."""
+    import torch
+
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_render as cr
+
+    cr._WORK_CACHE.clear()
+    one, work = cr.render_cuda(scene, cam, n_passes=1, warm=False, return_work=True)
+    check(torch.equal(cr.render_cuda(scene, cam, n_passes=3, warm=False), one),
+          f"{label}: the 3-pass compacted render differs from one pixel-order pass")
+    check(torch.equal(cr.render_cuda(scene, cam, work_hint=work), one),
+          f"{label}: the work_hint render differs from one pixel-order pass")
+    check(torch.equal(cr.render_cuda(scene, cam), one), f"{label}: the cache-filling render differs")
+    check(cr.warm_cache_hit(scene, cam), f"{label}: the cold render did not fill the cache")
+    build.reset_launches()
+    check(torch.equal(cr.render_cuda(scene, cam), one), f"{label}: the warm cache hit differs")
+    check(build.LAUNCHES["render_kernel"] == 1, f"{label}: the warm hit ran {build.LAUNCHES} launches")
+    check(not cr.warm_cache_hit(scene, cam, seed=1), f"{label}: seed 1 would hit seed 0's entry")
+    build.reset_launches()
+    miss = cr.render_cuda(scene, cam, seed=1)
+    check(build.LAUNCHES["render_kernel"] == cr.DEFAULT_PASSES,
+          f"{label}: the miss ran {build.LAUNCHES['render_kernel']} passes, not the cold schedule")
+    check(torch.equal(miss, cr.render_cuda(scene, cam, seed=1, n_passes=1, warm=False)),
+          f"{label}: the seed-1 miss differs from one pixel-order pass")
+    check(next(iter(cr._WORK_CACHE.values()))[1] == 1, f"{label}: the miss did not refill the entry")
+
+
+def phase_pass_times(scene, cam, rounds=7):
+    """8: render seconds at the bench preset, cold (warm=False) and warm (a
+    cache hit) for 1-4 passes: (best, median) of `rounds` rounds, each of
+    which times every setting once in turn, after one warm-up of each."""
+    import statistics
+
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_render as cr
+
+    settings = {f"{kind} {n}": dict(n_passes=n, warm=kind == "warm")
+                for kind in ("cold", "warm") for n in (1, 2, 3, 4)}
+    cr._WORK_CACHE.clear()
+    cr.render_cuda(scene, cam)  # fills the cache for seed 0: every warm render hits
+    for kw in settings.values():
+        cr.render_cuda(scene, cam, **kw)
+    times = {k: [] for k in settings}
+    for _ in range(rounds):
+        for k, kw in settings.items():
+            torch_sync()
+            t0 = time.perf_counter()
+            cr.render_cuda(scene, cam, **kw)
+            torch_sync()
+            times[k].append(time.perf_counter() - t0)
+    return {k: (min(ts), statistics.median(ts)) for k, ts in times.items()}
+
+
+PROBE_REPLACES = {
+    "chain_fma": "scripts/perf_probe.py:47",
+    "fma_peak": "scripts/kernel_parts_probe.py:67",
+    "sweep_probe": "scripts/kernel_parts_probe.py:101",
+    "gather_probe": "scripts/kernel_parts_probe.py:148",
+    "skinny_probe": "scripts/kernel_parts_probe.py:196",
+}
+
+
+def phase_probes():
+    """9: the five probe kernels against their plain versions, then the
+    probe path through its entry points with the launch counts set to 0,
+    then each kernel's time at the scripts' 2048 columns and at 131072."""
+    import torch
+
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.probes import kernel_parts as kp
+    from ray_tracing_in_one_weekend_tpu_torch.probes import perf_probe as pp
+
+    names = tuple(PROBE_REPLACES)
+    dev = torch.device(DEVICE, 0)
+    res = {}
+    for name in names:
+        full = kp.CHAIN if name == "chain_fma" else 64
+        for tile, reps in ((256, 64 if name == "chain_fma" else 4), (kp.JAX_TILE, full)):
+            args = kp.inputs(name, tile, dev)
+            got = kp.run(name, args, reps)
+            torch_sync()
+            t0 = time.perf_counter()
+            want = kp.run_plain(name, args, reps)
+            torch_sync()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            err = kp.error(name, got, want)
+            check(err <= kp.GATES[name],
+                  f"phase 9: {name} at {tile} columns, reps {reps}: error {err:.2e} > {kp.GATES[name]}")
+            finite = want < 1e29  # a miss of the sweep adds T_MISS = 1e30
+            res[name] = dict(err=err, plain_ms=plain_ms, reps=reps,
+                             max_abs_err=float((got - want)[finite].abs().max()))
+    build.reset_launches()
+    parts = kp.main([str(kp.JAX_TILE), "64"])
+    probe = pp.main([])
+    launches = dict(build.LAUNCHES)
+    for name in (*names, "render_kernel"):
+        check(launches[name] > 0, f"phase 9: the probe path never launched {name}")
+    parts["chain_fma"] = [kp.time_part("chain_fma", t, kp.CHAIN, dev) for t in (kp.JAX_TILE, kp.FILL_TILE)]
+    for name in names:
+        res[name]["launches"] = launches[name]
+        res[name]["timing"], res[name]["fill"] = parts[name]
+    return res, probe
+
+
+def probe_entry(name, v):
+    """The `kernels` JSON entry of probe kernel `name` (phase 9 results)."""
+    from ray_tracing_in_one_weekend_tpu_torch.probes import kernel_parts as kp
+
+    t, f = v["timing"], v["fill"]
+    entry = {
+        "name": name,
+        "route": "cuda",
+        "source": f"{PKG}/csrc/probe_kernels.cu",
+        "replaces": PROBE_REPLACES[name],
+        "launches": v["launches"],
+        "max_abs_err": v["max_abs_err"],
+        "ms": t.ms,
+        "plain_ms": v["plain_ms"],
+        "bound_ms": t.bound_ms,
+        "bound_by": t.bound_by,
+        "library_ms": t.library_ms,
+        "tolerance": (f"error {v['err']:.3e} against the plain version at {t.tile} columns, reps "
+                      f"{v['reps']} (and at 256 columns), gate {kp.GATES[name]:g}: "
+                      + ("per lane relative in t with equal miss lanes; max_abs_err over the "
+                         "hit lanes" if name == "sweep_probe" else "relative to the largest plain value")),
+        "shapes": f"ms, plain_ms, bound_ms at {t.tile} columns, reps {t.reps}; *_fill at {f.tile}",
+        "tflops": t.rate / 1e12,
+        "ms_fill": f.ms,
+        "bound_ms_fill": f.bound_ms,
+        "tflops_fill": f.rate / 1e12,
+    }
+    if t.library_ms is not None:
+        entry["library"] = f"{t.reps} x torch.matmul of the same product, float32 (TF32 off)"
+        entry["library_ms_fill"] = f.library_ms
+    if t.library_tf32_ms is not None:
+        entry["library_tf32_ms"] = t.library_tf32_ms
+        entry["library_tf32_ms_fill"] = f.library_tf32_ms
+    return entry
 
 
 def main() -> int:
@@ -283,6 +464,7 @@ def main() -> int:
         ptxas_summary,
         small_camera,
     )
+    from ray_tracing_in_one_weekend_tpu_torch.probes import kernel_parts as kp
     from ray_tracing_in_one_weekend_tpu_torch.utils import cli, compare, ppm
     from ray_tracing_in_one_weekend_tpu_torch.utils.config import (
         PRESETS,
@@ -340,6 +522,7 @@ def main() -> int:
     launches = dict(build.LAUNCHES)
     check(launches["render_kernel"] > 0, "phase 6: the CLI never launched render_kernel")
     check(run.backend == "cuda", f"phase 6: CLI ran backend {run.backend}")
+    check(run.warm_hit, "phase 6: the CLI's timed render missed the warm-start cache")
     check(out.read_bytes().startswith(b"P3\n1200 800\n255\n"), "phase 6: bad PPM header")
     check(ppm.read_ppm(str(out)).shape == (800, 1200, 3), "phase 6: bad PPM size")
     check(bool(torch.isfinite(run.image).all()), "phase 6: non-finite pixels")
@@ -359,6 +542,11 @@ def main() -> int:
     torch_sync()
     plain_ms = (time.perf_counter() - t0) * 1e3
     full = compare.lane_states(of_k, oi_k, of_p, oi_p, n, spp)
+    # The forward pass's bound: the sweep's operations over this pass's
+    # lane-iterations, against its lane state read and written once.
+    render_bound = kp.bound_ms(
+        float(of_k[cr._SF_WORK].double().sum()) * p_mat.shape[1] * kp.OPS_PER_SPHERE_TEST,
+        4.0 * (table.numel() + cam_vec.numel() + 2 * (sf.numel() + si.numel())))
     # Built without FMA contraction, the kernel rounds every operation as the
     # plain version does, so at the main path's shapes the two are identical.
     check(full.blocks_agree, f"phase 6: kernel vs plain at full width: {full}")
@@ -378,7 +566,9 @@ def main() -> int:
     say(f"phase 6 main path: bench {c.image_width}x{c.image_height} spp {c.samples_per_pixel} "
         f"depth {c.max_depth} via CLI, {launches['render_kernel']} "
         f"launch(es); render {run.render_s:.4f}s = {run.mrays_per_s:.2f} Mrays/s "
-        f"(first {run.first_s:.2f}s); kernel pass {kernel_ms:.2f} ms vs plain {plain_ms:.0f} ms "
+        f"({'warm' if run.warm_hit else 'cold'} schedule; first {run.first_s:.2f}s); "
+        f"kernel pass {kernel_ms:.2f} ms (pixel order; bound {render_bound[0]:.3f} ms by "
+        f"{render_bound[1]}) vs plain {plain_ms:.0f} ms "
         f"[{smi}]; full-width flipped {full.flipped_frac:.4%}, max lane err "
         f"{full.max_abs_err:.2e}, block MAD {full.block_mad:.2e}; "
         f"150x100 vs plain max pixel err {a150.max_abs_err:.2e}, block MAD {a150.block_mad:.4f}, "
@@ -406,7 +596,10 @@ def main() -> int:
         f"{step['cold_s']:.4f}s = {step['cold_mrays']:.2f} Mrays/s; warm (work_hint carry) "
         + ", ".join(f"{t:.4f}s" for t in step["warm_s"]) + " = "
         + ", ".join(f"{r:.2f}" for r in step["mrays"]) + f" Mrays/s; launches {step['launches']}; "
-        f"peak memory {step['peak_gb']:.2f} GB; gradients finite on every field [{smi}]")
+        f"peak memory {step['peak_gb']:.2f} GB; gradients finite on every field; full-width bounds "
+        f"({step['n_events']:.0f} bounces): replay {step['replay_bound'][0]:.3f} ms by "
+        f"{step['replay_bound'][1]}, reduction {step['reduce_bound'][0]:.3f} ms by "
+        f"{step['reduce_bound'][1]} [{smi}]")
     from ray_tracing_in_one_weekend_tpu_torch.examples import inverse_render
 
     demo_dir = REPO / "build" / "inverse_render"
@@ -415,6 +608,30 @@ def main() -> int:
     check((demo_dir / "inverse_recovered.ppm").read_bytes().startswith(b"P3\n64 32\n255\n"),
           "phase 7d: bad recovered PPM")
     say("phase 7d inverse render: the demo recovered sphere 1's albedo (error at least halved)")
+
+    # 8. the lane scheduler
+    phase_scheduler(ref, cam_small, "phase 8 (64x32)")
+    phase_scheduler(scene, cam, "phase 8 (bench)")
+    times = phase_pass_times(scene, cam)
+    say("phase 8 scheduler: at 64x32 and at the bench preset the 3-pass compacted, work_hint and "
+        "warm-hit renders are bit-identical to one pixel-order pass; a seed-1 miss ran the cold "
+        f"{cr.DEFAULT_PASSES}-pass schedule and refilled the cache. Bench render s (best, median of "
+        "7 interleaved rounds): " + "; ".join(f"{k} passes {b:.5f}, {m:.5f}" for k, (b, m) in times.items())
+        + f" [{smi}]")
+
+    # 9. the probe path
+    probes, probe = phase_probes()
+    say("phase 9 probes: kernel vs plain (error, gate) " + ", ".join(
+        f"{k} {v['err']:.2e} ({kp.GATES[k]:g})" for k, v in probes.items()))
+    for k, v in probes.items():
+        say(f"phase 9 {k}: launches {v['launches']}; {v['timing'].line()}; {v['fill'].line()}; "
+            f"plain {v['plain_ms']:.2f} ms at {kp.JAX_TILE} columns [{smi}]")
+    say(f"phase 9 perf_probe: warp occupancy cold {probe['occupancy_cold']:.4f}, pixel order "
+        f"{probe['occupancy_pixel']:.4f}, warm {probe['occupancy_warm']:.4f}; render s cold "
+        f"{probe['render_s']:.5f}, pixel order {probe['render_s_pixel']:.5f}, warm "
+        f"{probe['render_s_warm']:.5f}; sweep roofline {probe['roofline_s'] * 1e3:.3f} ms = "
+        f"{probe['roofline_share_cold']:.3f} of cold, {probe['roofline_share_warm']:.3f} of warm; "
+        f"fma peak {probe['peak_tflops']:.2f} TFLOP/s, chain {probe['chain_tflops']:.2f} TFLOP/s [{smi}]")
 
     check("jax" not in sys.modules and "flax" not in sys.modules, "JAX was imported")
     say(smi)
@@ -436,10 +653,15 @@ def main() -> int:
                      "max_abs_err 0) and a bit-identical 150x100 CLI image; at 64x32 spp 4, "
                      "flipped lanes (|d| > 1e-4 or an integer row differs) <= 2% and 256-lane "
                      "block means MAD < 0.02, mean diff < 0.01",
+        "bound_ms": render_bound[0],
+        "bound_by": render_bound[1],
+        "library_ms": None,
         "flipped_frac": full.flipped_frac,
         "block_mad": full.block_mad,
         "render_s": run.render_s,
+        "render_warm_hit": run.warm_hit,
         "mrays_per_s": run.mrays_per_s,
+        "pass_times_s": times,
     }, {
         "name": "grad_kernel",
         "route": "cuda",
@@ -450,7 +672,10 @@ def main() -> int:
         "ms": sub["replay_ms"],
         "plain_ms": sub["plain_ms"],
         "tolerance": grad_tol,
-        "shapes": "bench preset, 16384 lanes drawn across the image (ms and plain_ms alike)",
+        "bound_ms": sub["replay_bound"][0],
+        "bound_by": sub["replay_bound"][1],
+        "library_ms": None,
+        "shapes": "bench preset, 16384 lanes drawn across the image (ms, plain_ms and bound_ms alike)",
         "rel_l2": sub["errs"],
         "rel_l2_64x32": small_errs,
         "adjoint_rel_l2": adj,
@@ -458,6 +683,7 @@ def main() -> int:
         "step_warm_s": step["warm_s"],
         "step_mrays_per_s": step["mrays"],
         "peak_memory_gb": step["peak_gb"],
+        "bound_ms_full_width": step["replay_bound"][0],
     }, {
         "name": "grad_reduce",
         "route": "cuda",
@@ -468,8 +694,13 @@ def main() -> int:
         "ms": sub["reduce_ms"],
         "plain_ms": sub["reduce_plain_ms"],
         "tolerance": "rel L2 <= 1e-5 against index_add over the same events (summation order)",
+        "bound_ms": sub["reduce_bound"][0],
+        "bound_by": sub["reduce_bound"][1],
+        "library_ms": sub["reduce_library_ms"],
+        "library": "one index_add_ of the events' 13 cotangent rows into [13, N]",
+        "bound_ms_full_width": step["reduce_bound"][0],
         "rel_l2": sub["reduce_err"],
-    }]}))
+    }, *(probe_entry(name, v) for name, v in probes.items())]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

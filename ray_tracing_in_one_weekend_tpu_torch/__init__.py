@@ -3,12 +3,13 @@
 The port of `ray_tracing_in_one_weekend_tpu` (JAX/Pallas on a TPU) to
 PyTorch on an NVIDIA H100; the JAX package is its reference. So far it
 holds the forward render of the cover scene: scene and camera
-(`models/`), the render kernel and its plain PyTorch version
-(`ops/cuda_render.py`, `csrc/`, `kernels/`), 8-bit output and PPM
-(`ops/image.py`, `utils/ppm.py`), and the CLI (`utils/cli.py`); and the
+(`models/`), the render kernel, its plain PyTorch version and the lane
+scheduler (`ops/cuda_render.py`, `csrc/`, `kernels/`), 8-bit output and
+PPM (`ops/image.py`, `utils/ppm.py`), and the CLI (`utils/cli.py`); the
 gradient path: the backward render kernel, the differentiable render and
 the inverse-rendering train step (`ops/cuda_grad.py`,
-`examples/inverse_render.py`).
+`examples/inverse_render.py`); and the occupancy and roofline probes
+with their probe kernels (`probes/`, `csrc/probe_kernels.cu`).
 
 It imports torch and numpy only, never jax or flax.
 """

@@ -3,14 +3,17 @@
 The sources are compiled with nvcc into one shared library with a plain C
 interface under `build/kernels/` at the repo root, at first use, and
 again whenever a hash of the sources and flags changes (the hash names
-the library). No PyTorch header is compiled, so a build takes seconds.
+the library). Each `.cu` file is compiled by its own nvcc, all started
+together, and the objects are linked into the library. No PyTorch header
+is compiled, so a build takes seconds.
 
 `render_pass` is the wrapper of `csrc/render_kernel.cu`; `grad_replay`
 and `grad_reduce` (joined in `grad_pass`) are those of the two kernels of
-`csrc/grad_kernel.cu`, the backward replay and its reduction. Each checks
-its tensors, allocates the outputs, launches on PyTorch's
-current stream, raises if the launch failed, and counts its launches in
-`LAUNCHES`.
+`csrc/grad_kernel.cu`, the backward replay and its reduction; `chain_fma`,
+`fma_peak`, `sweep_probe`, `gather_probe` and `skinny_probe` are those of
+the five probe kernels of `csrc/probe_kernels.cu`. Each checks its
+tensors, allocates the outputs, launches on PyTorch's current stream,
+raises if the launch failed, and counts its launches in `LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -39,14 +42,15 @@ BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
 # 9% faster (20.9 vs 22.8 ms per bench pass) but 3.8% of lanes diverged
 # from the plain version at 64x32, spp 4 — bounces off small spheres
 # amplify a last-ulp difference into a different path.
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-)
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
 # Launches per kernel since the last `reset_launches()`: what a run reads
 # to show that its main path went through the kernels.
-LAUNCHES = {"render_kernel": 0, "grad_kernel": 0, "grad_reduce": 0, "bounce_adjoint": 0}
+LAUNCHES = {
+    "render_kernel": 0, "grad_kernel": 0, "grad_reduce": 0, "bounce_adjoint": 0,
+    "chain_fma": 0, "fma_peak": 0, "sweep_probe": 0, "gather_probe": 0, "skinny_probe": 0,
+}
 
 _LIB = None
 # The default per-block shared-memory limit (no opt-in), less the kernel's
@@ -89,24 +93,40 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found on PATH or under CUDA_HOME: cannot build csrc/")
 
 
+def _run_all(cmds) -> str:
+    """Run the commands side by side; raise if any fails, else return their
+    output, in order."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build() -> BuildResult:
     """Compile `csrc/*.cu` unless the library for these sources exists."""
     lib = BUILD_DIR / f"librt_kernels_{source_hash()}.so"
     if lib.exists():
         return BuildResult(lib, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    cmd = [
-        _nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-        *(str(p) for p in _sources() if p.suffix == ".cu"),
-    ]
+    stem = f"{lib.stem}.{os.getpid()}"
+    units = [p for p in _sources() if p.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{stem}.{p.stem}.o" for p in units]
+    tmp = lib.with_name(f"{stem}.tmp.so")
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(p), "-o", str(o)]
+                        for p, o in zip(units, objs)])
+        log += _run_all([[nvcc, *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)]])
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib)  # atomic: a concurrent build never loads half a file
-    return BuildResult(lib, seconds, proc.stdout + proc.stderr)
+    return BuildResult(lib, seconds, log)
 
 
 def load() -> ctypes.CDLL:
@@ -138,6 +158,16 @@ def load() -> ctypes.CDLL:
         lib.rt_max_grad_tile.argtypes = []
         lib.rt_chunk_events.restype = ctypes.c_longlong
         lib.rt_chunk_events.argtypes = []
+        i64, f32 = ctypes.c_longlong, ctypes.c_float
+        for name, args in (
+            ("rt_chain_fma", [ptr, ptr, i64, i32, ptr]),
+            ("rt_fma_peak", [ptr, ptr, i32, i32, ptr]),
+            ("rt_sweep_probe", [ptr, i32, ptr, ptr, ptr, i32, i32, f32, ptr]),
+            ("rt_gather_probe", [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr]),
+            ("rt_skinny_probe", [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]),
+        ):
+            getattr(lib, name).restype = i32
+            getattr(lib, name).argtypes = args
         lib.rt_error_string.restype = ctypes.c_char_p
         lib.rt_error_string.argtypes = [i32]
         _LIB = lib
@@ -353,6 +383,117 @@ def bounce_adjoint(table, t_min, rec, ob, db, ab):
     _raise_on(lib, err, "bounce_adjoint")
     LAUNCHES["bounce_adjoint"] += 1
     return ob, db, ab, pbar
+
+
+# ---------------------------------------------------------------------------
+# The probe kernels (csrc/probe_kernels.cu). Their plain versions are in
+# probes/kernel_parts.py.
+# ---------------------------------------------------------------------------
+
+
+def _cuda_only(name, t):
+    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+        where = t.device if isinstance(t, torch.Tensor) else type(t).__name__
+        raise ValueError(f"{name} runs on CUDA tensors, got {where}")
+    return t.device
+
+
+def _check_reps(reps):
+    if not 1 <= reps < (1 << 31):
+        raise ValueError(f"reps ({reps}) must be a positive int32")
+
+
+def _launch(name, fn, device, *args):
+    lib = load()
+    with torch.cuda.device(device):
+        err = getattr(lib, fn)(*args, torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(lib, err, name)
+    LAUNCHES[name] += 1
+
+
+def chain_fma(x, chain):
+    """`chain_fma_kernel`: x [R, tile] f32 -> [R, tile], one dependent chain
+    of `chain` fused steps acc = fma(acc, 1.0000001, 1e-7) per element."""
+    device = _cuda_only("chain_fma", x)
+    rows, tile = x.shape if x.dim() == 2 else (-1, -1)
+    _check_tensor("x", x, torch.float32, (rows, tile), device)
+    _check_reps(chain)
+    out = torch.empty_like(x)
+    _launch("chain_fma", "rt_chain_fma", device, x.data_ptr(), out.data_ptr(), x.numel(), int(chain))
+    return out
+
+
+def fma_peak(x, reps):
+    """`fma_peak_kernel`: x [64, tile] f32 -> [8, tile], eight independent
+    accumulators x[8i:8i+8] + i, each `reps` x 16 fused steps, summed."""
+    device = _cuda_only("fma_peak", x)
+    tile = x.shape[1] if x.dim() == 2 else -1
+    _check_tensor("x", x, torch.float32, (64, tile), device)
+    _check_reps(reps)
+    _check_int32("8 * tile", 8 * tile)
+    out = torch.empty((8, tile), dtype=torch.float32, device=device)
+    _launch("fma_peak", "rt_fma_peak", device, x.data_ptr(), out.data_ptr(), tile, int(reps))
+    return out
+
+
+def sweep_probe(table, o, d, reps, t_min):
+    """`sweep_probe_kernel`: table [N, 16] f32 (the transposed packed scene),
+    o, d [3, tile] f32 (d unit) -> [1, tile], the sum over `reps` of the
+    closest hit's t, with o += 1e-9 t after each rep."""
+    device = _cuda_only("sweep_probe", o)
+    tile = o.shape[1] if o.dim() == 2 else -1
+    n_spheres = table.shape[0] if table.dim() == 2 else -1
+    _check_tensor("table", table, torch.float32, (n_spheres, 16), device)
+    _check_tensor("o", o, torch.float32, (3, tile), device)
+    _check_tensor("d", d, torch.float32, (3, tile), device)
+    if not 0 < n_spheres * 64 <= _MAX_TABLE_BYTES:
+        raise ValueError(f"{n_spheres} spheres do not fit the kernel's 48 KB shared-memory table")
+    _check_reps(reps)
+    out = torch.empty((1, tile), dtype=torch.float32, device=device)
+    _launch("sweep_probe", "rt_sweep_probe", device, table.data_ptr(), n_spheres, o.data_ptr(),
+            d.data_ptr(), out.data_ptr(), tile, int(reps), float(t_min))
+    return out
+
+
+def gather_probe(p, oh, reps):
+    """`gather_probe_kernel`: P [16, N] f32, OH [N, tile] f32 -> [1, tile],
+    the sum over `reps` of row 0 of P @ OH, with OH += 1e-12 row 0 after
+    each rep. OH is not written: the kernel updates a scratch copy. The
+    product's other rows go to a discarded per-column checksum, which keeps
+    them computed."""
+    device = _cuda_only("gather_probe", oh)
+    n, tile = oh.shape if oh.dim() == 2 else (-1, -1)
+    _check_tensor("p", p, torch.float32, (16, n), device)
+    _check_tensor("oh", oh, torch.float32, (n, tile), device)
+    if not 0 < n * 64 <= _MAX_TABLE_BYTES:
+        raise ValueError(f"P [16, {n}] does not fit the kernel's 48 KB of shared memory")
+    _check_reps(reps)
+    scratch = torch.empty_like(oh) if reps > 1 else oh
+    out = torch.empty((1, tile), dtype=torch.float32, device=device)
+    sink = torch.empty(tile, dtype=torch.int32, device=device)
+    _launch("gather_probe", "rt_gather_probe", device, p.data_ptr(), oh.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(), sink.data_ptr(), n, tile, int(reps))
+    return out
+
+
+def skinny_probe(l, r, reps):
+    """`skinny_probe_kernel`: L [M, 8] f32, R [8, tile] f32 -> [1, tile], the
+    sum over `reps` of row 0 of L @ R (float32 throughout), with R += 1e-12
+    row 0 after each rep. The other rows go to a discarded per-column
+    checksum, which keeps them computed."""
+    device = _cuda_only("skinny_probe", r)
+    m = l.shape[0] if l.dim() == 2 else -1
+    tile = r.shape[1] if r.dim() == 2 else -1
+    _check_tensor("l", l, torch.float32, (m, 8), device)
+    _check_tensor("r", r, torch.float32, (8, tile), device)
+    if not 0 < m * 32 <= _MAX_TABLE_BYTES:
+        raise ValueError(f"L [{m}, 8] does not fit the kernel's 48 KB of shared memory")
+    _check_reps(reps)
+    out = torch.empty((1, tile), dtype=torch.float32, device=device)
+    sink = torch.empty(tile, dtype=torch.int32, device=device)
+    _launch("skinny_probe", "rt_skinny_probe", device, l.data_ptr(), r.data_ptr(), out.data_ptr(),
+            sink.data_ptr(), m, tile, int(reps))
+    return out
 
 
 def _raise_on(lib, err, name):

@@ -323,7 +323,8 @@ class _DiffRender(torch.autograd.Function):
             # Warm start: lanes sorted by a previous step's cost map.
             padded_hint = torch.zeros(padded, dtype=torch.float32, device=p_mat.device)
             padded_hint[:n] = hint
-            work_perm = _perm_from_hint(padded_hint)
+            perm, inv = _perm_from_hint(padded_hint).reshape(2, -1)
+            work_perm = (perm, inv)
         rad, work = _multipass(
             p_mat, cam_vec, (cfg.seed, 0, cfg.sample_offset, 0), sf, si, cfg.tile, cfg.spp,
             cfg.max_depth, cfg.budget, cfg.n_passes, _render_pass, work_perm=work_perm,
@@ -399,9 +400,10 @@ def render_cuda_diff(
     `work_hint` ([H, W] or flat: a previous step's cost map) sorts the
     forward's lanes by cost before the first pass; with `return_work` the
     step's own map comes back for the next step. Neither changes a pixel
-    or a gradient. `n_passes` is 1 by default with or without a hint: the
-    port has no tail compaction, so more passes buy nothing. The JAX
-    package's `interpret` and `bwd_group` are TPU scheduling knobs and
+    or a gradient. `n_passes` is 1 by default with or without a hint
+    (more passes compact the lanes between them, as `render_cuda`'s do).
+    The render never reads or fills `render_cuda`'s warm-start cache. The
+    JAX package's `interpret` and `bwd_group` are TPU scheduling knobs and
     have no counterpart: the backward runs one sample after another in
     each lane."""
     _check_tile(tile)

@@ -1,7 +1,9 @@
-"""Measurements of the CUDA kernel on the card, and the helpers they share
+"""Measurements of the CUDA kernels on the card, and the helpers they share
 with `chip_smoke.py`. Each probe runs as a module from the repo root and
 needs one CUDA GPU with nvcc:
 
+    python -m ray_tracing_in_one_weekend_tpu_torch.probes.perf_probe
+    python -m ray_tracing_in_one_weekend_tpu_torch.probes.kernel_parts
     python -m ray_tracing_in_one_weekend_tpu_torch.probes.fma_contraction
     python -m ray_tracing_in_one_weekend_tpu_torch.probes.device_idle
     python -m ray_tracing_in_one_weekend_tpu_torch.probes.grad_step
@@ -30,8 +32,14 @@ def nvidia_smi() -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of `fn()` on the current stream, by CUDA events."""
+    """Mean milliseconds of `fn()` on the current stream, by CUDA events.
+
+    A sleep kernel first keeps the device busy (~50 us per call, at about
+    2 GHz) while the host queues the calls, so that for a kernel shorter
+    than its wrapper's host work the events time the device, not the
+    host's launch rate."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000 * reps + 1_000_000)
     start.record()
     for _ in range(reps):
         fn()

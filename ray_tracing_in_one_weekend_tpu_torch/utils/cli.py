@@ -4,17 +4,20 @@ The PyTorch counterpart of ray_tracing_in_one_weekend_tpu/utils/cli.py,
 with the same flag names and meanings (the reference's whole CLI contract
 is `./main > out.ppm`, reference: script/windows/rt-utility.psm1:33-47):
 
-    python -m ray_tracing_in_one_weekend_tpu_torch > out.ppm
-    python -m ray_tracing_in_one_weekend_tpu_torch --preset bench --backend cuda > out.ppm
+    python -m ray_tracing_in_one_weekend_tpu_torch --preset bench > out.ppm
+    python -m ray_tracing_in_one_weekend_tpu_torch --backend torch --width 200 > out.ppm
 
-Backends: `cuda` runs the hand-written kernel on the first GPU and never
-falls back; `torch` runs the plain PyTorch version on the CPU; `auto`
-picks `cuda` when a GPU is visible, else `torch`.
+Backends: `cuda` (the default) runs the hand-written kernel on the first
+GPU, and raises when there is none; `torch` runs the plain PyTorch
+version on the CPU, and only when asked for.
 
 The render is timed the way the reference times it: wall clock around
 the render only (reference: src/gpu/main.cu:128-139), after one warm-up
 render, with `torch.cuda.synchronize()` as the barrier on the GPU.
-Mrays/s = width * height * spp / render seconds / 1e6.
+Mrays/s = width * height * spp / render seconds / 1e6. The warm-up render
+fills the warm-start cache, so the timed render runs the warm schedule
+(one pass over cost-sorted lanes) unless `--cold` is given, as in the JAX
+CLI.
 """
 
 from __future__ import annotations
@@ -26,7 +29,11 @@ import time
 
 import torch
 
-from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import DEFAULT_TILE, render_cuda
+from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import (
+    DEFAULT_TILE,
+    render_cuda,
+    warm_cache_hit,
+)
 from ray_tracing_in_one_weekend_tpu_torch.ops.image import to_uint8
 from ray_tracing_in_one_weekend_tpu_torch.utils import ppm
 from ray_tracing_in_one_weekend_tpu_torch.utils.config import (
@@ -67,7 +74,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--scene", choices=("cover", "three", "single"), default=None)
     p.add_argument("--tile", type=int, default=DEFAULT_TILE,
                    help=f"lanes per CUDA block, a multiple of 128 (default {DEFAULT_TILE})")
-    p.add_argument("--backend", choices=BACKENDS, default=None)
+    p.add_argument("--backend", choices=BACKENDS, default=None,
+                   help="cuda (default): the kernel on the GPU; torch: the plain version on the CPU")
+    p.add_argument("--cold", action="store_true",
+                   help="disable warm-start scheduling: every render runs the cold multi-pass "
+                        "compaction schedule instead of reusing the cached cost-sorted lane "
+                        "permutation (bit-identical image either way)")
     p.add_argument("--out", default="-", help="output PPM path ('-' = stdout)")
     p.add_argument("--no-output", action="store_true", help="render + report timing only")
     return p
@@ -100,12 +112,10 @@ def config_from_args(args) -> RenderConfig:
 
 
 def resolve_backend(backend: str) -> str:
-    """`auto` -> `cuda` when a GPU is visible, else `torch`. `cuda` without
-    a GPU raises: it never falls back."""
-    if backend == "auto":
-        return "cuda" if torch.cuda.is_available() else "torch"
+    """`cuda` without a GPU raises: the CLI never falls back to the CPU."""
     if backend == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--backend cuda needs a CUDA GPU, and torch sees none")
+        raise RuntimeError("--backend cuda needs a CUDA GPU, and torch sees none "
+                           "(--backend torch runs the plain version on the CPU)")
     return backend
 
 
@@ -115,7 +125,8 @@ class CliResult:
     backend: str
     image: torch.Tensor  # [H, W, 3] float32, linear, on the render device
     first_s: float  # first render, kernel build included
-    render_s: float  # the timed (warm) render
+    render_s: float  # the timed (second) render
+    warm_hit: bool  # the timed render ran the cached warm schedule
 
     @property
     def mrays_per_s(self) -> float:
@@ -132,14 +143,13 @@ def run(argv=None) -> CliResult:
          f"spp={config.samples_per_pixel} depth={config.max_depth} "
          f"scene={config.scene} seed={config.seed}")
     device_name = torch.cuda.get_device_name(device) if backend == "cuda" else "cpu"
-    _log(f"backend: {backend} ({'auto' if config.backend == 'auto' else 'requested'}) "
-         f"on {device_name}")
+    _log(f"backend: {backend} on {device_name}")
 
     scene = make_scene_from_config(config, device)
     cam = make_camera_from_config(config, device)
 
     def render():
-        img = render_cuda(scene, cam, seed=config.seed, tile=args.tile)
+        img = render_cuda(scene, cam, seed=config.seed, tile=args.tile, warm=not args.cold)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         return img
@@ -148,11 +158,13 @@ def run(argv=None) -> CliResult:
     render()
     first_s = time.perf_counter() - t0
     _log(f"first render (kernel build included): {first_s:.2f}s")
+    warm_hit = not args.cold and warm_cache_hit(scene, cam, seed=config.seed, tile=args.tile)
     t0 = time.perf_counter()
     img = render()
     render_s = time.perf_counter() - t0
-    result = CliResult(config, backend, img, first_s, render_s)
-    _log(f"render: {render_s:.3f}s  ({result.mrays_per_s:.2f} Mrays/s)")
+    result = CliResult(config, backend, img, first_s, render_s, warm_hit)
+    _log(f"render: {render_s:.3f}s  ({result.mrays_per_s:.2f} Mrays/s, "
+         f"{'warm' if warm_hit else 'cold'} schedule)")
 
     if not args.no_output:
         u8 =to_uint8(img).cpu().numpy()

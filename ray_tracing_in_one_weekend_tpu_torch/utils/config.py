@@ -1,8 +1,9 @@
 """Render configuration and the reference's workload presets.
 
 The PyTorch counterpart of ray_tracing_in_one_weekend_tpu/utils/config.py:
-the same fields, defaults and presets, with the backends of the port
-(`auto`, `torch`, `cuda`). The reference has no config/flag system —
+the same fields, defaults and presets, with the backends of the port:
+`cuda` (the default: the hand-written kernel on the GPU) and `torch`
+(the plain PyTorch version on the CPU, only when asked for). The reference has no config/flag system —
 every parameter is a compile-time constant
 (reference: src/cpu/main.cc:82-99, src/gpu/camera.h:58-71,
 src/gpu-old/main.cu:145-152).
@@ -13,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
-BACKENDS = ("auto", "torch", "cuda")
+BACKENDS = ("cuda", "torch")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,7 +38,7 @@ class RenderConfig:
 
     seed: int = 0
     scene: str = "cover"  # cover | three | single
-    backend: str = "auto"  # auto | torch | cuda
+    backend: str = "cuda"  # cuda | torch
 
     @property
     def image_height(self) -> int:

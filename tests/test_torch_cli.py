@@ -35,15 +35,41 @@ def test_tiny_render_to_ppm_file_and_stdout(tmp_path, capsysbinary):
 
 
 def test_auto_backend_logs_choice_and_cuda_never_falls_back(monkeypatch, capsys):
+    """The default backend is `cuda`: without a GPU the CLI raises and does
+    not render on the CPU; with one it logs `cuda`. Only `--backend torch`
+    reaches the CPU."""
+    assert cli.build_parser().parse_args([]).backend is None
+    assert cli.config_from_args(cli.build_parser().parse_args([])).backend == "cuda"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert cli.resolve_backend("auto") == "torch"
-    with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
-        cli.run(["--backend", "cuda", *TINY, "--no-output"])
-    res = cli.run(["--scene", "single", *TINY, "--no-output"])
+    for argv in ([], ["--backend", "cuda"]):
+        with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
+            cli.run([*argv, "--scene", "single", *TINY, "--no-output"])
+    assert "backend:" not in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        cli.build_parser().parse_args(["--backend", "auto"])
+    res = cli.run(["--backend", "torch", "--scene", "single", *TINY, "--no-output"])
     assert res.backend == "torch"
-    assert "backend: torch (auto)" in capsys.readouterr().err
+    assert "backend: torch on cpu" in capsys.readouterr().err
+    # With a GPU the default resolves to cuda and says so before it renders
+    # (the render itself needs the card; this CPU-only torch stops there).
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    assert cli.resolve_backend("auto") == "cuda"
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "Test GPU")
+    assert cli.resolve_backend("cuda") == "cuda"
+    with pytest.raises((AssertionError, RuntimeError)):
+        cli.run(["--scene", "single", *TINY, "--no-output"])
+    assert "backend: cuda on Test GPU" in capsys.readouterr().err
+
+
+def test_timed_render_is_warm_unless_cold(capsys):
+    """The first render fills the warm-start cache, so the timed second
+    render runs one pass over cost-sorted lanes; `--cold` runs the
+    compaction schedule both times. The image is the same bits."""
+    argv = ["--backend", "torch", "--scene", "three", *TINY, "--no-output"]
+    warm = cli.run(argv)
+    assert warm.warm_hit and "warm schedule" in capsys.readouterr().err
+    cold = cli.run([*argv, "--cold"])
+    assert not cold.warm_hit and "cold schedule" in capsys.readouterr().err
+    assert torch.equal(warm.image, cold.image)
 
 
 @pytest.mark.parametrize(
@@ -90,6 +116,8 @@ def test_port_never_imports_jax():
         "from ray_tracing_in_one_weekend_tpu_torch.utils import cli\n"
         "from ray_tracing_in_one_weekend_tpu_torch.kernels import build\n"
         "from ray_tracing_in_one_weekend_tpu_torch.probes import device_idle, fma_contraction\n"
+        "from ray_tracing_in_one_weekend_tpu_torch.probes import kernel_parts, perf_probe\n"
+        "from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import _compact\n"
         "img = rt.render_cuda(rt.single_sphere_scene(pad_to=128), rt.make_camera("
         "image_width=16, aspect_ratio=2.0, samples_per_pixel=1, max_depth=2))\n"
         "assert img.shape == (8, 16, 3)\n"

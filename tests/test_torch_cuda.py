@@ -1,8 +1,9 @@
 """The CUDA kernel against its plain PyTorch version, on the card.
 
 These tests need an NVIDIA GPU with nvcc (they build csrc/ on first use)
-and skip without one. They repeat phases 3-5 and 7a of chip_smoke.py, and
-check that the wrappers refuse what the kernels do not take. On the card:
+and skip without one. They repeat phases 3-5, 7a, 8 and 9 of
+chip_smoke.py, and check that the wrappers refuse what the kernels do not
+take. On the card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 """
@@ -173,3 +174,62 @@ def test_grad_wrapper_refuses_what_the_kernel_does_not_take(dev):
     big = cr.pack_scene(scene_lib.three_sphere_scene(pad_to=1024, device=dev)).T.contiguous()
     with pytest.raises(ValueError, match="shared-memory"):
         build.grad_replay(big, *args)
+
+
+def test_scheduler_bit_identical_on_the_card(dev):
+    """Compaction, a work_hint and a warm cache hit are lane permutations:
+    the kernel's image is the same bits as one pixel-order pass."""
+    scene = scene_lib.cover_scene_reference(device=dev)
+    cam = _cam(dev)
+    cr._WORK_CACHE.clear()
+    one, work = cr.render_cuda(scene, cam, n_passes=1, warm=False, return_work=True)
+    assert torch.equal(cr.render_cuda(scene, cam, n_passes=3, warm=False), one)
+    assert torch.equal(cr.render_cuda(scene, cam, n_passes=3, budget=(5, 2), warm=False), one)
+    assert torch.equal(cr.render_cuda(scene, cam, work_hint=work), one)
+    assert torch.equal(cr.render_cuda(scene, cam), one)  # fills the cache
+    assert cr.warm_cache_hit(scene, cam)
+    assert torch.equal(cr.render_cuda(scene, cam), one)  # the hit
+
+
+@pytest.mark.parametrize("name", ["chain_fma", "fma_peak", "sweep_probe", "gather_probe", "skinny_probe"])
+def test_probe_kernel_matches_plain(dev, name):
+    """Each probe kernel against its plain version at 256 columns, within
+    its gate (probes/kernel_parts.py GATES, chip_smoke.py phase 9)."""
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.probes import kernel_parts as kp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = kp.inputs(name, 256, dev)
+    reps = 64 if name == "chain_fma" else 4
+    before = build.LAUNCHES[name]
+    got = kp.run(name, args, reps)
+    assert build.LAUNCHES[name] == before + 1
+    want = kp.run_plain(name, args, reps)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    err = kp.error(name, got, want)
+    assert err <= kp.GATES[name], (name, err)
+
+
+def test_probe_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.probes import kernel_parts as kp
+
+    (x,) = kp.inputs("fma_peak", 128, dev)
+    with pytest.raises(ValueError, match="CUDA"):
+        build.fma_peak(x.cpu(), 2)
+    with pytest.raises(ValueError, match="shape"):
+        build.fma_peak(x[:32], 2)
+    with pytest.raises(ValueError, match="reps"):
+        build.fma_peak(x, 0)
+    p, oh = kp.inputs("gather_probe", 128, dev)
+    with pytest.raises(TypeError, match="dtype"):
+        build.gather_probe(p.double(), oh, 2)
+    with pytest.raises(ValueError, match="48 KB"):
+        build.gather_probe(torch.zeros(16, 1024, device=dev), torch.zeros(1024, 128, device=dev), 2)
+    table, o, d = kp.inputs("sweep_probe", 128, dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        build.sweep_probe(table.T.contiguous().T, o, d, 2, 1e-3)
+    l, r = kp.inputs("skinny_probe", 128, dev)
+    with pytest.raises(ValueError, match="48 KB"):
+        build.skinny_probe(torch.zeros(2048, 8, device=dev), r, 2)
