@@ -41,7 +41,8 @@ without the result lines:
    c. the main path of the slice: `render_grads_cuda` at the bench preset
       with a zero target, a cold step then warm steps with the work_hint
       carry (seconds, Mrays/s, launch counts, peak memory, finite
-      gradients);
+      gradients); then the reduction and its `index_add_` yardstick on the
+      full-width events of the step's paths;
    d. the inverse-render demo on the card: exit 0 (albedo error halved);
 8. the lane scheduler on the card: at 64x32 and at the bench preset, the
    3-pass compacted render, a work_hint render and a warm cache hit each
@@ -50,12 +51,14 @@ without the result lines:
    for 1-4 passes and warm for 1-4 passes (best and median of 7 rounds
    that take the settings in turn);
 9. the probe path (`probes/kernel_parts.py`, `probes/perf_probe.py`,
-   `csrc/probe_kernels.cu`): each of the five probe kernels against its
-   plain version at 256 columns and at the scripts' 2048 columns, within
-   its gate (`kernel_parts.GATES`); then both probes through their entry
-   points (launch counts of all five kernels and render_kernel), and the
+   `csrc/probe_kernels.cu`): each of the six probe kernels against its
+   plain version at 256 columns, at the scripts' 2048 columns and at the
+   131072 the probe path also times, within its gate
+   (`kernel_parts.GATES`); then both probes through their entry
+   points (launch counts of all six kernels and render_kernel), and the
    kernels' times at 2048 columns and at 131072 (enough to fill the card)
-   with their bounds and the torch.matmul yardsticks.
+   with their bounds (tensor-core work included) and the torch.matmul
+   yardsticks.
 
 Then it prints nvidia-smi's line, a JSON line of per-kernel results, and
 last `{"ok": true, "device": {...}}`. It imports no JAX.
@@ -215,7 +218,7 @@ def phase_grad_subset(scene, cam, n_lanes=16384):
     events = build.grad_replay(*args)
     pk = build.grad_reduce(events, p_mat.shape[1])
     replay_ms = cuda_ms(lambda: build.grad_replay(*args), reps=3)
-    reduce_ms = cuda_ms(lambda: build.grad_reduce(events, p_mat.shape[1]), reps=3)
+    reduce_ms, library_ms = reduce_times(events, p_mat.shape[1])
     t0 = time.perf_counter()
     pp = cg._grad_pass_plain(p_mat, cam_vec, (0, 0, 0, n), pix, g, spp, depth)
     torch_sync()
@@ -230,13 +233,6 @@ def phase_grad_subset(scene, cam, n_lanes=16384):
     reduce_err = rel_l2(pk, pr)
     reduce_abs_err = float((pk - pr).abs().max())
     check(reduce_err <= 1e-5, f"phase 7b: reduction vs plain rel L2 {reduce_err:.2e} > 1e-5")
-    # The library yardstick of the reduction: one index_add_ of the same
-    # events' cotangent rows into their spheres' columns.
-    idx = events[:, 0].contiguous().view(torch.int32).to(torch.int64)
-    keep = idx >= 0
-    idx, vals = idx[keep], events[keep, 1:14].T.contiguous()
-    acc = torch.zeros(13, p_mat.shape[1], device=DEVICE)
-    library_ms = cuda_ms(lambda: acc.index_add_(1, idx, vals), reps=3)
     # Bounds: the replay's sweep (15 operations per sphere test, one sweep
     # per bounce; the adjoint's own operations not counted) against its
     # inputs and the events it writes; the reduction's event reads.
@@ -248,6 +244,23 @@ def phase_grad_subset(scene, cam, n_lanes=16384):
                 reduce_plain_ms=reduce_plain_ms, reduce_err=reduce_err,
                 reduce_abs_err=reduce_abs_err, n_events=n_events, replay_bound=replay_bound,
                 reduce_bound=reduce_bound, reduce_library_ms=library_ms)
+
+
+def reduce_times(events, n_slots):
+    """(ms of `grad_reduce` on `events`, ms of its library yardstick): one
+    index_add_ of the same events' 13 cotangent rows into their spheres'
+    columns."""
+    import torch
+
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.probes import cuda_ms
+
+    idx = events[:, 0].contiguous().view(torch.int32).to(torch.int64)
+    keep = idx >= 0
+    idx, vals = idx[keep], events[keep, 1:14].T.contiguous()
+    acc = torch.zeros(13, n_slots, device=events.device)
+    return (cuda_ms(lambda: build.grad_reduce(events, n_slots), reps=3),
+            cuda_ms(lambda: acc.index_add_(1, idx, vals), reps=3))
 
 
 def phase_train_step(scene, cam, warm_reps=3):
@@ -291,10 +304,23 @@ def phase_train_step(scene, cam, warm_reps=3):
     check(sum(float(v.abs().sum()) for v in grads.values()) > 0.0, "phase 7c: all gradients zero")
     for name in ("render_kernel", "grad_kernel", "grad_reduce"):
         check(launches[name] > 0, f"phase 7c: the train step never launched {name}")
+    # The reduction and index_add_ on the full-width events of the step's
+    # paths (seed 0, this step's work map; a random radiance cotangent: the
+    # event slots and spheres do not depend on it).
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_render as cr
+    from ray_tracing_in_one_weekend_tpu_torch.probes import random_cotangent
+
+    n, w = cam.num_pixels, work.reshape(-1)
+    p_mat, cam_vec = cr.pack_scene(scene), cr.pack_camera(cam)
+    pix, g = cg._bwd_lanes(w, random_cotangent((3, n), 3, DEVICE), cam.samples_per_pixel, cg.DEFAULT_BWD_TILE)
+    events = build.grad_replay(p_mat.T.contiguous(), cam_vec, (0, 0, 0, n), pix, g, w, cg.DEFAULT_BWD_TILE,
+                               cam.samples_per_pixel, cam.max_depth)
+    check(events.shape[0] == int(n_events), "phase 7c: the replay's events differ from the step's bounces")
+    reduce_ms, library_ms = reduce_times(events, p_mat.shape[1])
     return dict(cold_s=cold_s, warm_s=warm, mrays=[rays / t / 1e6 for t in warm],
                 cold_mrays=rays / cold_s / 1e6, launches=launches, peak_gb=peak_gb,
                 loss=float(loss), n_events=n_events, replay_bound=replay_bound,
-                reduce_bound=reduce_bound)
+                reduce_bound=reduce_bound, reduce_ms=reduce_ms, reduce_library_ms=library_ms)
 
 
 def phase_scheduler(scene, cam, label):
@@ -358,13 +384,15 @@ PROBE_REPLACES = {
     "sweep_probe": "scripts/kernel_parts_probe.py:101",
     "gather_probe": "scripts/kernel_parts_probe.py:148",
     "skinny_probe": "scripts/kernel_parts_probe.py:196",
+    "skinny_probe_default": "scripts/kernel_parts_probe.py:196",
 }
 
 
 def phase_probes():
-    """9: the five probe kernels against their plain versions, then the
-    probe path through its entry points with the launch counts set to 0,
-    then each kernel's time at the scripts' 2048 columns and at 131072."""
+    """9: the six probe kernels against their plain versions at 256, 2048
+    and 131072 columns, then the probe path through its entry points with
+    the launch counts set to 0, which times each kernel at the scripts'
+    2048 columns and at 131072."""
     import torch
 
     from ray_tracing_in_one_weekend_tpu_torch.kernels import build
@@ -376,20 +404,23 @@ def phase_probes():
     res = {}
     for name in names:
         full = kp.CHAIN if name == "chain_fma" else 64
-        for tile, reps in ((256, 64 if name == "chain_fma" else 4), (kp.JAX_TILE, full)):
+        res[name] = dict(err=0.0, max_abs_err=0.0)
+        # 256 columns at few reps, then the shapes the probe path times.
+        for tile, reps in ((256, 64 if name == "chain_fma" else 4), (kp.JAX_TILE, full), (kp.FILL_TILE, full)):
             args = kp.inputs(name, tile, dev)
             got = kp.run(name, args, reps)
             torch_sync()
             t0 = time.perf_counter()
             want = kp.run_plain(name, args, reps)
             torch_sync()
-            plain_ms = (time.perf_counter() - t0) * 1e3
+            if tile == kp.JAX_TILE:
+                res[name]["plain_ms"] = (time.perf_counter() - t0) * 1e3
             err = kp.error(name, got, want)
             check(err <= kp.GATES[name],
                   f"phase 9: {name} at {tile} columns, reps {reps}: error {err:.2e} > {kp.GATES[name]}")
             finite = want < 1e29  # a miss of the sweep adds T_MISS = 1e30
-            res[name] = dict(err=err, plain_ms=plain_ms, reps=reps,
-                             max_abs_err=float((got - want)[finite].abs().max()))
+            res[name]["err"] = max(res[name]["err"], err)
+            res[name]["max_abs_err"] = max(res[name]["max_abs_err"], float((got - want)[finite].abs().max()))
     build.reset_launches()
     parts = kp.main([str(kp.JAX_TILE), "64"])
     probe = pp.main([])
@@ -418,10 +449,12 @@ def probe_entry(name, v):
         "ms": t.ms,
         "plain_ms": v["plain_ms"],
         "bound_ms": t.bound_ms,
-        "bound_by": t.bound_by,
+        # Tensor-core operations count as operations here; phase 9's lines
+        # name the term.
+        "bound_by": "bytes" if t.bound_by == "bytes" else "operations",
         "library_ms": t.library_ms,
-        "tolerance": (f"error {v['err']:.3e} against the plain version at {t.tile} columns, reps "
-                      f"{v['reps']} (and at 256 columns), gate {kp.GATES[name]:g}: "
+        "tolerance": (f"largest error {v['err']:.3e} against the plain version at 256, {t.tile} and "
+                      f"{f.tile} columns, gate {kp.GATES[name]:g}: "
                       + ("per lane relative in t with equal miss lanes; max_abs_err over the "
                          "hit lanes" if name == "sweep_probe" else "relative to the largest plain value")),
         "shapes": f"ms, plain_ms, bound_ms at {t.tile} columns, reps {t.reps}; *_fill at {f.tile}",
@@ -431,7 +464,8 @@ def probe_entry(name, v):
         "tflops_fill": f.rate / 1e12,
     }
     if t.library_ms is not None:
-        entry["library"] = f"{t.reps} x torch.matmul of the same product, float32 (TF32 off)"
+        entry["library"] = f"{t.reps} x torch.matmul of the same product, " + (
+            "bf16 in" if name == "skinny_probe_default" else "float32 (TF32 off)")
         entry["library_ms_fill"] = f.library_ms
     if t.library_tf32_ms is not None:
         entry["library_tf32_ms"] = t.library_tf32_ms
@@ -599,7 +633,8 @@ def main() -> int:
         f"peak memory {step['peak_gb']:.2f} GB; gradients finite on every field; full-width bounds "
         f"({step['n_events']:.0f} bounces): replay {step['replay_bound'][0]:.3f} ms by "
         f"{step['replay_bound'][1]}, reduction {step['reduce_bound'][0]:.3f} ms by "
-        f"{step['reduce_bound'][1]} [{smi}]")
+        f"{step['reduce_bound'][1]}; on the full-width events the reduction takes "
+        f"{step['reduce_ms']:.3f} ms, index_add_ {step['reduce_library_ms']:.3f} ms [{smi}]")
     from ray_tracing_in_one_weekend_tpu_torch.examples import inverse_render
 
     demo_dir = REPO / "build" / "inverse_render"
@@ -699,6 +734,8 @@ def main() -> int:
         "library_ms": sub["reduce_library_ms"],
         "library": "one index_add_ of the events' 13 cotangent rows into [13, N]",
         "bound_ms_full_width": step["reduce_bound"][0],
+        "ms_full_width": step["reduce_ms"],
+        "library_ms_full_width": step["reduce_library_ms"],
         "rel_l2": sub["reduce_err"],
     }, *(probe_entry(name, v) for name, v in probes.items())]}))
     say(json.dumps({"ok": True, "device": {

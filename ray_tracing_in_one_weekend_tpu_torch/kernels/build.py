@@ -10,8 +10,9 @@ is compiled, so a build takes seconds.
 `render_pass` is the wrapper of `csrc/render_kernel.cu`; `grad_replay`
 and `grad_reduce` (joined in `grad_pass`) are those of the two kernels of
 `csrc/grad_kernel.cu`, the backward replay and its reduction; `chain_fma`,
-`fma_peak`, `sweep_probe`, `gather_probe` and `skinny_probe` are those of
-the five probe kernels of `csrc/probe_kernels.cu`. Each checks its
+`fma_peak`, `sweep_probe`, `gather_probe`, `skinny_probe` and
+`skinny_default_probe` are those of the six probe kernels of
+`csrc/probe_kernels.cu`. Each checks its
 tensors, allocates the outputs, launches on PyTorch's current stream,
 raises if the launch failed, and counts its launches in `LAUNCHES`.
 """
@@ -50,6 +51,7 @@ NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 LAUNCHES = {
     "render_kernel": 0, "grad_kernel": 0, "grad_reduce": 0, "bounce_adjoint": 0,
     "chain_fma": 0, "fma_peak": 0, "sweep_probe": 0, "gather_probe": 0, "skinny_probe": 0,
+    "skinny_probe_default": 0,
 }
 
 _LIB = None
@@ -57,6 +59,11 @@ _LIB = None
 # static camera vector: up to 766 spheres, and every scene of the port has
 # at most 512 slots.
 _MAX_TABLE_BYTES = 48 * 1024 - 24 * 4
+# The product probes hold one operand in registers, split over 8 warps
+# (csrc/probe_kernels.cu): the gather 8 k-slabs of P a warp, the skinny
+# product 8 m16 tiles of L a warp.
+_GATHER_MAX_N = 512
+_SKINNY_MAX_M = 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,8 +170,9 @@ def load() -> ctypes.CDLL:
             ("rt_chain_fma", [ptr, ptr, i64, i32, ptr]),
             ("rt_fma_peak", [ptr, ptr, i32, i32, ptr]),
             ("rt_sweep_probe", [ptr, i32, ptr, ptr, ptr, i32, i32, f32, ptr]),
-            ("rt_gather_probe", [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr]),
+            ("rt_gather_probe", [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]),
             ("rt_skinny_probe", [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]),
+            ("rt_skinny_default_probe", [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]),
         ):
             getattr(lib, name).restype = i32
             getattr(lib, name).argtypes = args
@@ -457,43 +465,54 @@ def sweep_probe(table, o, d, reps, t_min):
 
 def gather_probe(p, oh, reps):
     """`gather_probe_kernel`: P [16, N] f32, OH [N, tile] f32 -> [1, tile],
-    the sum over `reps` of row 0 of P @ OH, with OH += 1e-12 row 0 after
-    each rep. OH is not written: the kernel updates a scratch copy. The
-    product's other rows go to a discarded per-column checksum, which keeps
-    them computed."""
+    the sum over `reps` of row 0 of P @ OH (3xTF32 on the tensor cores:
+    float32 accuracy), with OH += 1e-12 row 0 after each rep. OH is not
+    written: each block updates its slice in shared memory. The product's
+    other rows go to a discarded per-column checksum, which keeps them
+    computed."""
     device = _cuda_only("gather_probe", oh)
     n, tile = oh.shape if oh.dim() == 2 else (-1, -1)
     _check_tensor("p", p, torch.float32, (16, n), device)
     _check_tensor("oh", oh, torch.float32, (n, tile), device)
-    if not 0 < n * 64 <= _MAX_TABLE_BYTES:
-        raise ValueError(f"P [16, {n}] does not fit the kernel's 48 KB of shared memory")
+    if not (0 < n <= _GATHER_MAX_N and n % 8 == 0):
+        raise ValueError(f"P [16, {n}]: the kernel takes N a multiple of 8, at most {_GATHER_MAX_N}")
     _check_reps(reps)
-    scratch = torch.empty_like(oh) if reps > 1 else oh
     out = torch.empty((1, tile), dtype=torch.float32, device=device)
     sink = torch.empty(tile, dtype=torch.int32, device=device)
-    _launch("gather_probe", "rt_gather_probe", device, p.data_ptr(), oh.data_ptr(), scratch.data_ptr(),
-            out.data_ptr(), sink.data_ptr(), n, tile, int(reps))
+    _launch("gather_probe", "rt_gather_probe", device, p.data_ptr(), oh.data_ptr(), out.data_ptr(),
+            sink.data_ptr(), n, tile, int(reps))
     return out
 
 
-def skinny_probe(l, r, reps):
-    """`skinny_probe_kernel`: L [M, 8] f32, R [8, tile] f32 -> [1, tile], the
-    sum over `reps` of row 0 of L @ R (float32 throughout), with R += 1e-12
-    row 0 after each rep. The other rows go to a discarded per-column
-    checksum, which keeps them computed."""
-    device = _cuda_only("skinny_probe", r)
+def _skinny(name, fn, l, r, reps):
+    device = _cuda_only(name, r)
     m = l.shape[0] if l.dim() == 2 else -1
     tile = r.shape[1] if r.dim() == 2 else -1
     _check_tensor("l", l, torch.float32, (m, 8), device)
     _check_tensor("r", r, torch.float32, (8, tile), device)
-    if not 0 < m * 32 <= _MAX_TABLE_BYTES:
-        raise ValueError(f"L [{m}, 8] does not fit the kernel's 48 KB of shared memory")
+    if not (0 < m <= _SKINNY_MAX_M and m % 16 == 0):
+        raise ValueError(f"L [{m}, 8]: the kernel takes M a multiple of 16, at most {_SKINNY_MAX_M}")
     _check_reps(reps)
     out = torch.empty((1, tile), dtype=torch.float32, device=device)
     sink = torch.empty(tile, dtype=torch.int32, device=device)
-    _launch("skinny_probe", "rt_skinny_probe", device, l.data_ptr(), r.data_ptr(), out.data_ptr(),
-            sink.data_ptr(), m, tile, int(reps))
+    _launch(name, fn, device, l.data_ptr(), r.data_ptr(), out.data_ptr(), sink.data_ptr(), m, tile, int(reps))
     return out
+
+
+def skinny_probe(l, r, reps):
+    """`skinny_probe_kernel` at HIGHEST: L [M, 8] f32, R [8, tile] f32 ->
+    [1, tile], the sum over `reps` of row 0 of L @ R (3xTF32 on the tensor
+    cores: float32 accuracy), with R += 1e-12 row 0 after each rep. The
+    other rows go to a discarded per-column checksum, which keeps them
+    computed."""
+    return _skinny("skinny_probe", "rt_skinny_probe", l, r, reps)
+
+
+def skinny_default_probe(l, r, reps):
+    """`skinny_probe_kernel` at DEFAULT: as `skinny_probe`, but each rep
+    rounds L and the current R to bf16 and takes one bf16 pass, summed in
+    float32 (R and the sums stay float32)."""
+    return _skinny("skinny_probe_default", "rt_skinny_default_probe", l, r, reps)
 
 
 def _raise_on(lib, err, name):

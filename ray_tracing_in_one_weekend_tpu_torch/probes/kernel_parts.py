@@ -12,19 +12,23 @@ a probe kernel of `csrc/probe_kernels.cu`, run on `tile` columns (default
 * sweep: the render kernel's own closest-hit sweep over the cover scene's
   512 slots, without the scatter;
 * gather: the TPU kernel's one-hot product [16, N] @ [N, tile] (the render
-  kernel here loads the winner's row by index instead);
-* skinny-highest: the K=8 product [2N, 8] @ [8, tile] in float32.
+  kernel here loads the winner's row by index instead), float32 accuracy;
+* skinny-highest: the K=8 product [2N, 8] @ [8, tile], float32 accuracy
+  (the TPU's HIGHEST precision);
+* skinny-default: the same product in one bf16 pass (the TPU's DEFAULT).
 
 For each part it prints the time, the rate, the microseconds per
 2048-column rep (the script's "tile-iteration"), and the part's bound
-against the published H100 peaks (67 TFLOP/s float32, 3.35 TB/s); for the
-two products also the time of `torch.matmul` on the same product (TF32
-off, and for the skinny one on). It needs one CUDA GPU with nvcc.
+against the published H100 peaks (`bound_ms`); for the products also the
+time of `torch.matmul` on the same product (float32 with TF32 off, and for
+the skinny one with TF32 on; bf16 for skinny-default). It needs one CUDA
+GPU with nvcc.
 
 The module also holds the plain PyTorch version of every probe kernel,
 the chain of scripts/perf_probe.py included, and the dispatchers
-(`chain_fma`, `fma_peak`, `sweep`, `gather`, `skinny`) that launch the
-kernel for CUDA tensors and run the plain version for CPU tensors.
+(`chain_fma`, `fma_peak`, `sweep`, `gather`, `skinny`, `skinny_default`)
+that launch the kernel for CUDA tensors and run the plain version for CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -38,9 +42,13 @@ import torch
 from ray_tracing_in_one_weekend_tpu_torch.models.scene import cover_scene
 from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_render as cr
 
-# Published H100 SXM peaks (NVIDIA's data sheet), at a 700 W power limit.
+# Published H100 SXM peaks (NVIDIA's data sheet), at a 700 W power limit:
+# float32 outside the tensor cores, device memory, and the dense tensor-core
+# rates of TF32 and bf16.
 PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
+PEAK_TF32_OPS = 495e12
+PEAK_BF16_OPS = 989e12
 # float32 operations of one sphere test in `closest_hit`
 # (csrc/render_device.cuh): d.c 5, cc_part 6, half_b 1, cc 1, disc 2.
 OPS_PER_SPHERE_TEST = 15
@@ -52,7 +60,10 @@ CHAIN = 512  # steps of the chain probe (scripts/perf_probe.py:44)
 FMA_ACCS, FMA_UNROLL = 8, 16  # scripts/kernel_parts_probe.py:64-65
 JAX_TILE = 2048  # the scripts' default tile
 FILL_TILE = 131072  # columns that fill 132 SMs several times over
-PARTS = ("fma_peak", "sweep_probe", "gather_probe", "skinny_probe")
+PARTS = ("fma_peak", "sweep_probe", "gather_probe", "skinny_probe", "skinny_probe_default")
+# The scripts' names of the parts (scripts/kernel_parts_probe.py's lines).
+LABELS = {"chain_fma": "chain", "fma_peak": "fma-peak", "sweep_probe": "sweep", "gather_probe": "gather",
+          "skinny_probe": "skinny-highest", "skinny_probe_default": "skinny-default"}
 
 # The fused step acc * 1.0000001 + 1e-7 with float32 constants. The plain
 # version takes it in float64 (the product of two float32 is exact there)
@@ -127,6 +138,20 @@ def skinny_plain(l: torch.Tensor, r: torch.Tensor, reps: int) -> torch.Tensor:
     return acc
 
 
+def skinny_default_plain(l: torch.Tensor, r: torch.Tensor, reps: int) -> torch.Tensor:
+    """As `skinny_plain` at the TPU's DEFAULT precision: each rep rounds L
+    and the current R to bf16 and multiplies them in float32 (a product of
+    two bf16 values is exact there, so only the summation order differs
+    from the kernel's); R and the sum stay float32."""
+    l16 = l.bfloat16().float()
+    acc = torch.zeros_like(r[0:1])
+    for _ in range(reps):
+        row0 = (l16 @ r.bfloat16().float())[0:1]
+        r = r + 1e-12 * row0
+        acc = acc + row0
+    return acc
+
+
 # ---------------------------------------------------------------------------
 # Dispatchers: the kernel for CUDA tensors (it raises if it cannot launch;
 # there is no fallback), the plain version for CPU tensors.
@@ -160,6 +185,10 @@ def skinny(l, r, reps):
     return _build().skinny_probe(l, r, reps) if r.is_cuda else skinny_plain(l, r, reps)
 
 
+def skinny_default(l, r, reps):
+    return _build().skinny_default_probe(l, r, reps) if r.is_cuda else skinny_default_plain(l, r, reps)
+
+
 # ---------------------------------------------------------------------------
 # Inputs, work and bounds.
 # ---------------------------------------------------------------------------
@@ -175,7 +204,7 @@ def inputs(name: str, tile: int, device, seed: int = 0) -> tuple:
     Pᵀ [N, 16] and rays from 3 N(0, 1) points pointing away from the
     origin for the sweep; the cover scene's P [16, N] and a
     one-hot-like OH (uniform < 1/N) for the gather; N(0, 1) L and R for
-    the skinny product."""
+    the skinny products."""
     rng = np.random.default_rng(seed)
     if name == "chain_fma":
         return (_tensor(np.ones((128, tile)), device),)
@@ -189,7 +218,7 @@ def inputs(name: str, tile: int, device, seed: int = 0) -> tuple:
         return p_mat.T.contiguous(), _tensor(o, device), _tensor(d, device)
     if name == "gather_probe":
         return p_mat, _tensor(rng.uniform(size=(n, tile)) < 1.0 / n, device)
-    if name == "skinny_probe":
+    if name in ("skinny_probe", "skinny_probe_default"):
         return _tensor(rng.standard_normal((2 * n, 8)), device), _tensor(
             rng.standard_normal((8, tile)), device)
     raise ValueError(f"unknown probe {name!r}")
@@ -199,23 +228,25 @@ def run(name: str, args: tuple, reps: int) -> torch.Tensor:
     """Probe `name` on `args` (the kernel on the card, else the plain
     version); the chain probe takes `reps` as its chain length."""
     fn = {"chain_fma": chain_fma, "fma_peak": fma_peak, "sweep_probe": sweep,
-          "gather_probe": gather, "skinny_probe": skinny}[name]
+          "gather_probe": gather, "skinny_probe": skinny, "skinny_probe_default": skinny_default}[name]
     return fn(*args, reps)
 
 
 def run_plain(name: str, args: tuple, reps: int) -> torch.Tensor:
     fn = {"chain_fma": chain_fma_plain, "fma_peak": fma_peak_plain, "sweep_probe": sweep_plain,
-          "gather_probe": gather_plain, "skinny_probe": skinny_plain}[name]
+          "gather_probe": gather_plain, "skinny_probe": skinny_plain,
+          "skinny_probe_default": skinny_default_plain}[name]
     return fn(*args, reps)
 
 
 # Gates of each kernel against its plain version on the card (`error`).
 # The FMA probes differ only where the plain version's float64 step lands
 # on a float32 tie; the sweep runs the render's closest_hit, which the
-# -fmad=false build rounds as the plain sweep does; the two products sum in
-# another order than torch.matmul.
+# -fmad=false build rounds as the plain sweep does; the products sum in
+# another order than torch.matmul, the float32 ones from 3xTF32 passes
+# (about 2^-22 relative each), the bf16 one from the same rounded inputs.
 GATES = {"chain_fma": 1e-6, "fma_peak": 1e-6, "sweep_probe": 1e-6, "gather_probe": 1e-5,
-         "skinny_probe": 1e-5}
+         "skinny_probe": 1e-5, "skinny_probe_default": 1e-5}
 
 
 def error(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -245,18 +276,24 @@ def real_roots(table, o, d, reps, t_min=cr.T_MIN_EPS) -> int:
     return count
 
 
-def work(name: str, args: tuple, reps: int) -> tuple[float, float]:
-    """(float32 operations, bytes) of one launch of probe `name` on `args`:
-    the operations its arithmetic needs on these inputs, and each input
-    read once and each output written once."""
+def work(name: str, args: tuple, reps: int) -> tuple[float, float, float, float]:
+    """(float32 operations, bytes, product operations, tensor ms) of one
+    launch of probe `name` on `args`: the operations its arithmetic needs
+    on these inputs outside the matrix product, each input read once and
+    each output written once, the 2 M N K operations of its matrix products
+    taken once, and the least time the tensor cores need for them at the
+    accuracy its gate asks (0 for the probes without a product): three TF32
+    passes at their dense peak for float32 accuracy (one pass misses 1e-5),
+    one bf16 pass for DEFAULT. Only the shapes are read, except the
+    sweep's, whose work depends on the rays."""
     if name == "chain_fma":
         (x,) = args
-        return 2.0 * x.numel() * reps, 2.0 * 4 * x.numel()
+        return 2.0 * x.numel() * reps, 2.0 * 4 * x.numel(), 0.0, 0.0
     if name == "fma_peak":
         (x,) = args
         cols = x.shape[1]
         return (2.0 * FMA_ACCS * 8 * cols * reps * FMA_UNROLL + 2.0 * FMA_ACCS * 8 * cols,
-                4.0 * (64 + 8) * cols)
+                4.0 * (64 + 8) * cols, 0.0, 0.0)
     if name == "sweep_probe":
         table, o, _ = args
         n, cols = table.shape[0], o.shape[1]
@@ -264,23 +301,33 @@ def work(name: str, args: tuple, reps: int) -> tuple[float, float]:
         # Per lane and rep: o.d and o.o (10), the sphere tests, o += s and
         # acc += t (5).
         ops = reps * cols * (OPS_PER_SPHERE_TEST * n + 15.0) + OPS_PER_REAL_ROOT * roots
-        return ops, 4.0 * (16 * n + 6 * cols + cols)
+        return ops, 4.0 * (16 * n + 6 * cols + cols), 0.0, 0.0
     if name == "gather_probe":
+        # Per column and rep: OH += s (N adds), s = 1e-12 row 0, acc += row 0.
         p, oh = args
         n, cols = oh.shape
-        return reps * cols * (2.0 * 16 * n + 2.0 * n + 2.0), 4.0 * (16 * n + n * cols + cols)
-    if name == "skinny_probe":
+        product = reps * cols * 2.0 * 16 * n
+        return (reps * cols * (n + 2.0), 4.0 * (16 * n + n * cols + cols), product,
+                3 * product / PEAK_TF32_OPS * 1e3)
+    if name in ("skinny_probe", "skinny_probe_default"):
+        # Per column and rep: R += s (8 adds), s = 1e-12 row 0, acc += row 0.
         l, r = args
         m, cols = l.shape[0], r.shape[1]
-        return reps * cols * (15.0 * m + 8.0 + 2.0), 4.0 * (8 * m + 8 * cols + cols)
+        product = reps * cols * 2.0 * m * 8
+        tensor_ms = (product / PEAK_BF16_OPS if name == "skinny_probe_default" else
+                     3 * product / PEAK_TF32_OPS) * 1e3
+        return reps * cols * 10.0, 4.0 * (8 * m + 8 * cols + cols), product, tensor_ms
     raise ValueError(f"unknown probe {name!r}")
 
 
-def bound_ms(ops: float, n_bytes: float) -> tuple[float, str]:
-    """The least time the card could take: the larger of the bytes over
-    3.35 TB/s and the float32 operations over 67 TFLOP/s."""
-    t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, n_bytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+def bound_ms(ops: float, n_bytes: float, tensor_ms: float = 0.0) -> tuple[float, str]:
+    """The least time (ms) the card could take: the largest of `ops`
+    float32 operations over 67 TFLOP/s, `n_bytes` over 3.35 TB/s and the
+    tensor cores' `tensor_ms`, and the term that sets it ("operations",
+    "bytes" or "tensor")."""
+    terms = {"operations": ops / PEAK_F32_OPS * 1e3, "bytes": n_bytes / PEAK_BYTES * 1e3, "tensor": tensor_ms}
+    by = max(terms, key=terms.get)
+    return terms[by], by
 
 
 # ---------------------------------------------------------------------------
@@ -294,16 +341,16 @@ class Timing:
     tile: int
     reps: int
     ms: float  # one launch, CUDA events
-    ops: float
+    flops: float  # the function's operations, its product counted once (2 M N K)
     n_bytes: float
     bound_ms: float
-    bound_by: str
-    library_ms: float | None = None  # `reps` torch.matmul of the same product, TF32 off
-    library_tf32_ms: float | None = None  # the same with TF32 on (the skinny product)
+    bound_by: str  # "operations", "bytes" or "tensor"
+    library_ms: float | None = None  # `reps` torch.matmul of the same product: float32 TF32 off, or bf16
+    library_tf32_ms: float | None = None  # the same with TF32 on (the float32 skinny product)
 
     @property
     def rate(self) -> float:
-        return self.ops / (self.ms * 1e-3)
+        return self.flops / (self.ms * 1e-3)
 
     @property
     def us_per_tile_iter(self) -> float:
@@ -311,7 +358,7 @@ class Timing:
         return self.ms * 1e3 / (self.reps * self.tile / JAX_TILE)
 
     def line(self) -> str:
-        s = (f"{self.name} tile {self.tile} reps {self.reps}: {self.ms:.4f} ms "
+        s = (f"{LABELS[self.name]} ({self.name}) tile {self.tile} reps {self.reps}: {self.ms:.4f} ms "
              f"{self.rate / 1e12:.2f} TFLOP/s ({self.us_per_tile_iter:.3f} us per 2048-column rep); "
              f"bound {self.bound_ms:.4f} ms by {self.bound_by} ({100 * self.bound_ms / self.ms:.1f}% "
              f"of bound)")
@@ -342,13 +389,14 @@ def time_part(name: str, tile: int, reps: int, device, launches: int = 5) -> Tim
     args = inputs(name, tile, device)
     run(name, args, reps)
     ms = cuda_ms(lambda: run(name, args, reps), reps=launches)
-    ops, n_bytes = work(name, args, reps)
-    t = Timing(name, tile, reps, ms, ops, n_bytes, *bound_ms(ops, n_bytes))
-    if name == "gather_probe":
+    ops, n_bytes, product, tensor_ms = work(name, args, reps)
+    t = Timing(name, tile, reps, ms, ops + product, n_bytes, *bound_ms(ops, n_bytes, tensor_ms))
+    if name in ("gather_probe", "skinny_probe"):
         t.library_ms = _matmul_ms(args[0], args[1], reps, tf32=False)
     if name == "skinny_probe":
-        t.library_ms = _matmul_ms(args[0], args[1], reps, tf32=False)
         t.library_tf32_ms = _matmul_ms(args[0], args[1], reps, tf32=True)
+    if name == "skinny_probe_default":
+        t.library_ms = _matmul_ms(args[0].bfloat16(), args[1].bfloat16(), reps, tf32=False)
     return t
 
 

@@ -191,24 +191,28 @@ def test_scheduler_bit_identical_on_the_card(dev):
     assert torch.equal(cr.render_cuda(scene, cam), one)  # the hit
 
 
-@pytest.mark.parametrize("name", ["chain_fma", "fma_peak", "sweep_probe", "gather_probe", "skinny_probe"])
+@pytest.mark.parametrize("name", ["chain_fma", "fma_peak", "sweep_probe", "gather_probe", "skinny_probe",
+                                  "skinny_probe_default"])
 def test_probe_kernel_matches_plain(dev, name):
-    """Each probe kernel against its plain version at 256 columns, within
-    its gate (probes/kernel_parts.py GATES, chip_smoke.py phase 9)."""
+    """Each probe kernel against its plain version at 256 columns and at
+    196, a ragged last block (12.25 gather blocks of 16 columns, 24.5
+    skinny blocks of 8), within its gate (probes/kernel_parts.py GATES,
+    chip_smoke.py phase 9)."""
     from ray_tracing_in_one_weekend_tpu_torch.kernels import build
     from ray_tracing_in_one_weekend_tpu_torch.probes import kernel_parts as kp
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    args = kp.inputs(name, 256, dev)
     reps = 64 if name == "chain_fma" else 4
-    before = build.LAUNCHES[name]
-    got = kp.run(name, args, reps)
-    assert build.LAUNCHES[name] == before + 1
-    want = kp.run_plain(name, args, reps)
-    torch.cuda.synchronize()
-    assert got.shape == want.shape and bool(torch.isfinite(got).all())
-    err = kp.error(name, got, want)
-    assert err <= kp.GATES[name], (name, err)
+    for tile in (256, 196):
+        args = kp.inputs(name, tile, dev)
+        before = build.LAUNCHES[name]
+        got = kp.run(name, args, reps)
+        assert build.LAUNCHES[name] == before + 1
+        want = kp.run_plain(name, args, reps)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and bool(torch.isfinite(got).all())
+        err = kp.error(name, got, want)
+        assert err <= kp.GATES[name], (name, tile, err)
 
 
 def test_probe_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -225,11 +229,17 @@ def test_probe_wrappers_refuse_what_the_kernels_do_not_take(dev):
     p, oh = kp.inputs("gather_probe", 128, dev)
     with pytest.raises(TypeError, match="dtype"):
         build.gather_probe(p.double(), oh, 2)
-    with pytest.raises(ValueError, match="48 KB"):
-        build.gather_probe(torch.zeros(16, 1024, device=dev), torch.zeros(1024, 128, device=dev), 2)
+    # The kernels hold P's and L's fragments in the registers of 8 warps.
+    for n in (1024, 100):
+        with pytest.raises(ValueError, match="a multiple of 8, at most 512"):
+            build.gather_probe(torch.zeros(16, n, device=dev), torch.zeros(n, 128, device=dev), 2)
     table, o, d = kp.inputs("sweep_probe", 128, dev)
     with pytest.raises(ValueError, match="contiguous"):
         build.sweep_probe(table.T.contiguous().T, o, d, 2, 1e-3)
     l, r = kp.inputs("skinny_probe", 128, dev)
-    with pytest.raises(ValueError, match="48 KB"):
-        build.skinny_probe(torch.zeros(2048, 8, device=dev), r, 2)
+    for fn in (build.skinny_probe, build.skinny_default_probe):
+        for m in (2048, 1000):
+            with pytest.raises(ValueError, match="a multiple of 16, at most 1024"):
+                fn(torch.zeros(m, 8, device=dev), r, 2)
+        with pytest.raises(TypeError, match="dtype"):
+            fn(l.bfloat16(), r, 2)

@@ -7,8 +7,9 @@ memory spaces), as tests/test_pallas.py does for `_sweep_ts`, and runs it
 at a tiny shape (tile 128, reps 2-4) on the same numpy inputs as the
 port's plain version (`probes/kernel_parts.py`). The kernels themselves
 are held against the plain versions on the card (tests/test_torch_cuda.py,
-chip_smoke.py phase 9). Also here: the warp-occupancy arithmetic of
-`probes/perf_probe.py`.
+chip_smoke.py phase 9). Also here: the arithmetic the product kernels
+rest on (3xTF32, emulated), the probes' bounds, and the warp-occupancy
+arithmetic of `probes/perf_probe.py`.
 """
 
 import jax
@@ -160,9 +161,9 @@ def test_gather_plain_matches_jax_gather_kernel():
 
 def test_skinny_plain_matches_jax_skinny_kernel():
     """scripts/kernel_parts_probe.py:196 `skinny_kernel` at HIGHEST
-    precision (the port's function; DEFAULT meant the TPU's bf16 passes):
-    reps x (L @ R, R += 1e-12 row 0), summed; 1e-5 relative to the largest
-    result (summation order)."""
+    precision (its DEFAULT form is the next test's): reps x (L @ R,
+    R += 1e-12 row 0), summed; 1e-5 relative to the largest result
+    (summation order)."""
     reps = 4
     l, r = kp.inputs("skinny_probe", TILE, "cpu")
 
@@ -180,6 +181,147 @@ def test_skinny_plain_matches_jax_skinny_kernel():
     theirs = _interpret(skinny_kernel, (1, TILE), l, r)
     ours = kp.skinny(l, r, reps).numpy()
     np.testing.assert_allclose(ours, theirs, rtol=0, atol=1e-5 * np.abs(theirs).max())
+
+
+def test_skinny_default_plain_matches_jax_skinny_kernel():
+    """scripts/kernel_parts_probe.py:196 `skinny_kernel` at DEFAULT, the
+    TPU's one bf16 pass: L and the current R cast to bf16, the product
+    summed in float32, R updated in float32. A product of two bf16 values is
+    exact in float32, so both sides differ only in summation order: 1e-5
+    relative to the largest result. The bf16 rounding itself moves the
+    result by far more than that (checked against the HIGHEST form)."""
+    reps = 4
+    l, r = kp.inputs("skinny_probe_default", TILE, "cpu")
+
+    def skinny_kernel(l_ref, r_ref, out_ref):
+        def body(i, carry):
+            r, acc = carry
+            prod = jax.lax.dot_general(l_ref[:, :].astype(jnp.bfloat16), r.astype(jnp.bfloat16),
+                                       (((1,), (0,)), ((), ())),
+                                       preferred_element_type=jnp.float32)
+            return r + 1e-12 * prod[0:1], acc + prod[0:1]
+
+        _, acc = jax.lax.fori_loop(0, reps, body, (r_ref[:, :], jnp.zeros((1, TILE), jnp.float32)))
+        out_ref[:, :] = acc
+
+    theirs = _interpret(skinny_kernel, (1, TILE), l, r)
+    ours = kp.skinny_default(l, r, reps).numpy()
+    scale = np.abs(theirs).max()
+    np.testing.assert_allclose(ours, theirs, rtol=0, atol=1e-5 * scale)
+    assert np.abs(ours - kp.skinny(l, r, reps).numpy()).max() > 1e-3 * scale
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32: x rounded to 10 mantissa bits, ties away from zero
+    (adding half an ulp to the sign-magnitude bits, then clearing the low
+    13)."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def test_tf32_rounding_emulation():
+    """Ties go away from zero; below half an ulp rounds down."""
+    x = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 3 * 2.0 ** -11, 1 + 2.0 ** -12, 0.0])
+    want = [1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1 + 2.0 ** -9, 1.0, 0.0]
+    assert _tf32(x).tolist() == want
+
+
+def _mm_tf32(a, b, passes):
+    """A @ B from TF32 parts, as mma.sync takes it: one pass (big x big) or
+    three (+ big x small + small x big). The tensor core's products of TF32
+    values are exact; the sum is taken in float64 and rounded once."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    out = a_big.double() @ b_big.double()
+    if passes == 3:
+        a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+        out = out + (a_big.double() @ b_small.double() + a_small.double() @ b_big.double())
+    return out.float()
+
+
+def _probe_loop(a, b, reps, mm):
+    acc = torch.zeros_like(b[0:1])
+    for _ in range(reps):
+        row0 = mm(a, b)[0:1]
+        b = b + 1e-12 * row0
+        acc = acc + row0
+    return acc
+
+
+@pytest.mark.parametrize("name", ["gather_probe", "skinny_probe"])
+def test_3xtf32_meets_the_gate_and_one_pass_does_not(name):
+    """The kernels' HIGHEST arithmetic on the probes' own inputs (tile 128,
+    reps 4), against the probe taken wholly in float64, relative to the
+    largest value: 3xTF32 is within 1e-6 (measured 3.6e-8 and 1.2e-7), one
+    TF32 pass misses the 1e-5 gate (1.6e-4 and 4.6e-4), hence three."""
+    reps = 4
+    a, b = kp.inputs(name, TILE, "cpu")
+    want = _probe_loop(a.double(), b.double(), reps, torch.matmul)
+    scale = want.abs().max()
+
+    def err(passes):
+        got = _probe_loop(a, b, reps, lambda x, y: _mm_tf32(x, y, passes))
+        return float((got.double() - want).abs().max() / scale)
+
+    assert err(3) <= 1e-6
+    assert err(1) > kp.GATES[name]
+
+
+def _bench_args(name, tile):
+    """The probe's inputs at `tile` columns as shapes only (the bounds of
+    every probe but the sweep read nothing else); the sweep's real inputs."""
+    if name == "sweep_probe":
+        return kp.inputs(name, tile, "cpu")
+    shapes = {"chain_fma": [(128, tile)], "fma_peak": [(64, tile)], "gather_probe": [(16, 512), (512, tile)],
+              "skinny_probe": [(1024, 8), (8, tile)], "skinny_probe_default": [(1024, 8), (8, tile)]}
+    return tuple(torch.empty(s, device="meta") for s in shapes[name])
+
+
+def _bound(name, args, reps):
+    ops, n_bytes, _, tensor_ms = kp.work(name, args, reps)
+    return kp.bound_ms(ops, n_bytes, tensor_ms)
+
+
+def test_gather_bound_is_its_tensor_work():
+    """The gather at 131072 columns, 64 reps: 2 x 16 x 512 x 131072 x 64
+    operations, three TF32 passes at 495 TFLOP/s = 0.833 ms, above its bytes
+    (0.08 ms) and its float32 operations (0.064 ms)."""
+    ms, by = _bound("gather_probe", _bench_args("gather_probe", kp.FILL_TILE), 64)
+    assert by == "tensor"
+    assert ms == pytest.approx(0.833, abs=0.001)
+    ms, by = _bound("skinny_probe_default", _bench_args("skinny_probe_default", kp.FILL_TILE), 64)
+    assert by == "tensor" and ms == pytest.approx(2.0 * 1024 * 8 * kp.FILL_TILE * 64 / 989e9)
+
+
+@pytest.mark.parametrize("name", ["chain_fma", "fma_peak", "sweep_probe", "gather_probe", "skinny_probe",
+                                  "skinny_probe_default"])
+def test_bound_is_never_below_a_term(name):
+    """At the bench shapes (2048 and 131072 columns; the sweep, whose work
+    depends on its rays, at 128), no probe's bound is below its float32
+    operations over 67 TFLOP/s, its bytes over 3.35 TB/s or its tensor
+    work (3 TF32 passes at 495 TFLOP/s for float32 accuracy, one bf16 pass
+    at 989 for DEFAULT), and it names the largest."""
+    reps = kp.CHAIN if name == "chain_fma" else 64
+    passes, peak = {"gather_probe": (3, 495e12), "skinny_probe": (3, 495e12),
+                    "skinny_probe_default": (1, 989e12)}.get(name, (0, 1.0))
+    for tile in ((TILE,) if name == "sweep_probe" else (kp.JAX_TILE, kp.FILL_TILE)):
+        r = 2 if name == "sweep_probe" else reps
+        args = _bench_args(name, tile)
+        ops, n_bytes, product, tensor_ms = kp.work(name, args, r)
+        assert (product > 0) == (passes > 0)
+        assert tensor_ms == pytest.approx(passes * product / peak * 1e3)
+        terms = {"operations": ops / 67e9, "bytes": n_bytes / 3.35e9, "tensor": tensor_ms}
+        ms, by = kp.bound_ms(ops, n_bytes, tensor_ms)
+        assert all(ms >= t * (1 - 1e-12) for t in terms.values()), (tile, terms, ms)
+        assert ms == pytest.approx(terms[by])
+
+
+def test_parts_name_both_skinny_precisions():
+    """`kernel_parts.main` runs every part in `PARTS` and prints each line
+    under the script's name: skinny-default beside skinny-highest."""
+    assert kp.PARTS[-2:] == ("skinny_probe", "skinny_probe_default")
+    lines = [kp.Timing(name, 2048, 64, 1.0, 1e9, 1e6, 0.5, "tensor").line() for name in kp.PARTS]
+    assert [line.split(" ")[0] for line in lines] == ["fma-peak", "sweep", "gather", "skinny-highest",
+                                                      "skinny-default"]
+    assert "bound 0.5000 ms by tensor (50.0% of bound)" in lines[-1]
 
 
 def test_fused_step_plain_is_one_rounding():
