@@ -1,5 +1,5 @@
-// The adjoint of one bounce, written by hand for the backward kernel
-// (grad_kernel.cu).
+// The adjoint of one bounce, written by hand for the backward's reverse
+// walk (grad_kernel.cu, grad_reverse_kernel).
 //
 // It is the vector-Jacobian product of `_bounce_f` in
 // ops/cuda_grad.py (the JAX kernel's `F`), which the plain version gets

@@ -1,44 +1,54 @@
-// Backward render kernel: the gradient of the rendered image with respect to
-// the packed scene, by replaying each path and walking it in reverse.
-// Hand-written for Hopper (sm_90a).
+// Backward render kernels: the gradient of the rendered image with respect to
+// the packed scene. Hand-written for Hopper (sm_90a).
 //
-// Replaces ray_tracing_in_one_weekend_tpu/ops/pallas_grad.py::_bwd_kernel,
-// the Pallas TPU kernel, and computes what it computes: for every (pixel,
-// sample) path it replays the forward bounces with the forward kernel's own
-// device functions (render_device.cuh), then pulls the radiance cotangent
-// back through each bounce in reverse (grad_device.cuh, the hand-written
-// adjoint of the JAX kernel's `F`), clipping every adjoint and parameter
-// cotangent to +-1e6 per step, and adds each bounce's cotangent into the
-// winning sphere's column of a [16, N] result. Adjoints start at zero for
-// every sample, as the JAX kernel's reset at a regen boundary does.
+// Together they replace ray_tracing_in_one_weekend_tpu/ops/pallas_grad.py::
+// _bwd_kernel, the Pallas TPU kernel, and compute what it computes: every
+// (pixel, sample) path is replayed with the forward kernel's own device
+// functions (render_device.cuh), then the radiance cotangent is pulled back
+// through each bounce in reverse (grad_device.cuh, the hand-written adjoint
+// of the JAX kernel's `F`), every adjoint and parameter cotangent clipped to
+// +-1e6 per step, and each bounce's cotangent is added into the winning
+// sphere's column of a [16, N] result. Adjoints start at zero for every
+// path, as the JAX kernel's reset at a regen boundary does. The JAX kernel's
+// two phases are two kernels here:
 //
-// Layout on this card: one thread per lane (a lane is a pixel, given as data,
-// so the caller may sort lanes by cost), `tile` lanes per block, the scene
-// table in shared memory as in the forward kernel. A lane runs its samples
-// one after another, and each sample is replayed and then reversed before the
-// next starts. Two TPU-isms are gone:
+// * grad_replay_kernel, its Phase A: the forward's persistent-sample loop
+//   (render_kernel.cu), one thread per lane (a lane is a pixel, given as
+//   data, so the caller may sort lanes by cost), `tile` lanes a block, the
+//   scene table in shared memory. A lane starts its next sample as soon as a
+//   path retires, so a warp pays the max over its lanes of each lane's sum
+//   of bounces, not the sum over samples of the per-sample max. Each bounce
+//   writes one 64-byte record: the pre-bounce o, d, att, the winner (-1 for
+//   a miss), the stream words, the depth and how the path goes on. There is
+//   no adjoint code here: it is the forward kernel plus record stores.
+// * grad_reverse_kernel, its Phase B: one thread per lane walks its records
+//   from the last to the first. At each path's last bounce the adjoints
+//   start from zero (from the sky's adjoint if the path reached the sky),
+//   and each earlier bounce of such a path takes bounce_adjoint. It
+//   overwrites every record in place with that bounce's event (winner,
+//   13 cotangent rows): the thread that reads a slot is the one that writes
+//   it, and the record buffer becomes the event buffer.
 //
-// * the VMEM trajectory slab per persistent-loop iteration (at the bench
-//   preset 64 KB per lane). A sample's trajectory (pre-bounce o, d, att and
-//   the winner, 10 words per bounce) goes to a device-memory scratch of
-//   max_depth entries per lane, laid out [bounce][row][lane] so that a
-//   warp's accesses coalesce;
-// * the one-hot MXU matmul that scattered the cotangents. Float atomics
-//   would make the gradient depend on timing, so each bounce writes one
-//   64-byte event record (winner, 13 cotangent rows) into a slot of its
-//   own: a lane's events start at the exclusive prefix sum of the forward's
-//   per-pixel bounce counts in pixel order, and follow sample by sample,
-//   bounce by bounce. The replay takes the forward's decisions, so a lane
-//   fills exactly its range; if it would not, the kernel raises a flag and
-//   the wrapper refuses the result. grad_reduce_chunks then sums fixed
-//   chunks of events in order, thread t owning sphere t, and
-//   grad_reduce_partials sums the chunks in order. The result is the same
-//   bits for any lane order and any tile.
+// Two TPU-isms are gone. The VMEM trajectory slab goes to device memory as
+// the records, one per bounce and no more. The one-hot MXU matmul that
+// scattered the cotangents is gone too: float atomics would make the
+// gradient depend on timing, so every bounce owns a slot. A lane's slots
+// start at the exclusive prefix sum of the forward's per-pixel bounce counts
+// in pixel order and follow sample by sample, bounce by bounce. The replay
+// takes the forward's decisions, so a lane fills exactly its range; if it
+// would not, the replay raises a flag and the wrapper refuses the records.
+// grad_reduce_chunks then sums fixed chunks of events in order, thread t
+// owning sphere t, and grad_reduce_partials sums the chunks in order. The
+// result is the same bits for any lane order and any tile.
 //
-// What should bound it: the replay's sphere sweep (N x ~15 flops per bounce,
-// as in the forward), plus the trajectory and event traffic to device memory:
-// about 40 B written and read back per bounce, and 64 B per event written
-// and read once by the reduction. Tuning is for later work.
+// Bounds on this card (counted from this run's bounces by chip_smoke.py):
+// the replay by operations, the forward's sweep of N x 15 flops per bounce
+// (at the bench preset 26.5M bounces x 512 x 15 over 67 TFLOP/s = 3.04 ms;
+// its 1.7 GB of records take 0.51 ms at 3.35 TB/s); the reverse by bytes,
+// each record read once and overwritten once (1.7 + 1.7 GB, 1.01 ms). The
+// design's answer: max-of-sums occupancy in the replay, the adjoint out of
+// the sweep kernel's registers, and records overwritten in place, so the
+// reverse moves no trajectory besides them and allocates nothing.
 //
 // Build with the forward kernel's flags (nvcc -gencode arch=compute_90a,
 // code=sm_90a -O3 -fmad=false, no --use_fast_math): the replay knows the
@@ -50,13 +60,26 @@
 using namespace rt;
 
 constexpr int MAX_GRAD_TILE = 512;
-constexpr int TRAJ_ROWS = 10;  // o, d, att, winner (int bits)
+// Record words (float4 r[4]; int fields as int32 bits): r[0] = o, d.x;
+// r[1] = d.y, d.z, att.x, att.y; r[2] = att.z, winner, stream lo, stream hi;
+// r[3] = depth, end, 0, 0.
+// end: the path goes on after this bounce, ends without radiance (absorbed,
+// or at the depth limit), or ends at the sky (a miss).
+constexpr int END_NONE = 0, END_DARK = 1, END_SKY = 2;
 // Events per reduction block, and per shared-memory stage within it. Fixed:
 // the summation order must not depend on the launch.
 constexpr int CHUNK_EVENTS = 8192;
 constexpr int STAGE_EVENTS = 256;
 // flags[0]: a lane had more bounces than its slot range; flags[1]: fewer.
 constexpr int FLAG_OVER = 0, FLAG_UNDER = 1;
+
+__device__ __forceinline__ void put_record(float4* rec, vec3 o, vec3 d, vec3 att, int winner, Stream st, int depth,
+                                           int end) {
+    rec[0] = make_float4(o.x, o.y, o.z, d.x);
+    rec[1] = make_float4(d.y, d.z, att.x, att.y);
+    rec[2] = make_float4(att.z, __int_as_float(winner), __uint_as_float(st.lo), __uint_as_float(st.hi));
+    rec[3] = make_float4(__int_as_float(depth), __int_as_float(end), 0.0f, 0.0f);
+}
 
 __device__ __forceinline__ void put_event(float4* ev, int winner, const PBar& p) {
     ev[0] = make_float4(__int_as_float(winner), p.c.x, p.c.y, p.c.z);
@@ -65,16 +88,20 @@ __device__ __forceinline__ void put_event(float4* ev, int winner, const PBar& p)
     ev[3] = make_float4(p.m2c.z, p.csq, 0.0f, 0.0f);
 }
 
+// No sphere, no cotangent: all 16 words written, so none of the record stays.
 __device__ __forceinline__ void put_empty_event(float4* ev) {
+    const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     ev[0] = make_float4(__int_as_float(-1), 0.0f, 0.0f, 0.0f);
+    ev[1] = z;
+    ev[2] = z;
+    ev[3] = z;
 }
 
 __global__ void __launch_bounds__(MAX_GRAD_TILE)
-    grad_kernel(const float4* __restrict__ table, int n_spheres, const float* __restrict__ cam_vec,
-                const int* __restrict__ pix_lanes, const float* __restrict__ g,
-                const long long* __restrict__ ev_start, const int* __restrict__ ev_count,
-                float* __restrict__ traj, float4* __restrict__ events, int* __restrict__ flags, int n_lanes,
-                int n_live, int seed, int sample_offset, int spp, int max_depth) {
+    grad_replay_kernel(const float4* __restrict__ table, int n_spheres, const float* __restrict__ cam_vec,
+                       const int* __restrict__ pix_lanes, const long long* __restrict__ ev_start,
+                       const int* __restrict__ ev_count, float4* __restrict__ records, int* __restrict__ flags,
+                       int n_lanes, int n_live, int seed, int sample_offset, int spp, int max_depth) {
     extern __shared__ float4 s_table[];
     __shared__ float s_cam[CAM_LEN];
     for (int k = threadIdx.x; k < 4 * n_spheres; k += blockDim.x) s_table[k] = table[k];
@@ -83,7 +110,6 @@ __global__ void __launch_bounds__(MAX_GRAD_TILE)
 
     const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (j >= n_lanes) return;
-    const int64_t P = n_lanes;
     long long slot = ev_start[j];
     const long long end = slot + ev_count[j];
     const int pix = pix_lanes[j];
@@ -95,92 +121,106 @@ __global__ void __launch_bounds__(MAX_GRAD_TILE)
     const float px = (float)(pix % cam.width);
     const float py = (float)(pix / cam.width);
     const uint32_t h0 = pcg((uint32_t)pix ^ pcg((uint32_t)seed));
-    const vec3 gl = {g[j], g[P + j], g[2 * P + j]};
-    float* tr = traj + j;  // row r of bounce k at tr[(k * TRAJ_ROWS + r) * P]
 
-    for (int s = 0; s < spp; ++s) {
-        vec3 o, d;
-        Stream st;
-        camera_ray(cam, h0, px, py, (uint32_t)(s + sample_offset), o, d, st);
-        vec3 att = {1.0f, 1.0f, 1.0f};
-
-        // Replay, recording the pre-bounce state and the winner (-1: miss).
-        int n = 0;
-        bool miss = false;
-        for (int depth = 0; depth < max_depth;) {
-            float* e = tr + (int64_t)n * TRAJ_ROWS * P;
-            e[0 * P] = o.x;
-            e[1 * P] = o.y;
-            e[2 * P] = o.z;
-            e[3 * P] = d.x;
-            e[4 * P] = d.y;
-            e[5 * P] = d.z;
-            e[6 * P] = att.x;
-            e[7 * P] = att.y;
-            e[8 * P] = att.z;
-            float t_best;
-            int best;
-            closest_hit(s_table, n_spheres, o, d, cam.t_min, t_best, best);
-            const uint32_t ctr = 8u + (uint32_t)depth * 16u;
-            depth += 1;
-            ++n;
-            if (!(t_best < T_MISS * 0.5f)) {
-                e[9 * P] = __int_as_float(-1);
-                miss = true;
-                break;
-            }
-            e[9 * P] = __int_as_float(best);
-            // The rest of render_device.cuh's bounce(), expression for expression.
-            const float4* row = s_table + 4 * best;
-            const float4 c = row[0];
-            const vec3 p = o + t_best * d;
-            const float inv_r = 1.0f / (fabsf(c.w) > 1e-8f ? c.w : 1.0f);
-            const vec3 outward = (p - vec3{c.x, c.y, c.z}) * inv_r;
-            const bool front_face = dot3(d, outward) < 0.0f;
-            const vec3 nrm = front_face ? outward : -outward;
-            vec3 new_dir, mat_atten;
-            const bool ok = scatter(d, nrm, front_face, row, st, ctr, new_dir, mat_atten);
-            if (!(ok && depth < max_depth)) break;  // absorbed or out of depth: radiance 0
+    // The forward's loop: an idle lane with samples left starts one, a busy
+    // lane advances one bounce per iteration, with no budget.
+    vec3 o, d, att;
+    Stream st;
+    int started = 0, depth = 0;
+    bool busy = false;
+    for (;;) {
+        if (!busy) {
+            if (started >= spp) break;
+            camera_ray(cam, h0, px, py, (uint32_t)(started + sample_offset), o, d, st);
+            ++started;
+            depth = 0;
+            att = {1.0f, 1.0f, 1.0f};
+            busy = true;
+        }
+        if (slot >= end) {
+            atomicOr(&flags[FLAG_OVER], 1);
+            return;
+        }
+        float4* rec = records + 4 * slot++;
+        float t_best;
+        int best;
+        closest_hit(s_table, n_spheres, o, d, cam.t_min, t_best, best);
+        if (!(t_best < T_MISS * 0.5f)) {
+            put_record(rec, o, d, att, -1, st, depth, END_SKY);
+            busy = false;
+            continue;
+        }
+        // The rest of render_device.cuh's bounce(), expression for expression.
+        const float4* row = s_table + 4 * best;
+        const float4 c = row[0];
+        const vec3 p = o + t_best * d;
+        const float inv_r = 1.0f / (fabsf(c.w) > 1e-8f ? c.w : 1.0f);
+        const vec3 outward = (p - vec3{c.x, c.y, c.z}) * inv_r;
+        const bool front_face = dot3(d, outward) < 0.0f;
+        const vec3 nrm = front_face ? outward : -outward;
+        vec3 new_dir, mat_atten;
+        const bool ok = scatter(d, nrm, front_face, row, st, 8u + (uint32_t)depth * 16u, new_dir, mat_atten);
+        depth += 1;
+        busy = ok && depth < max_depth;  // absorbed or out of depth: radiance 0
+        put_record(rec, o, d, att, best, st, depth - 1, busy ? END_NONE : END_DARK);
+        if (busy) {
             att = att * mat_atten;
             o = p;
             d = new_dir;
         }
-        if (slot + n > end) {
-            atomicOr(&flags[FLAG_OVER], 1);
-            return;
-        }
-
-        // Reverse. Only a path that reached the sky carries radiance; the
-        // others add nothing, and their events are empty.
-        float4* ev = events + 4 * slot;
-        put_empty_event(ev + 4 * (n - 1));
-        if (miss) {
-            const float* e = tr + (int64_t)(n - 1) * TRAJ_ROWS * P;
-            vec3 ob = {0.0f, 0.0f, 0.0f}, db, ab;
-            sky_adjoint({e[3 * P], e[4 * P], e[5 * P]}, {e[6 * P], e[7 * P], e[8 * P]}, gl, db, ab);
-            db = clip3(db);
-            ab = clip3(ab);
-            for (int k = n - 2; k >= 0; --k) {
-                e = tr + (int64_t)k * TRAJ_ROWS * P;
-                const vec3 o_k = {e[0], e[P], e[2 * P]};
-                const vec3 dk = {e[3 * P], e[4 * P], e[5 * P]};
-                const vec3 ak = {e[6 * P], e[7 * P], e[8 * P]};
-                const int best = __float_as_int(e[9 * P]);
-                PBar pb;
-                bounce_adjoint(s_table + 4 * best, o_k, dk, ak, st, 8u + (uint32_t)k * 16u, cam.t_min, ob, db,
-                               ab, pb);
-                ob = clip3(ob);
-                db = clip3(db);
-                ab = clip3(ab);
-                clip_pbar(pb);
-                put_event(ev + 4 * k, best, pb);
-            }
-        } else {
-            for (int k = n - 2; k >= 0; --k) put_empty_event(ev + 4 * k);
-        }
-        slot += n;
     }
     if (slot != end) atomicOr(&flags[FLAG_UNDER], 1);
+}
+
+__global__ void __launch_bounds__(MAX_GRAD_TILE)
+    grad_reverse_kernel(const float4* __restrict__ table, const float* __restrict__ cam_vec,
+                        const float* __restrict__ g, const long long* __restrict__ ev_start,
+                        const int* __restrict__ ev_count, float4* __restrict__ records, long long n_records,
+                        int n_lanes) {
+    const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (j >= n_lanes) return;
+    const long long first = ev_start[j];
+    // A slot range outside the records (not one the replay gave) is left alone.
+    if (first < 0 || first + ev_count[j] > n_records) return;
+    const int64_t P = n_lanes;
+    const float t_min = cam_vec[20];
+    const vec3 gl = {g[j], g[P + j], g[2 * P + j]};
+    // Whether the path being walked carries radiance, and its adjoints.
+    bool live = false;
+    vec3 ob = {0.0f, 0.0f, 0.0f}, db = ob, ab = ob;
+    for (long long k = first + ev_count[j] - 1; k >= first; --k) {
+        float4* rec = records + 4 * k;
+        const float4 r0 = rec[0], r1 = rec[1], r2 = rec[2], r3 = rec[3];
+        const vec3 d = {r0.w, r1.x, r1.y};
+        const vec3 att = {r1.z, r1.w, r2.x};
+        const int end = __float_as_int(r3.y);
+        if (end != END_NONE) {
+            // A path's last bounce: its adjoints start here. Only a path that
+            // reached the sky carries radiance; the others add nothing. The
+            // bounce itself has no sphere (a miss) or no radiance.
+            live = end == END_SKY;
+            if (live) {
+                ob = {0.0f, 0.0f, 0.0f};
+                sky_adjoint(d, att, gl, db, ab);
+                db = clip3(db);
+                ab = clip3(ab);
+            }
+            put_empty_event(rec);
+        } else if (!live) {
+            put_empty_event(rec);
+        } else {
+            const int best = __float_as_int(r2.y);
+            const Stream st = {__float_as_uint(r2.z), __float_as_uint(r2.w)};
+            PBar pb;
+            bounce_adjoint(table + 4 * best, {r0.x, r0.y, r0.z}, d, att, st,
+                           8u + (uint32_t)__float_as_int(r3.x) * 16u, t_min, ob, db, ab, pb);
+            ob = clip3(ob);
+            db = clip3(db);
+            ab = clip3(ab);
+            clip_pbar(pb);
+            put_event(rec, best, pb);
+        }
+    }
 }
 
 // Sum events [CHUNK_EVENTS * b, CHUNK_EVENTS * (b + 1)) in order: thread t
@@ -238,18 +278,28 @@ __global__ void grad_reduce_partials(const float* __restrict__ partials, int n_c
 }
 
 // Launch the replay on `stream`. table [n_spheres, 16] f32; cam [CAM_LEN] f32;
-// pix [n_lanes] i32; g [3, n_lanes] f32; ev_start [n_lanes] i64, ev_count
-// [n_lanes] i32; traj [max_depth, TRAJ_ROWS, n_lanes] f32 scratch; events
+// pix [n_lanes] i32; ev_start [n_lanes] i64, ev_count [n_lanes] i32; records
 // [n_events, 16] f32; flags [2] i32, zeroed. Returns cudaGetLastError().
-extern "C" int rt_grad_pass(const void* table, int n_spheres, const void* cam, const void* pix, const void* g,
-                            const void* ev_start, const void* ev_count, void* traj, void* events, void* flags,
-                            int n_lanes, int tile, int n_live, int seed, int sample_offset, int spp, int max_depth,
-                            void* stream) {
+extern "C" int rt_grad_replay(const void* table, int n_spheres, const void* cam, const void* pix,
+                              const void* ev_start, const void* ev_count, void* records, void* flags, int n_lanes,
+                              int tile, int n_live, int seed, int sample_offset, int spp, int max_depth,
+                              void* stream) {
     const size_t smem = (size_t)n_spheres * P_ROWS * sizeof(float);
-    grad_kernel<<<n_lanes / tile, tile, smem, (cudaStream_t)stream>>>(
-        (const float4*)table, n_spheres, (const float*)cam, (const int*)pix, (const float*)g,
-        (const long long*)ev_start, (const int*)ev_count, (float*)traj, (float4*)events, (int*)flags, n_lanes,
-        n_live, seed, sample_offset, spp, max_depth);
+    grad_replay_kernel<<<n_lanes / tile, tile, smem, (cudaStream_t)stream>>>(
+        (const float4*)table, n_spheres, (const float*)cam, (const int*)pix, (const long long*)ev_start,
+        (const int*)ev_count, (float4*)records, (int*)flags, n_lanes, n_live, seed, sample_offset, spp, max_depth);
+    return (int)cudaGetLastError();
+}
+
+// Launch the reverse walk on `stream`: records [n_events, 16] f32 from the
+// replay, with the same ev_start and ev_count, are overwritten by events; g
+// [3, n_lanes] f32. Returns cudaGetLastError().
+extern "C" int rt_grad_reverse(const void* table, const void* cam, const void* g, const void* ev_start,
+                               const void* ev_count, void* records, long long n_records, int n_lanes, int tile,
+                               void* stream) {
+    grad_reverse_kernel<<<n_lanes / tile, tile, 0, (cudaStream_t)stream>>>(
+        (const float4*)table, (const float*)cam, (const float*)g, (const long long*)ev_start,
+        (const int*)ev_count, (float4*)records, n_records, n_lanes);
     return (int)cudaGetLastError();
 }
 

@@ -7,9 +7,10 @@ the library). Each `.cu` file is compiled by its own nvcc, all started
 together, and the objects are linked into the library. No PyTorch header
 is compiled, so a build takes seconds.
 
-`render_pass` is the wrapper of `csrc/render_kernel.cu`; `grad_replay`
-and `grad_reduce` (joined in `grad_pass`) are those of the two kernels of
-`csrc/grad_kernel.cu`, the backward replay and its reduction; `chain_fma`,
+`render_pass` is the wrapper of `csrc/render_kernel.cu`; `grad_replay`,
+`grad_reverse` and `grad_reduce` (chained in `grad_pass`) are those of the
+three kernels of `csrc/grad_kernel.cu`, the backward's replay, its reverse
+walk and its reduction; `chain_fma`,
 `fma_peak`, `sweep_probe`, `gather_probe`, `skinny_probe` and
 `skinny_default_probe` are those of the six probe kernels of
 `csrc/probe_kernels.cu`. Each checks its
@@ -49,7 +50,7 @@ NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 # Launches per kernel since the last `reset_launches()`: what a run reads
 # to show that its main path went through the kernels.
 LAUNCHES = {
-    "render_kernel": 0, "grad_kernel": 0, "grad_reduce": 0, "bounce_adjoint": 0,
+    "render_kernel": 0, "grad_replay": 0, "grad_reverse": 0, "grad_reduce": 0, "bounce_adjoint": 0,
     "chain_fma": 0, "fma_peak": 0, "sweep_probe": 0, "gather_probe": 0, "skinny_probe": 0,
     "skinny_probe_default": 0,
 }
@@ -150,12 +151,17 @@ def load() -> ctypes.CDLL:
         ]
         lib.rt_max_tile.restype = i32
         lib.rt_max_tile.argtypes = []
-        lib.rt_grad_pass.restype = i32
-        lib.rt_grad_pass.argtypes = [
-            ptr, i32, ptr, ptr, ptr,  # table, n_spheres, cam, pix, g
-            ptr, ptr, ptr, ptr, ptr,  # ev_start, ev_count, traj, events, flags
+        lib.rt_grad_replay.restype = i32
+        lib.rt_grad_replay.argtypes = [
+            ptr, i32, ptr, ptr,  # table, n_spheres, cam, pix
+            ptr, ptr, ptr, ptr,  # ev_start, ev_count, records, flags
             i32, i32, i32, i32, i32, i32, i32,  # n_lanes, tile, n_live, seed, sample_offset, spp, max_depth
             ptr,  # stream
+        ]
+        lib.rt_grad_reverse.restype = i32
+        lib.rt_grad_reverse.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, ptr,  # table, cam, g, ev_start, ev_count, records
+            ctypes.c_longlong, i32, i32, ptr,  # n_records, n_lanes, tile, stream
         ]
         lib.rt_grad_reduce.restype = i32
         lib.rt_grad_reduce.argtypes = [ptr, ctypes.c_longlong, i32, ptr, ptr, ptr]
@@ -244,49 +250,88 @@ def render_pass(table, cam_vec, scalars, sf, si, tile, spp, max_depth):
     return of, oi
 
 
-def grad_pass(table, cam_vec, scalars, pix, g, work, tile, spp, max_depth):
-    """The backward of `csrc/grad_kernel.cu` on CUDA tensors -> [16, N]
-    f32, the cotangent of the packed scene: `grad_replay`, then
-    `grad_reduce` over its events."""
-    return grad_reduce(grad_replay(table, cam_vec, scalars, pix, g, work, tile, spp, max_depth),
-                       table.shape[0])
+@dataclasses.dataclass
+class Replay:
+    """The replay's records and each lane's slots: lane i owns records
+    [ev_start[i], ev_start[i] + ev_count[i]). `grad_reverse` consumes it:
+    it turns the records into events in place and sets `records` to None,
+    so no Replay is reversed twice."""
+
+    records: torch.Tensor | None  # [E, 16] f32, one per bounce; None once reversed
+    ev_start: torch.Tensor  # [P] int64
+    ev_count: torch.Tensor  # [P] int32
 
 
-def grad_replay(table, cam_vec, scalars, pix, g, work, tile, spp, max_depth):
-    """The replay and reverse walk of `grad_kernel` on CUDA tensors ->
-    events [E, 16] f32, one record per bounce (word 0 the winning sphere
-    as int32 bits, -1 for none; words 1-13 the cotangent of its rows 0-3,
-    5-9, 12-15).
+def event_slots(pix, work, pixel_offset, n_live):
+    """Each lane's record slots -> (ev_start [P] int64, ev_count [P] int32).
 
-    table [N, 16] f32 (the transposed packed scene), cam_vec [24] f32, pix
-    [P] i32 (each lane's global pixel id, in any order; ids >= n_live
-    idle), g [3, P] f32 (each lane's radiance cotangent per sample), work
-    [n_live - pixel_offset] f32 (the forward's per-pixel bounce count in
-    pixel order: it sizes each lane's event slots), all contiguous on one
-    CUDA device; scalars = (seed, pixel_offset, sample_offset, n_live)
-    ints. `tile` lanes per block: a multiple of 128, at most the kernel's
-    maximum, dividing P. Raises if the replay did not take the forward's
-    path (a lane's bounce count differs from `work`): nothing is
-    truncated."""
-    device = g.device
-    if device.type != "cuda":
-        raise ValueError(f"grad_replay runs on CUDA tensors, got {device}")
-    n_lanes = pix.shape[0] if pix.dim() == 1 else -1
+    A lane owns as many slots as its pixel's bounce count (`work`
+    [n_live - pixel_offset], the forward's count in pixel order), and the
+    ranges follow the lanes' pixel ids in increasing order (an exclusive
+    prefix sum), so the records, and the reduction over their events, do
+    not depend on the lane order or the tile. Pad lanes (ids outside
+    [pixel_offset, n_live)) own none."""
+    local = pix.to(torch.int64) - pixel_offset
+    live = (local >= 0) & (pix < n_live)
+    counts = torch.where(live, work.to(torch.int64)[torch.where(live, local, 0)], 0)
+    order = torch.argsort(torch.where(live, local, 1 << 40), stable=True)
+    ev_start = torch.empty_like(counts)
+    ev_start[order] = torch.cumsum(counts[order], 0) - counts[order]
+    return ev_start, counts.to(torch.int32)
+
+
+def _check_grad_tables(table, cam_vec, device):
     n_spheres = table.shape[0] if table.dim() == 2 else -1
-    seed, pixel_offset, sample_offset, n_live = (int(v) for v in scalars)
     _check_tensor("table", table, torch.float32, (n_spheres, 16), device)
     _check_tensor("cam_vec", cam_vec, torch.float32, (24,), device)
-    _check_tensor("pix", pix, torch.int32, (n_lanes,), device)
-    _check_tensor("g", g, torch.float32, (3, n_lanes), device)
-    _check_tensor("work", work, torch.float32, (n_live - pixel_offset,), device)
-    if not 0 < n_spheres * 64 <= _MAX_TABLE_BYTES:
-        raise ValueError(f"{n_spheres} spheres do not fit the kernel's 48 KB shared-memory table")
-    lib = load()
+    return n_spheres
+
+
+def _check_grad_tile(lib, tile, n_lanes):
     max_tile = lib.rt_max_grad_tile()
     if tile <= 0 or tile % 128 or tile > max_tile:
         raise ValueError(f"tile ({tile}) must be a multiple of 128 no larger than {max_tile}")
     if n_lanes <= 0 or n_lanes % tile:
         raise ValueError(f"lane count ({n_lanes}) must be a positive multiple of tile ({tile})")
+
+
+def grad_pass(table, cam_vec, scalars, pix, g, work, tile, spp, max_depth):
+    """The backward of `csrc/grad_kernel.cu` on CUDA tensors -> [16, N]
+    f32, the cotangent of the packed scene: `grad_replay`, `grad_reverse`
+    on its records, then `grad_reduce` over the events."""
+    replay = grad_replay(table, cam_vec, scalars, pix, work, tile, spp, max_depth)
+    return grad_reduce(grad_reverse(table, cam_vec, replay, g, tile), table.shape[0])
+
+
+def grad_replay(table, cam_vec, scalars, pix, work, tile, spp, max_depth) -> Replay:
+    """`grad_replay_kernel` on CUDA tensors: every lane's paths replayed
+    with the forward's persistent-sample loop -> `Replay`, one 64-byte
+    record per bounce in the lane's slots (`event_slots`), in sample and
+    bounce order. Record words (int fields as int32 bits): 0-2 the
+    pre-bounce o, 3-5 d, 6-8 att, 9 the winning sphere (-1 for a miss),
+    10-11 the stream words, 12 the depth, 13 how the path goes on (0 on,
+    1 ends without radiance, 2 ends at the sky), 14-15 zero.
+
+    table [N, 16] f32 (the transposed packed scene), cam_vec [24] f32, pix
+    [P] i32 (each lane's global pixel id, in any order; ids >= n_live
+    idle), work [n_live - pixel_offset] f32 (the forward's per-pixel
+    bounce count in pixel order), all contiguous on one CUDA device;
+    scalars = (seed, pixel_offset, sample_offset, n_live) ints. `tile`
+    lanes per block: a multiple of 128, at most the kernel's maximum,
+    dividing P. Raises if the replay did not take the forward's path (a
+    lane's bounce count differs from `work`): nothing is truncated."""
+    device = pix.device
+    if device.type != "cuda":
+        raise ValueError(f"grad_replay runs on CUDA tensors, got {device}")
+    n_lanes = pix.shape[0] if pix.dim() == 1 else -1
+    seed, pixel_offset, sample_offset, n_live = (int(v) for v in scalars)
+    n_spheres = _check_grad_tables(table, cam_vec, device)
+    _check_tensor("pix", pix, torch.int32, (n_lanes,), device)
+    _check_tensor("work", work, torch.float32, (n_live - pixel_offset,), device)
+    if not 0 < n_spheres * 64 <= _MAX_TABLE_BYTES:
+        raise ValueError(f"{n_spheres} spheres do not fit the kernel's 48 KB shared-memory table")
+    lib = load()
+    _check_grad_tile(lib, tile, n_lanes)
     if not 0 <= pixel_offset < n_live:
         raise ValueError(f"pixel range [{pixel_offset}, {n_live}) is empty")
     if spp < 1 or max_depth < 1:
@@ -294,46 +339,71 @@ def grad_replay(table, cam_vec, scalars, pix, g, work, tile, spp, max_depth):
     for name, v in (("seed", seed), ("sample_offset", sample_offset), ("n_live", n_live),
                     ("spp", spp), ("max_depth", max_depth)):
         _check_int32(name, v)
-
-    # Event slots: a lane owns as many as its pixel's bounce count, and the
-    # ranges follow the lanes' pixel ids in increasing order (an exclusive
-    # prefix sum), so the event buffer, and the reduction over it, do not
-    # depend on the lane order or the tile.
     if not torch.equal(work.round(), work):
         raise ValueError("work must hold whole bounce counts")
-    local = pix.to(torch.int64) - pixel_offset
-    live = (local >= 0) & (pix < n_live)
-    counts = torch.where(live, work.to(torch.int64)[torch.where(live, local, 0)], 0)
-    order = torch.argsort(torch.where(live, local, 1 << 40), stable=True)
-    ev_start = torch.empty_like(counts)
-    ev_start[order] = torch.cumsum(counts[order], 0) - counts[order]
-    ev_count = counts.to(torch.int32)
-    n_events = int(counts.sum())
 
-    traj = torch.empty(max_depth * 10 * n_lanes, dtype=torch.float32, device=device)
-    events = torch.empty((n_events, 16), dtype=torch.float32, device=device)
+    ev_start, ev_count = event_slots(pix, work, pixel_offset, n_live)
+    records = torch.empty((int(ev_count.sum()), 16), dtype=torch.float32, device=device)
     flags = torch.zeros(2, dtype=torch.int32, device=device)
     with torch.cuda.device(device):
-        err = lib.rt_grad_pass(
-            table.data_ptr(), n_spheres, cam_vec.data_ptr(), pix.data_ptr(), g.data_ptr(),
-            ev_start.data_ptr(), ev_count.data_ptr(), traj.data_ptr(), events.data_ptr(),
-            flags.data_ptr(), n_lanes, tile, n_live, seed, sample_offset, int(spp),
-            int(max_depth), torch.cuda.current_stream(device).cuda_stream,
+        err = lib.rt_grad_replay(
+            table.data_ptr(), n_spheres, cam_vec.data_ptr(), pix.data_ptr(), ev_start.data_ptr(),
+            ev_count.data_ptr(), records.data_ptr(), flags.data_ptr(), n_lanes, tile, n_live, seed,
+            sample_offset, int(spp), int(max_depth), torch.cuda.current_stream(device).cuda_stream,
         )
-    _raise_on(lib, err, "grad_kernel")
-    LAUNCHES["grad_kernel"] += 1
+    _raise_on(lib, err, "grad_replay_kernel")
+    LAUNCHES["grad_replay"] += 1
     over, under = flags.tolist()
     if over or under:
         raise RuntimeError(
-            "grad_kernel: the replay diverged from the forward render (a lane had "
+            "grad_replay_kernel: the replay diverged from the forward render (a lane had "
             f"{'more' if over else 'fewer'} bounces than its pixel's work count)"
         )
-    return events
+    return Replay(records, ev_start, ev_count)
+
+
+def grad_reverse(table, cam_vec, replay: Replay, g, tile):
+    """`grad_reverse_kernel` on CUDA tensors: each lane walks its records
+    from the last to the first and overwrites each IN PLACE with that
+    bounce's event -> the record buffer, now events [E, 16] f32: word 0 the
+    winning sphere as int32 bits (-1 for none: a miss, or a path that ends
+    without radiance), words 1-13 the cotangent of its rows 0-3, 5-9,
+    12-15, words 14-15 zero.
+
+    `replay` as `grad_replay` returned it, with the same table and cam_vec;
+    the call consumes it (`replay.records` becomes None). g [3, P] f32,
+    each lane's radiance cotangent per sample; `tile` as for
+    `grad_replay`. A lane whose slot range does not lie inside the records
+    writes nothing."""
+    device = g.device
+    if device.type != "cuda":
+        raise ValueError(f"grad_reverse runs on CUDA tensors, got {device}")
+    records, ev_start, ev_count = replay.records, replay.ev_start, replay.ev_count
+    if records is None:
+        raise ValueError("grad_reverse: this Replay was reversed already (its records are events now)")
+    n_lanes = g.shape[1] if g.dim() == 2 else -1
+    _check_grad_tables(table, cam_vec, device)
+    _check_tensor("g", g, torch.float32, (3, n_lanes), device)
+    _check_tensor("ev_start", ev_start, torch.int64, (n_lanes,), device)
+    _check_tensor("ev_count", ev_count, torch.int32, (n_lanes,), device)
+    n_events = records.shape[0] if records.dim() == 2 else -1
+    _check_tensor("records", records, torch.float32, (n_events, 16), device)
+    lib = load()
+    _check_grad_tile(lib, tile, n_lanes)
+    replay.records = None
+    with torch.cuda.device(device):
+        err = lib.rt_grad_reverse(
+            table.data_ptr(), cam_vec.data_ptr(), g.data_ptr(), ev_start.data_ptr(), ev_count.data_ptr(),
+            records.data_ptr(), n_events, n_lanes, tile, torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_on(lib, err, "grad_reverse_kernel")
+    LAUNCHES["grad_reverse"] += 1
+    return records
 
 
 def grad_reduce(events, n_spheres):
     """The fixed-order reduction of `csrc/grad_kernel.cu` on CUDA tensors:
-    events [E, 16] f32 from `grad_replay` -> [16, n_spheres] f32, each
+    events [E, 16] f32 from `grad_reverse` -> [16, n_spheres] f32, each
     sphere's cotangent summed over its events. The same bits for the same
     events, run after run."""
     device = events.device

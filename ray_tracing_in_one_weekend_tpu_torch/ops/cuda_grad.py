@@ -9,20 +9,24 @@ matrix:
   The value of `render_cuda_diff` is `render_cuda`'s bit for bit.
 * backward: `_grad_pass` replays every (pixel, sample) path with the
   forward's own device functions, so the replay takes the forward's
-  discrete decisions, then walks each sample's bounces in reverse through
+  discrete decisions, then walks each path's bounces in reverse through
   the vector-Jacobian product of the bounce `_bounce_f`, with the
   decisions frozen. Each bounce's cotangent of the winning sphere's
   16-row parameter column is added into a [16, N] result. On CUDA
-  tensors that is `csrc/grad_kernel.cu` (a hand-written adjoint, see its
-  source note); on CPU tensors `_grad_pass_plain`, which gets the same
-  vector-Jacobian products from `torch.autograd.grad`.
+  tensors that is `csrc/grad_kernel.cu`: a replay kernel that records
+  every bounce, a reverse kernel (a hand-written adjoint, see its source
+  note) that turns the records into per-bounce events in place, and a
+  fixed-order reduction. On CPU tensors it is `_grad_pass_plain`, which
+  gets the same vector-Jacobian products from `torch.autograd.grad`;
+  `_replay_records_plain` and `_reverse_records_plain` are the plain
+  versions of the two kernels, record for record.
 
 Gradients reach center, radius, albedo, fuzz and ior through `pack_scene`
 (autograd follows its row writes, including the fused -2c and
 |c|^2 - r^2 rows). The camera gets none, as in the JAX package.
 
 The semantics are the Monte-Carlo-discrete gradient of the JAX kernel:
-adjoints start at zero for every sample, each step's adjoints and
+adjoints start at zero for every path, each step's adjoints and
 parameter cotangent are clipped to +-1e6, and a sample that ends absorbed
 or at the depth limit adds nothing (its radiance is 0).
 """
@@ -71,7 +75,7 @@ from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import (
     pack_scene,
 )
 
-# Lanes per CUDA block of the backward kernel.
+# Lanes per CUDA block of the backward's replay and reverse kernels.
 DEFAULT_BWD_TILE = 128
 
 # Per-step clip of the adjoints and the parameter cotangent
@@ -260,13 +264,13 @@ def _grad_pass_plain(p_mat, cam_vec, scalars, pix, g, spp, max_depth):
     return grads
 
 
-# Words 1-13 of a backward kernel event hold these rows of a sphere's
+# Words 1-13 of a backward event (`build.grad_reverse`) hold these rows of a sphere's
 # cotangent; r^2, mat and active (rows 4, 10, 11) never get one.
 _EVENT_ROWS = (0, 1, 2, 3, 5, 6, 7, 8, 9, 12, 13, 14, 15)
 
 
 def _reduce_events_plain(events, n_spheres):
-    """The plain version of the backward kernel's reduction: events
+    """The plain version of the backward's reduction: events
     [E, 16] (word 0 the winner as int32 bits, -1 for none) -> [16, N]."""
     idx = events[:, 0].contiguous().view(torch.int32).to(torch.int64)
     keep = idx >= 0
@@ -275,12 +279,139 @@ def _reduce_events_plain(events, n_spheres):
     return out
 
 
+# Words of a backward record (`build.grad_replay`; int fields as int32
+# bits): o, d, att at 0-8, then the winner (-1 for a miss), the stream
+# words, the depth and how the path goes on after the bounce.
+_REC_WINNER, _REC_LO, _REC_HI, _REC_DEPTH, _REC_END = 9, 10, 11, 12, 13
+_END_NONE, _END_DARK, _END_SKY = 0, 1, 2  # goes on; ends without radiance; ends at the sky
+
+
+def _record_rows(st: _Step) -> torch.Tensor:
+    """The records [L, 16] of one replayed bounce of lanes `st.live`."""
+    rows = torch.zeros(st.o.shape[1], 16, dtype=torch.float32, device=st.o.device)
+    rows[:, 0:3], rows[:, 3:6], rows[:, 6:9] = st.o.T, st.d.T, st.att.T
+    words = rows.view(torch.int32)
+    words[:, _REC_WINNER] = torch.where(st.miss[0], -1, st.best[0]).to(torch.int32)
+    words[:, _REC_LO] = _as_i32(st.stream[0][0])
+    words[:, _REC_HI] = _as_i32(st.stream[1][0])
+    words[:, _REC_DEPTH] = st.depth
+    end = torch.where(st.miss[0], _END_SKY, _END_DARK)
+    words[:, _REC_END] = torch.where(st.cont[0], _END_NONE, end).to(torch.int32)
+    return rows
+
+
+def _replay_records_plain(p_mat, cam_vec, scalars, pix, spp, max_depth):
+    """The replay half of the backward in plain PyTorch -> (records
+    [E, 16] f32, ev_start [P] int64, ev_count [P] int32), the layout of
+    `build.grad_replay` (see there): each lane's bounces in sample and
+    bounce order, in slots that follow the pixel ids. The slots come from
+    this replay's own bounce counts, so a lane's count can be held
+    against the forward's work map."""
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+
+    seed, pixel_offset, sample_offset, n_live = (int(v) for v in scalars)
+    camc = _unpack_cam(cam_vec)
+    t_min = float(cam_vec[20])
+    dev = pix.device
+    local = pix.to(torch.int64) - pixel_offset
+    keep = ((local >= 0) & (pix < n_live)).nonzero()[:, 0]
+    per_sample = torch.zeros(pix.shape[0], spp, dtype=torch.int64, device=dev)
+    parts = []  # (lanes, sample, depth, records)
+    chunk = _PLAIN_CHUNK.get(dev.type, _PLAIN_CHUNK["cpu"])
+    for a in range(0, keep.numel(), chunk):
+        idx = keep[a : a + chunk]
+        lanes = _lanes(camc, seed, pix[idx].to(torch.int64)[None])
+        for s in range(spp):
+            for st in _replay(p_mat, camc, t_min, lanes, s + sample_offset, max_depth):
+                per_sample[idx[st.live], s] += 1
+                parts.append((idx[st.live], s, st.depth, _record_rows(st)))
+    work = torch.zeros(n_live - pixel_offset, dtype=torch.int64, device=dev)
+    work[local[keep]] = per_sample[keep].sum(1)
+    ev_start, ev_count = build.event_slots(pix, work, pixel_offset, n_live)
+    earlier = torch.cumsum(per_sample, 1) - per_sample  # bounces of a lane's earlier samples
+    records = torch.empty(int(work.sum()), 16, dtype=torch.float32, device=dev)
+    for idx, s, depth, rows in parts:  # moved as int32, so every word keeps its bits
+        records.view(torch.int32)[ev_start[idx] + earlier[idx, s] + depth] = rows.view(torch.int32)
+    return build.Replay(records, ev_start, ev_count)
+
+
+def _path_positions(records):
+    """Where each record sits in its path -> (ends, path, back): `ends` the
+    slots of the paths' last bounces in increasing order, `path` [E] each
+    slot's path (an index into `ends`), `back` [E] its distance from that
+    last bounce (0 at the last bounce)."""
+    slots = torch.arange(records.shape[0], device=records.device)
+    ends = (records.view(torch.int32)[:, _REC_END] != _END_NONE).nonzero()[:, 0]
+    path = torch.searchsorted(ends, slots)
+    return ends, path, ends[path] - slots
+
+
+def _reverse_records_plain(p_mat, cam_vec, replay, g):
+    """The reverse half in plain PyTorch: records -> events [E, 16] f32,
+    the layout of `build.grad_reverse` (a new tensor; the records stay).
+
+    Paths are independent once the adjoints restart at each path's last
+    bounce, so this walks all paths at once, step r taking the bounce r
+    places before each path's end. The sky's adjoint and each earlier
+    bounce's vector-Jacobian product come from torch.autograd of
+    `_bounce_f`, as in `_grad_lanes`, with the same ±1e6 clips."""
+    records, ev_start, ev_count = replay.records, replay.ev_start, replay.ev_count
+    t_min = float(cam_vec[20])
+    dev = records.device
+    n = records.shape[0]
+    words = records.view(torch.int32)
+    events = torch.zeros_like(records)
+    events.view(torch.int32)[:, 0] = -1
+    if n == 0:
+        return events
+    # Each slot's lane, then its path and its distance from the path's end.
+    counts = ev_count.to(torch.int64)
+    lane_of = torch.repeat_interleave(torch.arange(counts.numel(), device=dev), counts)
+    first = torch.repeat_interleave(torch.cumsum(counts, 0) - counts, counts)
+    slot_lane = torch.empty(n, dtype=torch.int64, device=dev)
+    slot_lane[ev_start[lane_of] + torch.arange(n, device=dev) - first] = lane_of
+    ends, path, back = _path_positions(records)
+    lit = words[ends[path], _REC_END] == _END_SKY  # the slot's path reached the sky
+    bars = torch.zeros(3, 3, ends.numel(), dtype=torch.float32, device=dev)  # o, d, att adjoints per path
+
+    def vjp(sel, pcols, cont, cot):
+        rec = records[sel]
+        stream = (_u32(words[sel, _REC_LO])[None], _u32(words[sel, _REC_HI])[None])
+        ctr = 8 + 16 * words[sel, _REC_DEPTH].to(torch.int64)[None]
+        miss = ~cont
+        out = _bounce_vjp(rec[:, 0:3].T, rec[:, 3:6].T, rec[:, 6:9].T, pcols, cont, miss, stream, ctr,
+                          t_min, cot)
+        return [torch.clamp(b, -GRAD_CLIP, GRAD_CLIP) for b in out]
+
+    # The last bounce of a path that reached the sky: the sky's adjoint.
+    sel = ((back == 0) & lit).nonzero()[:, 0]
+    zeros = torch.zeros(3, sel.numel(), dtype=torch.float32, device=dev)
+    no = torch.zeros(1, sel.numel(), dtype=torch.bool, device=dev)
+    ob, db, ab, _ = vjp(sel, torch.zeros(P_ROWS, sel.numel(), device=dev), no,
+                        (zeros, zeros, zeros, g[:, slot_lane[sel]]))
+    bars[:, :, path[sel]] = torch.stack([ob, db, ab])
+    # Each earlier bounce of such a path, last first.
+    for r in range(1, int(back.max()) + 1):
+        sel = ((back == r) & lit).nonzero()[:, 0]
+        if sel.numel() == 0:
+            continue
+        winner = words[sel, _REC_WINNER].to(torch.int64)
+        yes = torch.ones(1, sel.numel(), dtype=torch.bool, device=dev)
+        cot = bars[:, :, path[sel]]
+        ob, db, ab, pb = vjp(sel, p_mat[:, winner], yes, (*cot, torch.zeros_like(cot[0])))
+        bars[:, :, path[sel]] = torch.stack([ob, db, ab])
+        events.view(torch.int32)[sel, 0] = winner.to(torch.int32)
+        events[sel, 1:14] = pb[list(_EVENT_ROWS)].T
+    return events
+
+
 def _grad_pass(p_mat, cam_vec, scalars, pix, g, work, tile, spp, max_depth):
-    """The backward: the CUDA kernel for CUDA tensors (it raises if it
-    cannot launch or if its replay diverges from the forward; there is no
-    fallback), the plain version for CPU tensors. `work` [n_live] is the
-    forward's per-pixel bounce count in pixel order: the kernel's event
-    slots. The plain version does not need it."""
+    """The backward: the CUDA kernels for CUDA tensors (`build.grad_pass`:
+    replay, reverse, reduction; it raises if a kernel cannot launch or if
+    the replay diverges from the forward; there is no fallback), the
+    plain version for CPU tensors. `work` [n_live] is the forward's
+    per-pixel bounce count in pixel order: the kernels' record slots. The
+    plain version does not need it."""
     if g.device.type == "cuda":
         from ray_tracing_in_one_weekend_tpu_torch.kernels import build
 
@@ -310,7 +441,7 @@ class _DiffCfg:
 
 class _DiffRender(torch.autograd.Function):
     """(p_mat, cam_vec, hint) -> (rad [3, n], work [n]): the render with the
-    backward kernel as its vector-Jacobian product. `work`, the per-pixel
+    backward kernels as its vector-Jacobian product. `work`, the per-pixel
     bounce count, is scheduling metadata and has no gradient."""
 
     @staticmethod
@@ -394,7 +525,7 @@ def render_cuda_diff(
 
     Its value equals `render_cuda`'s bit for bit. Under autograd, the
     scene's center, radius, albedo, fuzz and ior get gradients from the
-    backward kernel (`csrc/grad_kernel.cu` on a CUDA scene, the plain
+    backward kernels (`csrc/grad_kernel.cu` on a CUDA scene, the plain
     version on a CPU scene); the camera gets none.
 
     `work_hint` ([H, W] or flat: a previous step's cost map) sorts the
@@ -404,8 +535,8 @@ def render_cuda_diff(
     (more passes compact the lanes between them, as `render_cuda`'s do).
     The render never reads or fills `render_cuda`'s warm-start cache. The
     JAX package's `interpret` and `bwd_group` are TPU scheduling knobs and
-    have no counterpart: the backward runs one sample after another in
-    each lane."""
+    have no counterpart: the replay runs all of a lane's samples in one
+    persistent loop, and its records live in device memory."""
     _check_tile(tile)
     _check_tile(bwd_tile)
     spp = cam.samples_per_pixel if spp is None else spp

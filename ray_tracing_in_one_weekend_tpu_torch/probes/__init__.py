@@ -48,6 +48,24 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def profiled_ms(fn, key: str, reps: int) -> float:
+    """Mean device milliseconds per call of `fn()` spent in the kernels
+    whose name contains `key`, by torch.profiler over `reps` calls: the
+    kernel's own time, without its wrapper's host work and syncs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and key in e.key]
+    if not times:
+        raise RuntimeError(f"the profiler saw no device kernel named like {key!r}")
+    return sum(times) / reps / 1e3
+
+
 def small_camera(device, spp=4, max_depth=8, width=64, **kw):
     """The small camera of the kernel checks: 64x32 at aspect 2."""
     return make_camera(image_width=width, aspect_ratio=2.0, samples_per_pixel=spp,

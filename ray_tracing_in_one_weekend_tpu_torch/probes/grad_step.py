@@ -6,15 +6,20 @@ Runs `render_grads_cuda` on the bench preset (cover scene, 1200x800,
 10 spp, depth 50, zero target) with the work_hint carry: two warm-up
 steps, then `--reps` steps under torch.profiler. Prints the kernels with
 the most device time, the device time per step by part (the forward
-render, the backward replay, its reduction, the lane sorts, the rest),
+render, the backward's replay, its reverse walk and its reduction, the
+lane sorts, the rest),
 the wall time per step, the device-busy time (the device events' own
 times, each once) and the idle share, 1 - busy / wall, and the peak
 device memory of a step. The wall time includes the profiler's overhead.
+Last, the sha256 of the scene-field gradient and whether every step gave
+the same bits: two builds of the backward agree bit for bit when their
+digests do.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import sys
 import time
 
@@ -33,7 +38,8 @@ from ray_tracing_in_one_weekend_tpu_torch.utils.config import (
 # Device-kernel name fragments -> part of the step (first match wins).
 _PARTS = (
     ("forward render_kernel", ("render_kernel",)),
-    ("backward grad_kernel", ("grad_kernel",)),
+    ("backward replay grad_replay_kernel", ("grad_replay",)),
+    ("backward reverse grad_reverse_kernel", ("grad_reverse",)),
     ("reduction grad_reduce_*", ("grad_reduce",)),
     ("sorts (argsort, permutations)", ("sort", "Sort", "radix", "Radix")),
 )
@@ -59,9 +65,12 @@ def main(argv=None) -> int:
     params = cg.scene_params(scene)
     target = torch.zeros(cam.image_height, cam.image_width, 3, device=dev)
 
+    grads = []
+
     def step(hint):
-        (_, work), _ = cg.render_grads_cuda(params, scene, cam, target, return_work=True,
+        (_, work), g = cg.render_grads_cuda(params, scene, cam, target, return_work=True,
                                             work_hint=hint)
+        grads.append(g)
         return work
 
     work = step(step(None))
@@ -87,6 +96,10 @@ def main(argv=None) -> int:
     print(f"wall per step {wall_ms:.3f} ms ({rays / wall_ms / 1e3:.2f} Mrays/s); device busy per "
           f"step {busy_ms:.3f} ms; idle share {1 - busy_ms / wall_ms:.4f}; peak memory "
           f"{peak_gb:.3f} GB [{nvidia_smi()}]")
+    flat = [torch.cat([g[k].reshape(-1) for k in cg.DIFF_FIELDS]) for g in grads]
+    digest = hashlib.sha256(flat[-1].cpu().numpy().tobytes()).hexdigest()
+    print(f"gradient sha256 {digest}; all {len(flat)} steps bit-identical: "
+          f"{all(torch.equal(f, flat[0]) for f in flat)}")
     return 0
 
 

@@ -2,11 +2,14 @@
 
 These tests need an NVIDIA GPU with nvcc (they build csrc/ on first use)
 and skip without one. They repeat phases 3-5, 7a, 8 and 9 of
-chip_smoke.py, and check that the wrappers refuse what the kernels do not
-take. On the card:
+chip_smoke.py (7a: the replay kernel's records and the reverse kernel's
+events against their plain versions), and check that the wrappers refuse
+what the kernels do not take. On the card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -118,10 +121,12 @@ def test_hand_adjoint_matches_autograd_of_bounce_f(dev):
 
 
 def test_gradients_reproducible_across_runs_and_tiles(dev):
-    """The kernel's gradient is the same bits run after run and for
-    bwd_tile 128 and 256 (no float atomics; a fixed reduction order), and
-    agrees with the plain version on the card per field to 2e-4 relative
-    L2 (chip_smoke.py phase 7a's gate)."""
+    """The kernels' gradient is the same bits run after run and for
+    bwd_tile 128 and 256 (no float atomics; record slots fixed by the
+    pixel ids; a fixed reduction order), and agrees with the plain version
+    on the card per field to 2e-4 relative L2 (chip_smoke.py phase 7a's
+    gate)."""
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
     from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_grad as cg
     from ray_tracing_in_one_weekend_tpu_torch.probes import rel_l2
 
@@ -129,7 +134,9 @@ def test_gradients_reproducible_across_runs_and_tiles(dev):
     cam = _cam(dev)
     target = torch.zeros(cam.image_height, cam.image_width, 3, device=dev)
     params = cg.scene_params(scene)
+    before = {k: build.LAUNCHES[k] for k in ("grad_replay", "grad_reverse", "grad_reduce")}
     _, g1 = cg.render_grads_cuda(params, scene, cam, target)
+    assert all(build.LAUNCHES[k] == v + 1 for k, v in before.items()), build.LAUNCHES
     _, g2 = cg.render_grads_cuda(params, scene, cam, target)
     _, g3 = cg.render_grads_cuda(params, scene, cam, target, bwd_tile=256)
     img, work = cg.render_cuda_diff(scene, cam, return_work=True)
@@ -143,37 +150,102 @@ def test_gradients_reproducible_across_runs_and_tiles(dev):
         assert rel_l2(g1[k], gp[k]) <= 2e-4, (k, rel_l2(g1[k], gp[k]))
 
 
-def test_grad_wrapper_refuses_what_the_kernel_does_not_take(dev):
-    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+def _grad_inputs(scene, dev, tile=128):
     from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_grad as cg
+    from ray_tracing_in_one_weekend_tpu_torch.probes import random_cotangent
 
-    scene = scene_lib.three_sphere_scene(pad_to=128, device=dev)
     cam = _cam(dev)
     n = cam.num_pixels
     p_mat, cam_vec = cr.pack_scene(scene), cr.pack_camera(cam)
-    table = p_mat.T.contiguous()
     _, work = cr.render_cuda(scene, cam, return_work=True)
     work = work.reshape(-1)
-    pix, g = cg._bwd_lanes(work, torch.ones(3, n, device=dev), 4, 128)
-    args = (cam_vec, (0, 0, 0, n), pix, g, work, 128, 4, 8)
-    assert build.grad_replay(table, *args).shape == (int(work.sum()), 16)
+    pix, g = cg._bwd_lanes(work, random_cotangent((3, n), 1, dev), 4, tile)
+    return p_mat, cam_vec, (0, 0, 0, n), pix, g, work
+
+
+def test_replay_kernel_matches_plain_records(dev):
+    """grad_replay_kernel's records against `_replay_records_plain` at
+    64x32, spp 4, depth 8 on the cover scene: all 16 words bit-identical
+    (both take the forward's arithmetic, built without contraction), and
+    the same slots."""
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_grad as cg
+
+    p_mat, cam_vec, scalars, pix, _, work = _grad_inputs(scene_lib.cover_scene_reference(device=dev), dev)
+    before = build.LAUNCHES["grad_replay"]
+    got = build.grad_replay(p_mat.T.contiguous(), cam_vec, scalars, pix, work, 128, 4, 8)
+    assert build.LAUNCHES["grad_replay"] == before + 1
+    want = cg._replay_records_plain(p_mat, cam_vec, scalars, pix, 4, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(got.ev_start, want.ev_start) and torch.equal(got.ev_count, want.ev_count)
+    assert torch.equal(got.records.view(torch.int32), want.records.view(torch.int32))
+
+
+def test_reverse_kernel_matches_plain_events(dev):
+    """grad_reverse_kernel's events against `_reverse_records_plain` on the
+    same records: winners equal, cotangent words within 2e-4 relative L2
+    (chip_smoke.py's EVENT_GATE, set from the error's growth with the
+    distance from a path's end). The records become the events in place
+    and the Replay is consumed."""
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_grad as cg
+    from ray_tracing_in_one_weekend_tpu_torch.probes import rel_l2
+
+    p_mat, cam_vec, scalars, pix, g, work = _grad_inputs(scene_lib.cover_scene_reference(device=dev), dev)
+    table = p_mat.T.contiguous()
+    replay = build.grad_replay(table, cam_vec, scalars, pix, work, 128, 4, 8)
+    want = cg._reverse_records_plain(p_mat, cam_vec, replay, g)
+    before, records = build.LAUNCHES["grad_reverse"], replay.records
+    got = build.grad_reverse(table, cam_vec, replay, g, 128)
+    assert build.LAUNCHES["grad_reverse"] == before + 1
+    assert got.data_ptr() == records.data_ptr() and replay.records is None  # in place, consumed
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, 0].view(torch.int32), want[:, 0].view(torch.int32))
+    assert int((got[:, 0].view(torch.int32) >= 0).sum()) > 1000
+    assert bool(torch.isfinite(got[:, 1:]).all())
+    assert rel_l2(got[:, 1:14], want[:, 1:14]) <= 2e-4
+
+
+def test_grad_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+
+    p_mat, cam_vec, scalars, pix, g, work = _grad_inputs(scene_lib.three_sphere_scene(pad_to=128, device=dev), dev)
+    table = p_mat.T.contiguous()
+    args = (cam_vec, scalars, pix, work, 128, 4, 8)
+    replay = build.grad_replay(table, *args)
+    assert replay.records.shape == (int(work.sum()), 16)
     with pytest.raises(ValueError, match="contiguous"):
         build.grad_replay(p_mat.T, *args)
     with pytest.raises(TypeError, match="dtype"):
-        build.grad_replay(table, cam_vec, (0, 0, 0, n), pix.long(), g, work, 128, 4, 8)
+        build.grad_replay(table, cam_vec, scalars, pix.long(), work, 128, 4, 8)
     with pytest.raises(ValueError, match="CUDA"):
-        build.grad_replay(table.cpu(), cam_vec.cpu(), (0, 0, 0, n), pix.cpu(), g.cpu(), work.cpu(),
-                          128, 4, 8)
+        build.grad_replay(table.cpu(), cam_vec.cpu(), scalars, pix.cpu(), work.cpu(), 128, 4, 8)
     for tile in (100, 1024):
         with pytest.raises(ValueError, match="tile"):
-            build.grad_replay(table, cam_vec, (0, 0, 0, n), pix, g, work, tile, 4, 8)
+            build.grad_replay(table, cam_vec, scalars, pix, work, tile, 4, 8)
+        with pytest.raises(ValueError, match="tile"):
+            build.grad_reverse(table, cam_vec, replay, g, tile)
     with pytest.raises(ValueError, match="whole bounce counts"):
-        build.grad_replay(table, cam_vec, (0, 0, 0, n), pix, g, work + 0.5, 128, 4, 8)
+        build.grad_replay(table, cam_vec, scalars, pix, work + 0.5, 128, 4, 8)
     with pytest.raises(RuntimeError, match="diverged"):
-        build.grad_replay(table, cam_vec, (0, 0, 0, n), pix, g, work + 1.0, 128, 4, 8)
+        build.grad_replay(table, cam_vec, scalars, pix, work + 1.0, 128, 4, 8)
     big = cr.pack_scene(scene_lib.three_sphere_scene(pad_to=1024, device=dev)).T.contiguous()
     with pytest.raises(ValueError, match="shared-memory"):
         build.grad_replay(big, *args)
+    with pytest.raises(ValueError, match="CUDA"):
+        build.grad_reverse(table, cam_vec, replay, g.cpu(), 128)
+    with pytest.raises(ValueError, match="shape"):
+        build.grad_reverse(table, cam_vec, replay, g[:, :128].contiguous(), 128)
+    with pytest.raises(TypeError, match="dtype"):
+        build.grad_reverse(table, cam_vec, dataclasses.replace(replay, ev_count=replay.ev_count.long()), g, 128)
+    # A slot range outside the records is left alone, not written past
+    # (compared as int32 words: a winner of -1 reads as NaN).
+    outside = build.Replay(replay.records.clone(), replay.ev_start + replay.records.shape[0], replay.ev_count)
+    kept = outside.records.view(torch.int32).clone()
+    assert torch.equal(build.grad_reverse(table, cam_vec, outside, g, 128).view(torch.int32), kept)
+    assert build.grad_reverse(table, cam_vec, replay, g, 128).shape == (int(work.sum()), 16)
+    with pytest.raises(ValueError, match="reversed already"):
+        build.grad_reverse(table, cam_vec, replay, g, 128)
 
 
 def test_scheduler_bit_identical_on_the_card(dev):

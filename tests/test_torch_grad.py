@@ -40,9 +40,9 @@ CAM_FIELDS = ("center", "pixel00_loc", "pixel_delta_u", "pixel_delta_v", "defocu
 SEED = 3
 
 
-def _jax_cam(spp=2):
+def _jax_cam(spp=2, width=32, max_depth=4):
     return jax_make_camera(
-        image_width=32, aspect_ratio=2.0, samples_per_pixel=spp, max_depth=4, vfov_degrees=90.0,
+        image_width=width, aspect_ratio=2.0, samples_per_pixel=spp, max_depth=max_depth, vfov_degrees=90.0,
         lookfrom=(0.0, 0.0, 0.0), lookat=(0.0, 0.0, -1.0), defocus_angle_degrees=0.0,
         focus_dist=1.0,
     )
@@ -250,6 +250,111 @@ def test_train_step_matches_jax_and_warm_carry_is_invariant():
     for k in p0:
         np.testing.assert_allclose(p2[k].numpy(), p0[k].numpy(), atol=2e-6, err_msg=k)
         assert torch.equal(p1[k], p0[k])
+
+
+# ---------------------------------------------------------------------------
+# (h) the plain versions of the two backward kernels: the replay's records
+# and the reverse walk's events, at 64x32, spp 4, depth 8.
+# ---------------------------------------------------------------------------
+
+
+def _words(t):
+    """A float tensor's bits: records and events hold int32 words (a winner
+    of -1 reads as NaN), so they are compared as int32."""
+    return t.contiguous().view(torch.int32)
+
+
+def _split(seed, cot_seed):
+    """The plain split at 64x32, spp 4, depth 8 for render seed `seed` and
+    a radiance cotangent from numpy seed `cot_seed`."""
+    sc, cam = _carry_scene(_jax_scene()), _carry_cam(_jax_cam(spp=4, width=64, max_depth=8))
+    n = cam.num_pixels
+    _, work = cr.render_cuda(sc, cam, seed=seed, return_work=True)
+    work = work.reshape(-1)
+    grad_rad = torch.from_numpy(np.random.default_rng(cot_seed).standard_normal((3, n)).astype(np.float32))
+    p_mat, cam_vec = cr.pack_scene(sc), cr.pack_camera(cam)
+    scalars = (seed, 0, 0, n)
+    pix, g = cg._bwd_lanes(work, grad_rad, 4, 384)  # 256 pad lanes at the tail
+    replay = cg._replay_records_plain(p_mat, cam_vec, scalars, pix, 4, 8)
+    events = cg._reverse_records_plain(p_mat, cam_vec, replay, g)
+    return dict(scene=sc, cam=cam, work=work, grad_rad=grad_rad, p_mat=p_mat, cam_vec=cam_vec,
+                scalars=scalars, pix=pix, g=g, replay=replay, events=events)
+
+
+@pytest.fixture(scope="module")
+def split():
+    return _split(SEED, 5)
+
+
+def test_replay_records_count_each_lanes_bounces(split):
+    """Each lane owns as many records as the forward's work map gives its
+    pixel (pad lanes none), and the slots follow the pixel ids."""
+    pix, work, replay = split["pix"], split["work"], split["replay"]
+    n = work.numel()
+    live = pix < n
+    assert int((~live).sum()) == 256
+    want = torch.where(live, work[torch.where(live, pix, 0).long()].long(), 0)
+    assert torch.equal(replay.ev_count.long(), want)
+    assert replay.records.shape == (int(work.sum()), 16)
+    order = torch.argsort(torch.where(live, pix.long(), 1 << 40))
+    starts = replay.ev_start[order][: n]
+    assert int(starts[0]) == 0 and torch.equal(starts[1:], torch.cumsum(want[order][: n], 0)[:-1])
+    # Every lane's range ends with the last bounce of its last path.
+    last = (replay.ev_start + replay.ev_count.long() - 1)[live]
+    assert bool((_words(replay.records)[last, cg._REC_END] != cg._END_NONE).all())
+
+
+def test_replay_records_equal_record_bounces(split):
+    """The records of bounces that continue hold the same o, d, att and
+    winner as `record_bounces`, bit for bit, keyed by stream and depth."""
+    replay = split["replay"]
+    words = _words(replay.records).numpy()
+    cont = words[:, cg._REC_END] == cg._END_NONE
+    rec = cg.record_bounces(split["p_mat"], split["cam_vec"], SEED, torch.arange(split["work"].numel()), 4, 8)
+    assert int(cont.sum()) == rec["o"].shape[1]
+
+    def by_key(lo, hi, depth):
+        return np.lexsort((depth, hi, lo))
+
+    mine = words[cont][by_key(words[cont, cg._REC_LO], words[cont, cg._REC_HI], words[cont, cg._REC_DEPTH])]
+    theirs_key = by_key(rec["lo"].numpy(), rec["hi"].numpy(), rec["depth"].numpy())
+    theirs = np.concatenate([_words(rec[k]).numpy().T for k in ("o", "d", "att")], axis=1)[theirs_key]
+    np.testing.assert_array_equal(mine[:, 0:9], theirs)
+    np.testing.assert_array_equal(mine[:, cg._REC_WINNER], rec["winner"].numpy()[theirs_key])
+    np.testing.assert_array_equal(mine[:, cg._REC_DEPTH], rec["depth"].numpy()[theirs_key])
+
+
+def test_events_equal_for_sorted_and_permuted_lanes(split):
+    """The records and events sit in slots fixed by the pixel ids: lanes in
+    a random order (numpy seed 6) give the same bits as cost-sorted ones."""
+    perm = torch.from_numpy(np.random.default_rng(6).permutation(split["pix"].numel()))
+    pix, g = split["pix"][perm], split["g"][:, perm]
+    replay = cg._replay_records_plain(split["p_mat"], split["cam_vec"], split["scalars"], pix, 4, 8)
+    assert torch.equal(_words(replay.records), _words(split["replay"].records))
+    events = cg._reverse_records_plain(split["p_mat"], split["cam_vec"], replay, g)
+    assert torch.equal(_words(events), _words(split["events"]))
+    assert torch.equal(_words(replay.records), _words(split["replay"].records))  # the records stay
+
+
+@pytest.mark.parametrize("seeds", [(SEED, 5), (0, 0), (1, 1), (7, 2), (11, 9)])
+def test_plain_split_matches_grad_pass_plain(split, seeds):
+    """The reduction of the split's events against `_grad_pass_plain` on
+    the same lanes, for five (render seed, cotangent seed) pairs: per field
+    within 2e-5 relative L2. Both add the same per-bounce cotangents in
+    float32, in another order, and the fields' sums cancel: at most 6.2e-6
+    over these pairs."""
+    if seeds != (SEED, 5):
+        split = _split(*seeds)
+    p_mat = split["p_mat"]
+    events = split["events"]
+    winners = _words(events)[:, 0]
+    assert 0 < int((winners >= 0).sum()) < events.shape[0]
+    split_grad = cg._reduce_events_plain(events, p_mat.shape[1])
+    plain = cg._grad_pass_plain(p_mat, split["cam_vec"], split["scalars"], split["pix"], split["g"], 4, 8)
+    fs, fp = cg.params_vjp(split["scene"], split_grad), cg.params_vjp(split["scene"], plain)
+    for k in cg.DIFF_FIELDS:
+        rel = float((fs[k] - fp[k]).double().norm() / fp[k].double().norm())
+        assert rel <= 2e-5, f"{k}: relative L2 {rel:.2e}"
 
 
 # ---------------------------------------------------------------------------
