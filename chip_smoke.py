@@ -14,12 +14,21 @@ Phases, one line each; any failure raises and the script exits non-zero
 without the result lines:
 
 1. card: nvidia-smi's name and power limit, torch and CUDA versions;
-2. build: nvcc, timed, with ptxas' register report;
+2. build: nvcc, timed, with ptxas' register report; then for each of
+   the three kernels that sweep the scene (render, replay, sweep probe)
+   its registers and spills, its resident blocks an SM at a tile of 128
+   (the CUDA runtime's occupancy, beside the occupancy rules'), and the
+   SASS instructions its sweep loop issues per sphere test
+   (`probes/sweep_readings.py`; "not available" without cuobjdump);
 3. kernel vs plain, one pass from identical lane state (64x32, spp 4,
    depth 8, tile 128, the reference cover scene): at most 2% flipped
    lanes, 256-lane block-mean MAD < 0.02 and mean difference < 0.01;
 4. sky only (every sphere inactive) equal to the plain version to 1e-6,
    and NaN-as-miss: rays aimed away from every sphere all see the sky;
+   a scene of exact ties (`probes.tie_scene`, 11 slots: ties inside the
+   sweep's first group of 8 and in its remainder) and the same scene cut
+   to 9, 5 and 3 slots bit-identical to the plain version, each equal to
+   the scene without its duplicates (the lowest index wins every tie);
 5. n_passes=3, budget=3 bit-identical to one pass;
 6. the main path: the CLI at full width through the kernel (launch count
    > 0, P3 header, finite pixels, render seconds and Mrays/s; the timed
@@ -60,11 +69,11 @@ without the result lines:
    `csrc/probe_kernels.cu`): each of the six probe kernels against its
    plain version at 256 columns, at the scripts' 2048 columns and at the
    131072 the probe path also times, within its gate
-   (`kernel_parts.GATES`); then both probes through their entry
-   points (launch counts of all six kernels and render_kernel), and the
-   kernels' times at 2048 columns and at 131072 (enough to fill the card)
-   with their bounds (tensor-core work included) and the torch.matmul
-   yardsticks.
+   (`kernel_parts.GATES`; the sweep probe bit for bit); then both probes
+   through their entry points (launch counts of all six kernels and
+   render_kernel), and the kernels' times at 2048 columns and at 131072
+   (enough to fill the card) with their bounds (tensor-core work
+   included) and the torch.matmul yardsticks.
 
 Then it prints nvidia-smi's line, a JSON line of per-kernel results, and
 last `{"ok": true, "device": {...}}`. It imports no JAX.
@@ -513,6 +522,10 @@ def phase_probes():
             err = kp.error(name, got, want)
             check(err <= kp.GATES[name],
                   f"phase 9: {name} at {tile} columns, reps {reps}: error {err:.2e} > {kp.GATES[name]}")
+            # The sweep probe runs the render's closest_hit, built without
+            # contraction: the plain version's bits.
+            check(name != "sweep_probe" or torch.equal(got, want),
+                  f"phase 9: sweep_probe at {tile} columns differs from its plain version")
             finite = want < 1e29  # a miss of the sweep adds T_MISS = 1e30
             res[name]["err"] = max(res[name]["err"], err)
             res[name]["max_abs_err"] = max(res[name]["max_abs_err"], float((got - want)[finite].abs().max()))
@@ -529,8 +542,9 @@ def phase_probes():
     return res, probe
 
 
-def probe_entry(name, v):
-    """The `kernels` JSON entry of probe kernel `name` (phase 9 results)."""
+def probe_entry(name, v, reading=None):
+    """The `kernels` JSON entry of probe kernel `name` (phase 9 results,
+    and the sweep readings of phase 2 for the sweep probe)."""
     from ray_tracing_in_one_weekend_tpu_torch.probes import kernel_parts as kp
 
     t, f = v["timing"], v["fill"]
@@ -565,6 +579,8 @@ def probe_entry(name, v):
     if t.library_tf32_ms is not None:
         entry["library_tf32_ms"] = t.library_tf32_ms
         entry["library_tf32_ms_fill"] = f.library_tf32_ms
+    if reading is not None:
+        entry.update(reading.fields())
     return entry
 
 
@@ -588,12 +604,17 @@ def main() -> int:
     from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_render as cr
     from ray_tracing_in_one_weekend_tpu_torch.probes import (
         cuda_ms,
+        first_slots,
         lane_inputs,
         nvidia_smi,
         ptxas_summary,
         small_camera,
+        tie_camera,
+        tie_scene,
+        without_duplicates,
     )
     from ray_tracing_in_one_weekend_tpu_torch.probes import kernel_parts as kp
+    from ray_tracing_in_one_weekend_tpu_torch.probes import sweep_readings
     from ray_tracing_in_one_weekend_tpu_torch.utils import cli, compare, ppm
     from ray_tracing_in_one_weekend_tpu_torch.utils.config import (
         PRESETS,
@@ -611,6 +632,11 @@ def main() -> int:
     build.load()
     say(f"phase 2 build: {res.seconds:.1f}s nvcc into {res.path.relative_to(REPO)} | "
         f"{ptxas_summary(res.log)}")
+    readings = {r.kernel: r for r in sweep_readings.readings(
+        res.log, res.path, sweep_readings.TABLE_BYTES,
+        lambda k: build.blocks_per_sm(k, sweep_readings.TILE, sweep_readings.N_SLOTS))}
+    for r in readings.values():
+        say(f"phase 2 {r.line()}")
 
     # 3. kernel vs plain, one pass
     ref = scene_lib.cover_scene_reference(device=DEVICE)
@@ -634,8 +660,17 @@ def main() -> int:
     check(bool((work == up.samples_per_pixel).all()),
           "phase 4: a ray aimed away from every sphere hit one (work != spp)")
     check(float((img[..., 2] - 1.0).abs().max()) < 1e-5, "phase 4: sky-bound pixel is not sky blue")
+    ties, tcam = tie_scene(DEVICE), tie_camera(DEVICE)
+    for n_slots in (11, 9, 5, 3):
+        cut = first_slots(ties, n_slots)
+        img_k = cr.render_cuda(cut, tcam)
+        check(torch.equal(img_k, cr.render_with(cr._render_pass_plain, cut, tcam)),
+              f"phase 4: the {n_slots}-slot tie scene differs from the plain version")
+        check(torch.equal(img_k, cr.render_cuda(without_duplicates(cut), tcam)),
+              f"phase 4: a tie of the {n_slots}-slot scene went to the higher sphere index")
     say(f"phase 4 sky: sky-only max diff {sky_err:.1e}; {img.shape[0] * img.shape[1]} pixels of "
-        f"upward rays all sky (one bounce per sample), finite")
+        f"upward rays all sky (one bounce per sample), finite; the tie scene at 11, 9, 5 and 3 slots "
+        f"bit-identical to the plain version, the lowest index winning every tie")
 
     # 5. passes
     one = cr.render_cuda(ref, cam, n_passes=1)
@@ -798,6 +833,7 @@ def main() -> int:
         "library_ms": None,
         "flipped_frac": full.flipped_frac,
         "block_mad": full.block_mad,
+        **readings["render_kernel"].fields(),
         "render_s": run.render_s,
         "render_warm_hit": run.warm_hit,
         "mrays_per_s": run.mrays_per_s,
@@ -818,6 +854,7 @@ def main() -> int:
         "library_ms": None,
         "shapes": "ms (the kernel's device time by torch.profiler) and bound_ms at full width on the "
                   "train step's own cost-sorted lanes; plain_ms on 16384 cost-sorted bench lanes",
+        **readings["grad_replay"].fields(),
         "rel_l2": sub["errs"],
         "rel_l2_64x32": small_errs,
         "adjoint_rel_l2": adj,
@@ -863,7 +900,7 @@ def main() -> int:
         "ms_full_width": step["reduce_ms"],
         "library_ms_full_width": step["reduce_library_ms"],
         "rel_l2": sub["reduce_err"],
-    }, *(probe_entry(name, v) for name, v in probes.items())]}))
+    }, *(probe_entry(name, v, readings.get(name)) for name, v in probes.items())]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

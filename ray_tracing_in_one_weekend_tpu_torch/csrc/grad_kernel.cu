@@ -15,9 +15,10 @@
 // * grad_replay_kernel, its Phase A: the forward's persistent-sample loop
 //   (render_kernel.cu), one thread per lane (a lane is a pixel, given as
 //   data, so the caller may sort lanes by cost), `tile` lanes a block, the
-//   scene table in shared memory. A lane starts its next sample as soon as a
-//   path retires, so a warp pays the max over its lanes of each lane's sum
-//   of bounces, not the sum over samples of the per-sample max. Each bounce
+//   forward's sweep table in shared memory, its closest_hit and its
+//   register cap. A lane starts its next sample as soon as a path retires,
+//   so a warp pays the max over its lanes of each lane's sum of bounces,
+//   not the sum over samples of the per-sample max. Each bounce
 //   writes one 64-byte record: the pre-bounce o, d, att, the winner (-1 for
 //   a miss), the stream words, the depth and how the path goes on. There is
 //   no adjoint code here: it is the forward kernel plus record stores.
@@ -70,6 +71,8 @@ constexpr int END_NONE = 0, END_DARK = 1, END_SKY = 2;
 // the summation order must not depend on the launch.
 constexpr int CHUNK_EVENTS = 8192;
 constexpr int STAGE_EVENTS = 256;
+// grad_reduce_chunks: one thread a sphere, in one block.
+constexpr int MAX_REDUCE_SPHERES = 1024;
 // flags[0]: a lane had more bounces than its slot range; flags[1]: fewer.
 constexpr int FLAG_OVER = 0, FLAG_UNDER = 1;
 
@@ -97,14 +100,14 @@ __device__ __forceinline__ void put_empty_event(float4* ev) {
     ev[3] = z;
 }
 
-__global__ void __launch_bounds__(MAX_GRAD_TILE)
-    grad_replay_kernel(const float4* __restrict__ table, int n_spheres, const float* __restrict__ cam_vec,
-                       const int* __restrict__ pix_lanes, const long long* __restrict__ ev_start,
-                       const int* __restrict__ ev_count, float4* __restrict__ records, int* __restrict__ flags,
-                       int n_lanes, int n_live, int seed, int sample_offset, int spp, int max_depth) {
-    extern __shared__ float4 s_table[];
+SWEEP_KERNEL grad_replay_kernel(const float4* __restrict__ table, int n_spheres, const float* __restrict__ cam_vec,
+                                const int* __restrict__ pix_lanes, const long long* __restrict__ ev_start,
+                                const int* __restrict__ ev_count, float4* __restrict__ records,
+                                int* __restrict__ flags, int n_lanes, int n_live, int seed, int sample_offset,
+                                int spp, int max_depth) {
+    extern __shared__ float4 s_sweep[];
     __shared__ float s_cam[CAM_LEN];
-    for (int k = threadIdx.x; k < 4 * n_spheres; k += blockDim.x) s_table[k] = table[k];
+    load_sweep_table(s_sweep, table, n_spheres);
     if (threadIdx.x < CAM_LEN) s_cam[threadIdx.x] = cam_vec[threadIdx.x];
     __syncthreads();
 
@@ -144,15 +147,15 @@ __global__ void __launch_bounds__(MAX_GRAD_TILE)
         float4* rec = records + 4 * slot++;
         float t_best;
         int best;
-        closest_hit(s_table, n_spheres, o, d, cam.t_min, t_best, best);
+        closest_hit(s_sweep, n_spheres, o, d, cam.t_min, t_best, best);
         if (!(t_best < T_MISS * 0.5f)) {
             put_record(rec, o, d, att, -1, st, depth, END_SKY);
             busy = false;
             continue;
         }
         // The rest of render_device.cuh's bounce(), expression for expression.
-        const float4* row = s_table + 4 * best;
-        const float4 c = row[0];
+        const float4* row = table + 4 * best;
+        const float4 c = __ldg(row);
         const vec3 p = o + t_best * d;
         const float inv_r = 1.0f / (fabsf(c.w) > 1e-8f ? c.w : 1.0f);
         const vec3 outward = (p - vec3{c.x, c.y, c.z}) * inv_r;
@@ -277,18 +280,34 @@ __global__ void grad_reduce_partials(const float* __restrict__ partials, int n_c
     out[i] = s;
 }
 
+// The largest scene the replay's sweep table takes beside its static camera
+// vector, in the default 48 KB (no opt-in): what the launcher accepts.
+extern "C" int rt_replay_max_spheres() {
+    return (int)((DEFAULT_BLOCK_SMEM - sizeof(float) * CAM_LEN) / sizeof(float4));
+}
+
 // Launch the replay on `stream`. table [n_spheres, 16] f32; cam [CAM_LEN] f32;
 // pix [n_lanes] i32; ev_start [n_lanes] i64, ev_count [n_lanes] i32; records
-// [n_events, 16] f32; flags [2] i32, zeroed. Returns cudaGetLastError().
+// [n_events, 16] f32; flags [2] i32, zeroed. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a scene the sweep table cannot hold.
 extern "C" int rt_grad_replay(const void* table, int n_spheres, const void* cam, const void* pix,
                               const void* ev_start, const void* ev_count, void* records, void* flags, int n_lanes,
                               int tile, int n_live, int seed, int sample_offset, int spp, int max_depth,
                               void* stream) {
-    const size_t smem = (size_t)n_spheres * P_ROWS * sizeof(float);
-    grad_replay_kernel<<<n_lanes / tile, tile, smem, (cudaStream_t)stream>>>(
+    if (n_spheres <= 0 || n_spheres > rt_replay_max_spheres()) return (int)cudaErrorInvalidValue;
+    grad_replay_kernel<<<n_lanes / tile, tile, sweep_table_bytes(n_spheres), (cudaStream_t)stream>>>(
         (const float4*)table, n_spheres, (const float*)cam, (const int*)pix, (const long long*)ev_start,
         (const int*)ev_count, (float4*)records, (int*)flags, n_lanes, n_live, seed, sample_offset, spp, max_depth);
     return (int)cudaGetLastError();
+}
+
+// Resident replay blocks of `tile` threads an SM holds for a scene of
+// `n_spheres`, or minus the CUDA error.
+extern "C" int rt_replay_blocks_per_sm(int tile, int n_spheres) {
+    int blocks = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, grad_replay_kernel, tile,
+                                                                          sweep_table_bytes(n_spheres));
+    return err == cudaSuccess ? blocks : -(int)err;
 }
 
 // Launch the reverse walk on `stream`: records [n_events, 16] f32 from the
@@ -304,9 +323,11 @@ extern "C" int rt_grad_reverse(const void* table, const void* cam, const void* g
 }
 
 // Reduce `n_events` event records into out [16, n_spheres] through partials
-// [ceil(n_events / CHUNK_EVENTS), 16, n_spheres]. n_spheres <= 1024.
+// [ceil(n_events / CHUNK_EVENTS), 16, n_spheres]. Returns cudaGetLastError(),
+// or cudaErrorInvalidValue for more spheres than one block has threads.
 extern "C" int rt_grad_reduce(const void* events, long long n_events, int n_spheres, void* partials, void* out,
                               void* stream) {
+    if (n_spheres <= 0 || n_spheres > MAX_REDUCE_SPHERES) return (int)cudaErrorInvalidValue;
     const int n_chunks = (int)((n_events + CHUNK_EVENTS - 1) / CHUNK_EVENTS);
     if (n_chunks > 0) {
         const int threads = (n_spheres + 31) / 32 * 32;
@@ -365,3 +386,5 @@ extern "C" int rt_bounce_adjoint(const void* table, float t_min, int n, const vo
 extern "C" int rt_max_grad_tile() { return MAX_GRAD_TILE; }
 
 extern "C" long long rt_chunk_events() { return CHUNK_EVENTS; }
+
+extern "C" int rt_reduce_max_spheres() { return MAX_REDUCE_SPHERES; }

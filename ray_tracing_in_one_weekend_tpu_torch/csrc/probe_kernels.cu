@@ -17,8 +17,9 @@
 //   thread give the scheduler instruction-level parallelism: the peak.
 // * sweep_probe_kernel   <- scripts/kernel_parts_probe.py:101 (`sweep_kernel`):
 //   reps x (closest hit over every sphere -> t_best; o += 1e-9 t_best;
-//   acc += t_best) -> [1, tile]. It calls render_device.cuh's closest_hit with
-//   the table in shared memory: the very sweep render_kernel runs.
+//   acc += t_best) -> [1, tile]. It builds render_device.cuh's sweep table in
+//   shared memory and calls its closest_hit under the same register cap:
+//   the very sweep render_kernel runs.
 // * gather_probe_kernel  <- scripts/kernel_parts_probe.py:148 (`gather_kernel`):
 //   reps x (params = P [16, N] @ OH [N, tile]; OH += 1e-12 params[0];
 //   acc += params[0]) -> [1, tile]. The TPU kernel found the winner's
@@ -140,12 +141,11 @@ __global__ void __launch_bounds__(PROBE_BLOCK)
     out[(long long)r * tile + c] = acc;
 }
 
-__global__ void __launch_bounds__(PROBE_BLOCK)
-    sweep_probe_kernel(const float4* __restrict__ table, int n_spheres, const float* __restrict__ o_in,
-                       const float* __restrict__ d_in, float* __restrict__ out, int n_lanes, int reps,
-                       float t_min) {
-    extern __shared__ float4 s_table[];
-    for (int k = threadIdx.x; k < 4 * n_spheres; k += blockDim.x) s_table[k] = table[k];
+SWEEP_KERNEL sweep_probe_kernel(const float4* __restrict__ table, int n_spheres, const float* __restrict__ o_in,
+                                const float* __restrict__ d_in, float* __restrict__ out, int n_lanes, int reps,
+                                float t_min) {
+    extern __shared__ float4 s_sweep[];
+    load_sweep_table(s_sweep, table, n_spheres);
     __syncthreads();
     const int j = blockIdx.x * blockDim.x + threadIdx.x;
     if (j >= n_lanes) return;
@@ -155,7 +155,7 @@ __global__ void __launch_bounds__(PROBE_BLOCK)
     for (int rep = 0; rep < reps; ++rep) {
         float t_best;
         int best;
-        closest_hit(s_table, n_spheres, o, d, t_min, t_best, best);
+        closest_hit(s_sweep, n_spheres, o, d, t_min, t_best, best);
         // Data-dependent, so the sweep cannot be hoisted out of the loop.
         const float s = 1e-9f * t_best;
         o = {o.x + s, o.y + s, o.z + s};
@@ -440,12 +440,24 @@ extern "C" int rt_fma_peak(const void* x, void* out, int tile, int reps, void* s
     return (int)cudaGetLastError();
 }
 
+// The sweep table is all of the sweep probe's shared memory.
+extern "C" int rt_sweep_probe_max_spheres() { return (int)(DEFAULT_BLOCK_SMEM / sizeof(float4)); }
+
 extern "C" int rt_sweep_probe(const void* table, int n_spheres, const void* o, const void* d, void* out, int n_lanes,
                               int reps, float t_min, void* stream) {
-    const size_t smem = (size_t)n_spheres * P_ROWS * sizeof(float);
-    sweep_probe_kernel<<<blocks_for(n_lanes), PROBE_BLOCK, smem, (cudaStream_t)stream>>>(
+    if (n_spheres <= 0 || n_spheres > rt_sweep_probe_max_spheres()) return (int)cudaErrorInvalidValue;
+    sweep_probe_kernel<<<blocks_for(n_lanes), PROBE_BLOCK, sweep_table_bytes(n_spheres), (cudaStream_t)stream>>>(
         (const float4*)table, n_spheres, (const float*)o, (const float*)d, (float*)out, n_lanes, reps, t_min);
     return (int)cudaGetLastError();
+}
+
+// Resident sweep-probe blocks an SM holds for a scene of `n_spheres`, or
+// minus the CUDA error. The probe's block is PROBE_BLOCK threads.
+extern "C" int rt_sweep_probe_blocks_per_sm(int n_spheres) {
+    int blocks = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, sweep_probe_kernel, PROBE_BLOCK,
+                                                                          sweep_table_bytes(n_spheres));
+    return err == cudaSuccess ? blocks : -(int)err;
 }
 
 // OH's slice takes n * 64 bytes of dynamic shared memory: 32 KB at the

@@ -125,49 +125,127 @@ __device__ __forceinline__ void camera_ray(const Cam& cam, uint32_t h0, float px
 
 // ---------------------------------------------------------------------------
 // Closest hit: the nearest root beyond t_min over every sphere, `d` unit.
+//
+// The sweep reads its own table, one float4 a sphere, (cx, cy, cz,
+// |c|^2 - r^2), which each block builds in shared memory from rows 4i and
+// 4i+3 of the packed table (load_sweep_table): one 16-byte load a sphere
+// test, 8 KB at 512 slots. The -2c row is not read: the ray's o2 = -2o is
+// taken once, and c.x * o2.x equals (-2 c.x) * o.x bit for bit (scaling by
+// -2 is exact short of overflow, and the two products have the same real
+// value and sign), so cc_part, and every t, keep the plain version's bits.
+// This needs rows 12-14 to hold -2 times rows 0-2, as pack_scene makes them.
+//
+// Spheres are tested SWEEP_GROUP (8) at a time: the group's discriminants
+// are independent, so their loads and arithmetic overlap, and the roots are
+// taken only when one of them is >= 0. The group's (t_best, best) updates
+// then run in index order with the strict <, so the result is that of one
+// sphere after another: on an exact tie the lowest index wins. Slots past
+// the last whole group go one by one. A trip of 8 tests issues 141 SASS
+// instructions (17.6 a test: the 15 FP32 operations, the load and the
+// group's share of its sign test, branch and pointer step), against 23.25
+// a test when each test loaded two float4s and branched alone; groups of 4
+// issue 18.75 and ran 8-9% slower on an H100 (probes/sweep_variants.py,
+// PERF.md).
 // ---------------------------------------------------------------------------
+
+#ifndef RT_SWEEP_GROUP
+#define RT_SWEEP_GROUP 8
+#endif
+constexpr int SWEEP_GROUP = RT_SWEEP_GROUP;
+
+// Register cap of the three kernels that sweep (render, replay, sweep
+// probe): at 64, eight blocks of 128 threads (32 warps) share an SM. The
+// render and replay kernels spill a few words outside the sweep loop at 64
+// and still ran faster on an H100 than at 72 or 80 (probes/sweep_variants.py
+// builds other caps with -DRT_SWEEP_REGS=N; PERF.md has the times).
+#ifndef RT_SWEEP_REGS
+#define RT_SWEEP_REGS 64
+#endif
+#define SWEEP_KERNEL __global__ void __maxnreg__(RT_SWEEP_REGS)
+
+// A block gets 48 KB of shared memory without an opt-in; the sweep table
+// takes one float4 a sphere of what its kernel's static arrays leave.
+constexpr size_t DEFAULT_BLOCK_SMEM = 48 * 1024;
+__host__ __device__ constexpr size_t sweep_table_bytes(int n) { return (size_t)n * sizeof(float4); }
+
+// The block's sweep table from the packed table; the caller syncs.
+__device__ __forceinline__ void load_sweep_table(float4* s_sweep, const float4* __restrict__ table, int n) {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        const float4 c = table[4 * i];
+        s_sweep[i] = make_float4(c.x, c.y, c.z, table[4 * i + 3].w);
+    }
+}
+
+// The quadratic of one sphere test: returns disc, sets half_b.
+__device__ __forceinline__ float sphere_disc(float4 c, vec3 o2, vec3 d, float o_dot_d, float o_sq,
+                                             float& half_b) {
+    const float d_dot_c = c.x * d.x + c.y * d.y + c.z * d.z;
+    const float cc_part = c.w + c.x * o2.x + c.y * o2.y + c.z * o2.z;
+    half_b = o_dot_d - d_dot_c;
+    const float cc = o_sq + cc_part;
+    return half_b * half_b - cc;
+}
 
 // NaN-as-miss: sqrtf of a negative disc is NaN, and every compare with NaN
 // is false, so such a pair falls through to T_MISS in the plain version.
 // Skipping !(disc >= 0) here gives the identical t. Padding slots have
-// r^2 = -1, so disc <= -1 for them. A strict < keeps the lowest index on an
-// exact tie.
-__device__ __forceinline__ void closest_hit(const float4* table, int n, vec3 o, vec3 d, float t_min,
-                                            float& t_best, int& best) {
-    const float o_dot_d = dot3(o, d);
-    const float o_sq = dot3(o, o);
-    t_best = T_MISS;
-    best = 0;
-    for (int i = 0; i < n; ++i) {
-        const float4 c = table[4 * i];      // cx, cy, cz, r
-        const float4 m = table[4 * i + 3];  // -2cx, -2cy, -2cz, |c|^2 - r^2
-        const float d_dot_c = c.x * d.x + c.y * d.y + c.z * d.z;
-        const float cc_part = m.w + m.x * o.x + m.y * o.y + m.z * o.z;
-        const float half_b = o_dot_d - d_dot_c;
-        const float cc = o_sq + cc_part;
-        const float disc = half_b * half_b - cc;
-        if (disc >= 0.0f) {
-            const float sqrt_d = sqrtf(disc);
-            const float root_near = -half_b - sqrt_d;
-            const float t = root_near > t_min ? root_near : -half_b + sqrt_d;
-            if (t > t_min && t < t_best) {
-                t_best = t;
-                best = i;
-            }
+// r^2 = -1, so disc <= -1 for them.
+__device__ __forceinline__ void take_root(float half_b, float disc, int i, float t_min, float& t_best,
+                                          int& best) {
+    if (disc >= 0.0f) {
+        const float sqrt_d = sqrtf(disc);
+        const float root_near = -half_b - sqrt_d;
+        const float t = root_near > t_min ? root_near : -half_b + sqrt_d;
+        if (t > t_min && t < t_best) {
+            t_best = t;
+            best = i;
         }
     }
 }
 
+__device__ __forceinline__ void closest_hit(const float4* sweep, int n, vec3 o, vec3 d, float t_min,
+                                            float& t_best, int& best) {
+    const float o_dot_d = dot3(o, d);
+    const float o_sq = dot3(o, o);
+    const vec3 o2 = -2.0f * o;
+    t_best = T_MISS;
+    best = 0;
+    // One pointer step a group: a sphere's index is needed only for a root.
+    const float4* c = sweep;
+    for (const float4* end = sweep + (n - n % SWEEP_GROUP); c != end; c += SWEEP_GROUP) {
+        float half_b[SWEEP_GROUP], disc[SWEEP_GROUP];
+        int signs = -1;
+#pragma unroll
+        for (int k = 0; k < SWEEP_GROUP; ++k) {
+            disc[k] = sphere_disc(c[k], o2, d, o_dot_d, o_sq, half_b[k]);
+            signs &= __float_as_int(disc[k]);
+        }
+        // Every sign bit set: each disc is < 0 or a NaN, none a root (disc
+        // is never -0: half_b^2 is +0 or more, and +0 - cc is not -0).
+        if (signs >= 0) {
+            const int i = (int)(c - sweep);
+#pragma unroll
+            for (int k = 0; k < SWEEP_GROUP; ++k) take_root(half_b[k], disc[k], i + k, t_min, t_best, best);
+        }
+    }
+    for (const float4* end = sweep + n; c != end; ++c) {
+        float half_b;
+        const float disc = sphere_disc(*c, o2, d, o_dot_d, o_sq, half_b);
+        take_root(half_b, disc, (int)(c - sweep), t_min, t_best, best);
+    }
+}
+
 // ---------------------------------------------------------------------------
-// Scatter (reference: src/gpu/material.h). `row` is the hit sphere's table
-// row; `d` is unit and so is the returned direction. Returns false when a
-// metal ray scatters below the surface (the path is absorbed).
+// Scatter (reference: src/gpu/material.h). `row` is the hit sphere's row of
+// the packed table in device memory; `d` is unit and so is the returned
+// direction. Returns false when a metal ray scatters below the surface (the
+// path is absorbed).
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ bool scatter(vec3 d, vec3 n, bool front_face, const float4* row, Stream st,
                                         uint32_t ctr, vec3& new_dir, vec3& atten) {
-    const float4 r1 = row[1];  // r^2, albedo rgb
-    const float4 r2 = row[2];  // fuzz, ior, mat, active
+    const float4 r1 = __ldg(row + 1);  // r^2, albedo rgb
+    const float4 r2 = __ldg(row + 2);  // fuzz, ior, mat, active
     const float mat = r2.z;
     const bool is_lam = mat < 0.5f;
     const bool is_metal = mat >= 0.5f && mat < 1.5f;
@@ -211,16 +289,18 @@ __device__ __forceinline__ bool scatter(vec3 d, vec3 n, bool front_face, const f
 }
 
 // ---------------------------------------------------------------------------
-// One bounce of a busy lane: closest hit, sky on a miss, signed-radius
-// normal, scatter. Updates the lane's ray, attenuation, radiance and depth;
-// returns whether the path continues.
+// One bounce of a busy lane: closest hit over the block's sweep table, sky
+// on a miss, signed-radius normal, scatter with the winner's row of the
+// packed table (device memory, one read a bounce). Updates the lane's ray,
+// attenuation, radiance and depth; returns whether the path continues.
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ bool bounce(const float4* table, int n_spheres, float t_min, int max_depth,
-                                       vec3& o, vec3& d, vec3& att, vec3& rad, int& depth, Stream st) {
+__device__ __forceinline__ bool bounce(const float4* sweep, const float4* __restrict__ table, int n_spheres,
+                                       float t_min, int max_depth, vec3& o, vec3& d, vec3& att, vec3& rad,
+                                       int& depth, Stream st) {
     float t_best;
     int best;
-    closest_hit(table, n_spheres, o, d, t_min, t_best, best);
+    closest_hit(sweep, n_spheres, o, d, t_min, t_best, best);
     const uint32_t ctr = 8u + (uint32_t)depth * 16u;
     depth += 1;
     if (!(t_best < T_MISS * 0.5f)) {
@@ -231,7 +311,7 @@ __device__ __forceinline__ bool bounce(const float4* table, int n_spheres, float
         return false;
     }
     const float4* row = table + 4 * best;
-    const float4 c = row[0];
+    const float4 c = __ldg(row);
     const vec3 p = o + t_best * d;
     // The SIGNED radius divides the normal (reference: src/gpu/sphere.h:40-42).
     const float inv_r = 1.0f / (fabsf(c.w) > 1e-8f ? c.w : 1.0f);

@@ -9,22 +9,27 @@
 // state back in the JAX row layout so the next pass resumes it.
 //
 // Layout on this card: one thread per lane, `tile` lanes per block, P / tile
-// blocks. Each block first copies the packed scene table ([N, 16] f32, 32 KB
-// at N = 512) into shared memory; the per-thread loop then sweeps all N
-// spheres with broadcast reads from it, picks the winner with a strict <
-// argmin, and gathers the winner's row by index (the TPU kernel's one-hot MXU
-// matmul and its transposed table copy are gone). Lanes are independent, so a
-// lane's state after the pass equals the TPU's for every busy lane; only the
-// SF_ITERS diagnostic differs: it holds the lane's own trip count here, where
-// the TPU kernel wrote its tile's.
+// blocks. Each block first builds its sweep table in shared memory, one
+// float4 (cx, cy, cz, |c|^2 - r^2) a sphere from the packed scene table ([N,
+// 16] f32): 8 KB at N = 512. The per-thread loop then sweeps all N spheres
+// with broadcast reads from it, eight spheres' tests in flight at a time,
+// picks the winner with a strict < argmin in index order, and reads the
+// winner's row of the packed table from device memory (the TPU kernel's
+// one-hot MXU matmul and its transposed table copy are gone). Lanes are
+// independent, so a lane's state after the pass equals the TPU's for every
+// busy lane; only the SF_ITERS diagnostic differs: it holds the lane's own
+// trip count here, where the TPU kernel wrote its tile's.
 //
-// What should bound it: the FP32 sweep, about N x 15 flops per bounce per lane
-// (plus one sqrtf per sphere whose quadratic has real roots), with the scene in
-// shared memory and no device-memory traffic inside the loop: the lane state
-// is read once and written once per pass. Tuning is for later work: the
-// sphere-table layout, an early-out on the ground sphere, occupancy (32 KB of
-// shared memory per block caps resident blocks), and warp divergence between
-// short and long paths.
+// What should bound it: the FP32 sweep, about N x 15 flops per bounce per
+// lane (plus one sqrtf per sphere whose quadratic has real roots), with no
+// device-memory traffic inside the sweep: the lane state is read once and
+// written once per pass. Without contraction each of the 15 operations is
+// one instruction, so the sweep is bound by issue: the design keeps a test
+// at one shared-memory load and 15 FP32 instructions plus its share of the
+// group's sign test and loop, and caps the kernel at RT_SWEEP_REGS (64)
+// registers so that 8 blocks of 128 threads share an SM to hide each test's
+// dependent chain (render_device.cuh, closest_hit). Not done: culling, and
+// warp divergence between short and long paths (the lane scheduler's job).
 //
 // Build with nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false and
 // without --use_fast_math (see render_device.cuh and kernels/build.py). With
@@ -36,17 +41,16 @@
 
 using namespace rt;
 
-// Largest block the launcher accepts; keeps the register budget at 128 per thread.
+// Largest block the launcher accepts.
 constexpr int MAX_TILE = 512;
 
-__global__ void __launch_bounds__(MAX_TILE)
-    render_kernel(const float4* __restrict__ table, int n_spheres, const float* __restrict__ cam_vec,
-                  const float* __restrict__ sf, const int* __restrict__ si, float* __restrict__ of,
-                  int* __restrict__ oi, int n_lanes, int seed, int sample_offset, int budget, int spp,
-                  int max_depth) {
-    extern __shared__ float4 s_table[];
+SWEEP_KERNEL render_kernel(const float4* __restrict__ table, int n_spheres, const float* __restrict__ cam_vec,
+                           const float* __restrict__ sf, const int* __restrict__ si, float* __restrict__ of,
+                           int* __restrict__ oi, int n_lanes, int seed, int sample_offset, int budget, int spp,
+                           int max_depth) {
+    extern __shared__ float4 s_sweep[];
     __shared__ float s_cam[CAM_LEN];
-    for (int k = threadIdx.x; k < 4 * n_spheres; k += blockDim.x) s_table[k] = table[k];
+    load_sweep_table(s_sweep, table, n_spheres);
     if (threadIdx.x < CAM_LEN) s_cam[threadIdx.x] = cam_vec[threadIdx.x];
     __syncthreads();
 
@@ -85,7 +89,7 @@ __global__ void __launch_bounds__(MAX_TILE)
         }
         if (!busy || iters >= budget) break;
         work += 1.0f;
-        busy = bounce(s_table, n_spheres, cam.t_min, max_depth, o, d, att, rad, depth, st);
+        busy = bounce(s_sweep, table, n_spheres, cam.t_min, max_depth, o, d, att, rad, depth, st);
         ++iters;
     }
 
@@ -113,21 +117,36 @@ __global__ void __launch_bounds__(MAX_TILE)
     for (int r = SI_STREAM2 + 1; r < SI_ROWS; ++r) oi[r * P + j] = 0;
 }
 
+// The largest scene a block's sweep table takes beside the static camera
+// vector, in the default 48 KB (no opt-in): what the launcher accepts.
+extern "C" int rt_render_max_spheres() {
+    return (int)((DEFAULT_BLOCK_SMEM - sizeof(float) * CAM_LEN) / sizeof(float4));
+}
+
 // Launch one pass on `stream`. table: [n_spheres, 16] f32; cam: [CAM_LEN] f32;
 // sf/of: [SF_ROWS, n_lanes] f32; si/oi: [SI_ROWS, n_lanes] i32, all device
 // pointers; n_lanes a multiple of tile. Returns cudaGetLastError() after the
-// launch (0 on success). The caller checks shapes and limits: the table must
-// fit the default 48 KB of shared memory per block with the camera vector.
+// launch (0 on success), or cudaErrorInvalidValue for a scene the sweep table
+// cannot hold. The caller checks shapes and limits.
 extern "C" int rt_render_pass(const void* table, int n_spheres, const void* cam, const void* sf, const void* si,
                               void* of, void* oi, int n_lanes, int tile, int seed, int sample_offset, int budget,
                               int spp, int max_depth, void* stream) {
-    const size_t smem = (size_t)n_spheres * P_ROWS * sizeof(float);
-    render_kernel<<<n_lanes / tile, tile, smem, (cudaStream_t)stream>>>(
+    if (n_spheres <= 0 || n_spheres > rt_render_max_spheres()) return (int)cudaErrorInvalidValue;
+    render_kernel<<<n_lanes / tile, tile, sweep_table_bytes(n_spheres), (cudaStream_t)stream>>>(
         (const float4*)table, n_spheres, (const float*)cam, (const float*)sf, (const int*)si, (float*)of, (int*)oi,
         n_lanes, seed, sample_offset, budget, spp, max_depth);
     return (int)cudaGetLastError();
 }
 
 extern "C" int rt_max_tile() { return MAX_TILE; }
+
+// Resident blocks of `tile` threads an SM holds for a scene of `n_spheres`
+// (registers, shared memory and the SM's limits), or minus the CUDA error.
+extern "C" int rt_render_blocks_per_sm(int tile, int n_spheres) {
+    int blocks = 0;
+    const cudaError_t err =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, render_kernel, tile, sweep_table_bytes(n_spheres));
+    return err == cudaSuccess ? blocks : -(int)err;
+}
 
 extern "C" const char* rt_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

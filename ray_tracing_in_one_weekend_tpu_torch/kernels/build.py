@@ -16,6 +16,8 @@ walk and its reduction; `chain_fma`,
 `csrc/probe_kernels.cu`. Each checks its
 tensors, allocates the outputs, launches on PyTorch's current stream,
 raises if the launch failed, and counts its launches in `LAUNCHES`.
+`blocks_per_sm` reads the occupancy of the three kernels that sweep the
+scene from the CUDA runtime.
 """
 
 from __future__ import annotations
@@ -56,10 +58,6 @@ LAUNCHES = {
 }
 
 _LIB = None
-# The default per-block shared-memory limit (no opt-in), less the kernel's
-# static camera vector: up to 766 spheres, and every scene of the port has
-# at most 512 slots.
-_MAX_TABLE_BYTES = 48 * 1024 - 24 * 4
 # The product probes hold one operand in registers, split over 8 warps
 # (csrc/probe_kernels.cu): the gather 8 k-slabs of P a warp, the skinny
 # product 8 m16 tiles of L a warp.
@@ -71,7 +69,7 @@ _SKINNY_MAX_M = 1024
 class BuildResult:
     path: Path
     seconds: float  # 0.0 when the library for these sources already existed
-    log: str  # nvcc's output, with ptxas' register and shared-memory report
+    log: str  # nvcc's output, with ptxas' register, spill and shared-memory report
 
 
 def reset_launches() -> None:
@@ -114,10 +112,12 @@ def _run_all(cmds) -> str:
 
 
 def build() -> BuildResult:
-    """Compile `csrc/*.cu` unless the library for these sources exists."""
+    """Compile `csrc/*.cu` unless the library for these sources exists. The
+    log is kept beside the library and returned with it."""
     lib = BUILD_DIR / f"librt_kernels_{source_hash()}.so"
+    log_path = lib.with_suffix(".log")
     if lib.exists():
-        return BuildResult(lib, 0.0, "")
+        return BuildResult(lib, 0.0, log_path.read_text() if log_path.exists() else "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     stem = f"{lib.stem}.{os.getpid()}"
     units = [p for p in _sources() if p.suffix == ".cu"]
@@ -133,6 +133,9 @@ def build() -> BuildResult:
         for o in objs:
             o.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
+    tmp_log = tmp.with_suffix(".log")
+    tmp_log.write_text(log)
+    os.replace(tmp_log, log_path)
     os.replace(tmp, lib)  # atomic: a concurrent build never loads half a file
     return BuildResult(lib, seconds, log)
 
@@ -149,8 +152,16 @@ def load() -> ctypes.CDLL:
             i32, i32, i32, i32, i32, i32, i32,  # n_lanes, tile, seed, sample_offset, budget, spp, max_depth
             ptr,  # stream
         ]
-        lib.rt_max_tile.restype = i32
-        lib.rt_max_tile.argtypes = []
+        # Each kernel's largest scene (its shared-memory sweep table, or the
+        # reduction's one thread a sphere) and its resident blocks an SM.
+        for name in ("rt_max_tile", "rt_render_max_spheres", "rt_replay_max_spheres",
+                     "rt_sweep_probe_max_spheres", "rt_reduce_max_spheres"):
+            getattr(lib, name).restype = i32
+            getattr(lib, name).argtypes = []
+        for name, args in (("rt_render_blocks_per_sm", [i32, i32]), ("rt_replay_blocks_per_sm", [i32, i32]),
+                           ("rt_sweep_probe_blocks_per_sm", [i32])):
+            getattr(lib, name).restype = i32
+            getattr(lib, name).argtypes = args
         lib.rt_grad_replay.restype = i32
         lib.rt_grad_replay.argtypes = [
             ptr, i32, ptr, ptr,  # table, n_spheres, cam, pix
@@ -206,6 +217,29 @@ def _check_int32(name, v):
         raise ValueError(f"{name} ({v}) does not fit in int32")
 
 
+def _check_spheres(n_spheres, most):
+    """`most`: the kernel's largest scene, as its library reports it."""
+    if not 0 < n_spheres <= most:
+        raise ValueError(f"{n_spheres} spheres do not fit the kernel's shared-memory sweep table "
+                         f"(at most {most})")
+
+
+def blocks_per_sm(kernel: str, tile: int, n_spheres: int) -> int:
+    """Resident blocks an SM holds of `kernel` ("render_kernel",
+    "grad_replay" or "sweep_probe", whose block is always 128 threads) at
+    `tile` threads a block for a scene of `n_spheres`: the CUDA runtime's
+    occupancy from the kernel's registers and shared memory."""
+    lib = load()
+    if kernel == "sweep_probe":
+        n = lib.rt_sweep_probe_blocks_per_sm(n_spheres)
+    else:
+        fn = {"render_kernel": lib.rt_render_blocks_per_sm, "grad_replay": lib.rt_replay_blocks_per_sm}[kernel]
+        n = fn(tile, n_spheres)
+    if n < 0:
+        _raise_on(lib, -n, f"{kernel} occupancy")
+    return n
+
+
 def render_pass(table, cam_vec, scalars, sf, si, tile, spp, max_depth):
     """One pass of `csrc/render_kernel.cu` on CUDA tensors -> (of, oi).
 
@@ -223,9 +257,8 @@ def render_pass(table, cam_vec, scalars, sf, si, tile, spp, max_depth):
     _check_tensor("cam_vec", cam_vec, torch.float32, (24,), device)
     _check_tensor("sf", sf, torch.float32, (16, n_lanes), device)
     _check_tensor("si", si, torch.int32, (8, n_lanes), device)
-    if not 0 < n_spheres * 64 <= _MAX_TABLE_BYTES:
-        raise ValueError(f"{n_spheres} spheres do not fit the kernel's 48 KB shared-memory table")
     lib = load()
+    _check_spheres(n_spheres, lib.rt_render_max_spheres())
     max_tile = lib.rt_max_tile()
     if tile <= 0 or tile % 128 or tile > max_tile:
         raise ValueError(f"tile ({tile}) must be a multiple of 128 no larger than {max_tile}")
@@ -328,9 +361,8 @@ def grad_replay(table, cam_vec, scalars, pix, work, tile, spp, max_depth) -> Rep
     n_spheres = _check_grad_tables(table, cam_vec, device)
     _check_tensor("pix", pix, torch.int32, (n_lanes,), device)
     _check_tensor("work", work, torch.float32, (n_live - pixel_offset,), device)
-    if not 0 < n_spheres * 64 <= _MAX_TABLE_BYTES:
-        raise ValueError(f"{n_spheres} spheres do not fit the kernel's 48 KB shared-memory table")
     lib = load()
+    _check_spheres(n_spheres, lib.rt_replay_max_spheres())
     _check_grad_tile(lib, tile, n_lanes)
     if not 0 <= pixel_offset < n_live:
         raise ValueError(f"pixel range [{pixel_offset}, {n_live}) is empty")
@@ -411,9 +443,10 @@ def grad_reduce(events, n_spheres):
         raise ValueError(f"grad_reduce runs on CUDA tensors, got {device}")
     n_events = events.shape[0] if events.dim() == 2 else -1
     _check_tensor("events", events, torch.float32, (n_events, 16), device)
-    if not 0 < n_spheres * 64 <= _MAX_TABLE_BYTES:
-        raise ValueError(f"{n_spheres} spheres: at most {_MAX_TABLE_BYTES // 64}")
     lib = load()
+    most = lib.rt_reduce_max_spheres()  # one thread a sphere, in one block
+    if not 0 < n_spheres <= most:
+        raise ValueError(f"{n_spheres} spheres: the reduction takes at most {most}")
     n_chunks = -(-n_events // lib.rt_chunk_events())
     partials = torch.empty((max(n_chunks, 1), 16, n_spheres), dtype=torch.float32, device=device)
     out = torch.empty((16, n_spheres), dtype=torch.float32, device=device)
@@ -524,8 +557,7 @@ def sweep_probe(table, o, d, reps, t_min):
     _check_tensor("table", table, torch.float32, (n_spheres, 16), device)
     _check_tensor("o", o, torch.float32, (3, tile), device)
     _check_tensor("d", d, torch.float32, (3, tile), device)
-    if not 0 < n_spheres * 64 <= _MAX_TABLE_BYTES:
-        raise ValueError(f"{n_spheres} spheres do not fit the kernel's 48 KB shared-memory table")
+    _check_spheres(n_spheres, load().rt_sweep_probe_max_spheres())
     _check_reps(reps)
     out = torch.empty((1, tile), dtype=torch.float32, device=device)
     _launch("sweep_probe", "rt_sweep_probe", device, table.data_ptr(), n_spheres, o.data_ptr(),

@@ -7,17 +7,21 @@ needs one CUDA GPU with nvcc:
     python -m ray_tracing_in_one_weekend_tpu_torch.probes.fma_contraction
     python -m ray_tracing_in_one_weekend_tpu_torch.probes.device_idle
     python -m ray_tracing_in_one_weekend_tpu_torch.probes.grad_step
+    python -m ray_tracing_in_one_weekend_tpu_torch.probes.sweep_variants [--parent DIR]
 
 Nothing on the render path imports them.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import subprocess
 
 import numpy as np
 import torch
 
+from ray_tracing_in_one_weekend_tpu_torch.models import scene as scene_lib
 from ray_tracing_in_one_weekend_tpu_torch.models.camera import make_camera
 from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_render as cr
 
@@ -29,6 +33,23 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def smi_samples():
+    """While open, nvidia-smi reads the SM clock (MHz) and the power draw
+    (W) every 100 ms; the list it yields holds one "clock, power" line per
+    reading once the block has closed."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits", "--loop-ms=100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
+    )
+    lines: list[str] = []
+    try:
+        yield lines
+    finally:
+        proc.terminate()
+        lines.extend(proc.communicate(timeout=30)[0].splitlines())
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -70,6 +91,49 @@ def small_camera(device, spp=4, max_depth=8, width=64, **kw):
     """The small camera of the kernel checks: 64x32 at aspect 2."""
     return make_camera(image_width=width, aspect_ratio=2.0, samples_per_pixel=spp,
                        max_depth=max_depth, device=device, **kw)
+
+
+# Slots of `tie_scene` that duplicate a lower slot: no tie may go to them.
+TIE_DUPLICATES = (3, 5, 8, 9, 10)
+
+
+def tie_scene(device=None):
+    """Eleven slots with exact ties, a count that is no multiple of the
+    sweep's group (8, or 4): slot 3 duplicates slot 2 and slot 5 slot 1
+    (inside the first group of 8), slots 8, 9 and 10 duplicate slots 4, 6
+    and 7 (in the remainder), each duplicate of another material. The
+    lowest index must win every tie, so no duplicate is ever hit, and the
+    scene renders as `without_duplicates` of it. `tie_camera` looks at it."""
+    return scene_lib.from_spheres(
+        centers=[[0.0, -100.5, -1.0], [0.0, 0.0, -1.0], [-1.0, 0.0, -1.0], [-1.0, 0.0, -1.0],
+                 [1.0, 0.0, -1.0], [0.0, 0.0, -1.0], [0.0, 0.9, -1.5], [-0.5, -0.3, -0.6],
+                 [1.0, 0.0, -1.0], [0.0, 0.9, -1.5], [-0.5, -0.3, -0.6]],
+        radii=[100.0, 0.5, 0.5, 0.5, 0.5, 0.5, 0.3, 0.15, 0.5, 0.3, 0.15],
+        mat_types=[0, 0, 2, 1, 1, 1, 0, 0, 0, 1, 2],
+        albedos=[[0.8, 0.8, 0.0], [0.1, 0.2, 0.5], [1.0, 1.0, 1.0], [0.9, 0.1, 0.1],
+                 [0.8, 0.6, 0.2], [0.2, 0.9, 0.2], [0.7, 0.3, 0.1], [0.2, 0.4, 0.9],
+                 [0.3, 0.3, 0.9], [0.9, 0.9, 0.9], [1.0, 1.0, 1.0]],
+        device=device,
+    )
+
+
+def without_duplicates(scene):
+    """`scene` (a cut of `tie_scene`) with its duplicate slots inactive."""
+    active = scene.active.clone()
+    active[[k for k in TIE_DUPLICATES if k < active.shape[0]]] = False
+    return scene.replace(active=active)
+
+
+def first_slots(scene, n: int):
+    """The scene's first `n` slots."""
+    return scene.replace(**{f.name: getattr(scene, f.name)[:n] for f in dataclasses.fields(scene)})
+
+
+def tie_camera(device=None):
+    """48x24, 2 spp, depth 6, looking down -z at `tie_scene`."""
+    return make_camera(image_width=48, aspect_ratio=2.0, samples_per_pixel=2, max_depth=6,
+                       lookfrom=(0.0, 0.0, 1.0), lookat=(0.0, 0.0, -1.0), defocus_angle_degrees=0.0,
+                       device=device)
 
 
 def lane_inputs(scene, cam, tile=128):

@@ -3,8 +3,9 @@
 These tests need an NVIDIA GPU with nvcc (they build csrc/ on first use)
 and skip without one. They repeat phases 3-5, 7a, 8 and 9 of
 chip_smoke.py (7a: the replay kernel's records and the reverse kernel's
-events against their plain versions), and check that the wrappers refuse
-what the kernels do not take. On the card:
+events against their plain versions), check that the wrappers refuse
+what the kernels do not take, and read the sweep kernels' occupancy.
+On the card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 """
@@ -102,9 +103,57 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
     for tile in (100, 1024):
         with pytest.raises(ValueError, match="tile"):
             build.render_pass(table, cam_vec, (0, 0, 0, 4), sf, si, tile, 4, 8)
-    big = cr.pack_scene(scene_lib.three_sphere_scene(pad_to=1024, device=dev)).T.contiguous()
+    # The sweep table takes 16 bytes a sphere of the block's default 48 KB.
+    big = cr.pack_scene(scene_lib.three_sphere_scene(pad_to=4096, device=dev)).T.contiguous()
     with pytest.raises(ValueError, match="shared-memory"):
         build.render_pass(big, *args)
+
+
+def test_kernel_bit_identical_on_ties_and_ragged_slot_counts(dev):
+    """`probes.tie_scene` (11 slots: exact ties inside the sweep's first
+    group of 8 and in its remainder) and the same scene cut to 9, 5 and 3
+    slots: the kernel's lane state after one pass and its image equal the
+    plain version's bit for bit, and no duplicate ever wins a tie."""
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.probes import (
+        first_slots,
+        tie_camera,
+        tie_scene,
+        without_duplicates,
+    )
+
+    ties, cam = tie_scene(dev), tie_camera(dev)
+    spp, depth = cam.samples_per_pixel, cam.max_depth
+    for n_slots in (11, 9, 5, 3):
+        scene = first_slots(ties, n_slots)
+        p_mat, cam_vec, sf, si, _ = _inputs(scene, cam)
+        args = (cam_vec, (0, 0, 0, spp * depth), sf, si, 128, spp, depth)
+        of_k, oi_k = build.render_pass(p_mat.T.contiguous(), *args)
+        of_p, oi_p = cr._render_pass_plain(p_mat, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(of_k.view(torch.int32), of_p.view(torch.int32)) and torch.equal(oi_k, oi_p)
+        img = cr.render_cuda(scene, cam)
+        assert torch.equal(img, cr.render_with(cr._render_pass_plain, scene, cam))
+        assert torch.equal(img, cr.render_cuda(without_duplicates(scene), cam))
+
+
+def test_blocks_per_sm_at_every_tile(dev):
+    """The CUDA runtime's occupancy of the three sweep kernels: at least one
+    resident block at every tile the wrappers accept, for the cover scene's
+    512 slots and for the largest scene they take; at tile 128 no fewer
+    blocks than the 64-register cap allows (8)."""
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+
+    lib = build.load()
+    for kernel, most in (("render_kernel", lib.rt_render_max_spheres()),
+                         ("grad_replay", lib.rt_replay_max_spheres())):
+        max_tile = lib.rt_max_tile() if kernel == "render_kernel" else lib.rt_max_grad_tile()
+        for tile in range(128, max_tile + 1, 128):
+            for n in (512, most):
+                assert build.blocks_per_sm(kernel, tile, n) >= 1, (kernel, tile, n)
+        assert build.blocks_per_sm(kernel, 128, 512) >= 8, kernel
+    assert build.blocks_per_sm("sweep_probe", 128, lib.rt_sweep_probe_max_spheres()) >= 1
+    assert build.blocks_per_sm("sweep_probe", 128, 512) >= 8
 
 
 def test_hand_adjoint_matches_autograd_of_bounce_f(dev):
@@ -229,7 +278,7 @@ def test_grad_wrapper_refuses_what_the_kernel_does_not_take(dev):
         build.grad_replay(table, cam_vec, scalars, pix, work + 0.5, 128, 4, 8)
     with pytest.raises(RuntimeError, match="diverged"):
         build.grad_replay(table, cam_vec, scalars, pix, work + 1.0, 128, 4, 8)
-    big = cr.pack_scene(scene_lib.three_sphere_scene(pad_to=1024, device=dev)).T.contiguous()
+    big = cr.pack_scene(scene_lib.three_sphere_scene(pad_to=4096, device=dev)).T.contiguous()
     with pytest.raises(ValueError, match="shared-memory"):
         build.grad_replay(big, *args)
     with pytest.raises(ValueError, match="CUDA"):
