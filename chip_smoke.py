@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Run from the root of a checkout. It builds the hand-written kernels from
 `ray_tracing_in_one_weekend_tpu_torch/csrc/` with nvcc (into the ignored
@@ -14,7 +14,8 @@ Phases, one line each; any failure raises and the script exits non-zero
 without the result lines:
 
 1. card: nvidia-smi's name and power limit, torch and CUDA versions;
-2. build: nvcc, timed, with ptxas' register report; then for each of
+2. build: nvcc, timed, with ptxas' register report (and the reduction's
+   chunk kernel's blocks an SM); then for each of
    the three kernels that sweep the scene (render, replay, sweep probe)
    its registers and spills, its resident blocks an SM at a tile of 128
    (the CUDA runtime's occupancy, beside the occupancy rules'), and the
@@ -48,16 +49,22 @@ without the result lines:
       within EVENT_GATE, the error also read by distance from the path's
       end); the gradient against the plain backward's
       per scene field (relative L2 gate), bit-identical run to run and for
-      bwd_tile 128 and 256;
+      bwd_tile 128 and 256; the reduction kernel bit-identical to its
+      ordered plain version (`_reduce_events_ordered`) on the events;
    b. at the bench preset, the same checks on 16384 lanes drawn across
       the image and sorted by cost as the main path sorts (the plain
-      versions' times), and the reduction against its plain version on
-      the same events;
+      versions' times), and the reduction bit-identical to its ordered
+      plain version and against index_add on the same events;
    c. the main path of the slice: `render_grads_cuda` at the bench preset
       with a zero target, a cold step then warm steps with the work_hint
       carry (seconds, Mrays/s, launch counts, peak memory, finite
       gradients); then the replay, the reverse, the reduction and its
       `index_add_` yardstick timed at full width on the step's own lanes;
+      the reduction there bit-identical to its ordered plain version, its
+      two kernels timed apart (torch.profiler) and, with `--parent DIR`
+      (another checkout of the port, built by its own `kernels/build.py`),
+      the parent's pair on the same events in turns, with the events'
+      share of no sphere and the heaviest sphere's events a chunk;
    d. the inverse-render demo on the card: exit 0 (albedo error halved);
 8. the lane scheduler on the card: at 64x32 and at the bench preset, the
    3-pass compacted render, a work_hint render and a warm cache hit each
@@ -82,6 +89,7 @@ last `{"ok": true, "device": {...}}`. It imports no JAX.
 from __future__ import annotations
 
 import json
+import statistics
 import sys
 import time
 from pathlib import Path
@@ -245,20 +253,30 @@ def reverse_ms(table, cam_vec, replay, g, tile, reps=3):
 
 
 def backward_bounds(n_events, n_slots, n_lanes):
-    """The least times of the backward's three kernels for this run's
+    """The least times of the replay and the reverse for this run's
     bounces: the replay's sweep (15 operations per sphere test, one sweep
     per bounce) against its inputs and 64-byte records; the reverse's
     record reads and event writes (its operations are not counted: it runs
-    no sweep, and the bytes bound it, see PERF.md); the reduction's event
-    reads."""
+    no sweep, and the bytes bound it, see PERF.md)."""
     from ray_tracing_in_one_weekend_tpu_torch.probes import kernel_parts as kp
 
     table = 4.0 * (16 * n_slots + 24)
     replay = kp.bound_ms(float(n_events) * n_slots * kp.OPS_PER_SPHERE_TEST,
                          table + 16.0 * n_lanes + 64.0 * n_events)  # pix, ev_start, ev_count per lane
     reverse = kp.bound_ms(0.0, table + 24.0 * n_lanes + 128.0 * n_events)  # g, ev_start, ev_count per lane
-    reduce = kp.bound_ms(13.0 * n_events, 64.0 * n_events + 4.0 * 16 * n_slots)
-    return replay, reverse, reduce
+    return replay, reverse
+
+
+def reduce_bounds(events, n_slots):
+    """The reduction's least times on `events` (`reduce_parts.reduce_bounds_ms`):
+    the bytes these events need (32 for an event with no sphere, 64 for the
+    others) and every event read whole (64 bytes each)."""
+    import torch
+
+    from ray_tracing_in_one_weekend_tpu_torch.probes import reduce_parts as rp
+
+    w = events[:, 0].contiguous().view(torch.int32)
+    return rp.reduce_bounds_ms(events.shape[0], int(((w >= 0) & (w < n_slots)).sum()), n_slots)
 
 
 def phase_grad_small(scene, cam):
@@ -290,7 +308,8 @@ def phase_grad_small(scene, cam):
     check(torch.equal(pk, runs[128][1]), "phase 7a: two kernel runs differ")
     check(torch.equal(pk, runs[256][0]), "phase 7a: bwd_tile 128 and 256 differ")
     pix, g = cg._bwd_lanes(work, grad_rad, spp, 128)
-    _, split = check_split(p_mat, cam_vec, scalars, pix, g, work, spp, depth, "phase 7a")
+    events, split = check_split(p_mat, cam_vec, scalars, pix, g, work, spp, depth, "phase 7a")
+    check_reduce_bits(events, p_mat.shape[1], "phase 7a")
     pp = cg._grad_pass_plain(p_mat, cam_vec, scalars, pix, g, spp, depth)
     errs = field_errors(scene, pk, pp)
     for k, e in errs.items():
@@ -322,6 +341,7 @@ def phase_grad_subset(scene, cam, n_lanes=16384):
     g = random_cotangent((3, n_lanes), 2, DEVICE) / spp
     events, out = check_split(p_mat, cam_vec, (0, 0, 0, n), pix, g, work, spp, depth, "phase 7b")
     pk = build.grad_reduce(events, p_mat.shape[1])
+    check_reduce_bits(events, p_mat.shape[1], "phase 7b")
     reduce_ms, library_ms = reduce_times(events, p_mat.shape[1])
     t0 = time.perf_counter()
     pp = cg._grad_pass_plain(p_mat, cam_vec, (0, 0, 0, n), pix, g, spp, depth)
@@ -337,10 +357,24 @@ def phase_grad_subset(scene, cam, n_lanes=16384):
     reduce_err = rel_l2(pk, pr)
     reduce_abs_err = float((pk - pr).abs().max())
     check(reduce_err <= 1e-5, f"phase 7b: reduction vs plain rel L2 {reduce_err:.2e} > 1e-5")
-    reduce_bound = backward_bounds(out["n_events"], p_mat.shape[1], n_lanes)[2]
+    reduce_bound, reduce_bound_whole = reduce_bounds(events, p_mat.shape[1])
     return dict(out, errs=errs, reduce_ms=reduce_ms, plain_ms=plain_ms, reduce_plain_ms=reduce_plain_ms,
                 reduce_err=reduce_err, reduce_abs_err=reduce_abs_err, reduce_bound=reduce_bound,
-                reduce_library_ms=library_ms)
+                reduce_bound_whole=reduce_bound_whole, reduce_library_ms=library_ms)
+
+
+def check_reduce_bits(events, n_slots, label):
+    """`grad_reduce` on `events` bit-identical to `_reduce_events_ordered`,
+    the kernel's order in plain PyTorch."""
+    import torch
+
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_grad as cg
+
+    got = build.grad_reduce(events, n_slots).view(torch.int32)
+    want = cg._reduce_events_ordered(events, n_slots).view(torch.int32)
+    check(torch.equal(got, want), f"{label}: grad_reduce differs from the ordered plain reduction in "
+                                  f"{int((got != want).sum())} of {got.numel()} words (bit-identical required)")
 
 
 def reduce_times(events, n_slots):
@@ -360,7 +394,7 @@ def reduce_times(events, n_slots):
             cuda_ms(lambda: acc.index_add_(1, idx, vals), reps=3))
 
 
-def phase_train_step(scene, cam, warm_reps=3):
+def phase_train_step(scene, cam, parent=None, warm_reps=3):
     """7c: the main path of the gradient slice, `render_grads_cuda` at the
     bench preset with a zero target: a cold step, then warm steps with the
     work_hint carry. Returns times, launch counts and peak memory; then
@@ -376,10 +410,12 @@ def phase_train_step(scene, cam, warm_reps=3):
     torch.cuda.reset_peak_memory_stats()
     torch_sync()
     build.reset_launches()
+    segments = torch.cuda.memory_stats()["segment.all.allocated"]
     t0 = time.perf_counter()
     (loss, work), grads = cg.render_grads_cuda(params, scene, cam, target, return_work=True)
     torch_sync()
     cold_s = time.perf_counter() - t0
+    cold_segments = torch.cuda.memory_stats()["segment.all.allocated"] - segments
     warm = []
     for _ in range(warm_reps):
         t0 = time.perf_counter()
@@ -419,12 +455,32 @@ def phase_train_step(scene, cam, warm_reps=3):
     n_events = events.shape[0]
     check(n_events == int(w.double().sum()), "phase 7c: the replay's records differ from the step's bounces")
     reduce_ms, library_ms = reduce_times(events, p_mat.shape[1])
-    bounds = backward_bounds(n_events, p_mat.shape[1], pix.numel())
+    bounds = (*backward_bounds(n_events, p_mat.shape[1], pix.numel()), *reduce_bounds(events, p_mat.shape[1]))
+    # The reduction at full width: bits, its two kernels apart, and the
+    # parent tree's pair on the same events in turns (with --parent).
+    from ray_tracing_in_one_weekend_tpu_torch.probes import reduce_parts as rv
+    from ray_tracing_in_one_weekend_tpu_torch.probes import sweep_readings as sr
+    from ray_tracing_in_one_weekend_tpu_torch.probes.sweep_variants import Build
+
+    check_reduce_bits(events, p_mat.shape[1], "phase 7c")
+    pair = [Build("this tree", build)]
+    if parent is not None:
+        mod = sr.load_build(parent)
+        mod.build()
+        parent_out = mod.grad_reduce(events, p_mat.shape[1])
+        check(torch.equal(parent_out.view(torch.int32), build.grad_reduce(events, p_mat.shape[1]).view(torch.int32)),
+              "phase 7c: the parent's reduction gives other bits")
+        pair.append(Build("parent", mod))
+    reduce_parts = rv.pair_times(pair, events, p_mat.shape[1], rounds=5)
+    event_stats = rv.event_stats(events, p_mat.shape[1])
     return dict(cold_s=cold_s, warm_s=warm, mrays=[rays / t / 1e6 for t in warm],
                 cold_mrays=rays / cold_s / 1e6, launches=launches, peak_gb=peak_gb,
                 loss=float(loss), n_events=n_events, replay_ms=replay_ms, cold_again_s=cold_again_s,
+                cold_segments=cold_segments,
                 reverse_ms=reverse, replay_bound=bounds[0], reverse_bound=bounds[1],
-                reduce_bound=bounds[2], reduce_ms=reduce_ms, reduce_library_ms=library_ms)
+                reduce_bound=bounds[2], reduce_bound_whole=bounds[3], reduce_ms=reduce_ms,
+                reduce_library_ms=library_ms,
+                reduce_parts=reduce_parts, event_stats=event_stats)
 
 
 def phase_scheduler(scene, cam, label):
@@ -584,8 +640,15 @@ def probe_entry(name, v, reading=None):
     return entry
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="another checkout of the port: its reduction is timed beside this one's in phase 7c")
+    parent = ap.parse_args(argv).parent
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA GPU",
@@ -637,6 +700,12 @@ def main() -> int:
         lambda k: build.blocks_per_sm(k, sweep_readings.TILE, sweep_readings.N_SLOTS))}
     for r in readings.values():
         say(f"phase 2 {r.line()}")
+    from ray_tracing_in_one_weekend_tpu_torch.probes import reduce_parts
+
+    reduce_blocks = build.blocks_per_sm("grad_reduce_chunks", 256, sweep_readings.N_SLOTS)
+    reduce_resources = (f"{reduce_parts.resources_line(res.log)}; grad_reduce_chunks blocks per SM at "
+                        f"{sweep_readings.N_SLOTS} spheres {reduce_blocks}")
+    say(f"phase 2 reduction: {reduce_resources}")
 
     # 3. kernel vs plain, one pass
     ref = scene_lib.cover_scene_reference(device=DEVICE)
@@ -764,9 +833,14 @@ def main() -> int:
         f"{sub['reverse_plain_ms']:.0f} ms, whole plain backward {sub['plain_ms']:.0f} ms; reduce "
         f"{sub['reduce_ms']:.3f} ms vs plain reduce ({sub['reduce_plain_ms']:.2f} ms) rel L2 "
         f"{sub['reduce_err']:.2e} [{smi}]")
-    step = phase_train_step(scene, cam)
+    step = phase_train_step(scene, cam, parent.resolve() if parent else None)
+    parts = step["reduce_parts"]
+    med = {label: {k: statistics.median(v) for k, v in t.items()} for label, t in parts.items()}
+    mine = med["this tree"]
+    stats = step["event_stats"]
     say(f"phase 7c train step (render_grads_cuda, bench preset, zero target): cold "
-        f"{step['cold_s']:.4f}s = {step['cold_mrays']:.2f} Mrays/s (again after the warm steps: "
+        f"{step['cold_s']:.4f}s = {step['cold_mrays']:.2f} Mrays/s, {step['cold_segments']} new allocator "
+        f"segments (again after the warm steps: "
         f"{step['cold_again_s']:.4f}s); warm (work_hint carry) "
         + ", ".join(f"{t:.4f}s" for t in step["warm_s"]) + " = "
         + ", ".join(f"{r:.2f}" for r in step["mrays"]) + f" Mrays/s; launches {step['launches']}; "
@@ -776,6 +850,16 @@ def main() -> int:
         f"(bound {step['reverse_bound'][0]:.3f} by {step['reverse_bound'][1]}), reduction "
         f"{step['reduce_ms']:.3f} ms (bound {step['reduce_bound'][0]:.3f} by {step['reduce_bound'][1]}), "
         f"index_add_ {step['reduce_library_ms']:.3f} ms [{smi}]")
+    say(f"phase 7c reduction at full width: {stats['events']} events in {stats['chunks']} chunks, no sphere "
+        f"{stats['no_sphere_share']:.4f}, the most events one sphere takes in a chunk median "
+        f"{stats['heaviest_median']:.0f} max {stats['heaviest_max']}; bit-identical to the ordered plain "
+        f"reduction; {reduce_resources}; medians of 5 rounds in turns: "
+        + "; ".join(f"{label} pair {m['pair']:.4f} ms (chunks {m['chunks']:.4f}, partials {m['partials']:.4f})"
+                    for label, m in med.items())
+        + f"; bounds {step['reduce_bound'][0]:.4f} ms (the bytes its events need: 32 an event with no "
+        f"sphere, 64 the others; pair at {step['reduce_bound'][0] / mine['pair']:.1%}) and "
+        f"{step['reduce_bound_whole'][0]:.4f} ms (every event read whole, 64 bytes; pair at "
+        f"{step['reduce_bound_whole'][0] / mine['pair']:.1%}) [{smi}]")
     from ray_tracing_in_one_weekend_tpu_torch.examples import inverse_render
 
     demo_dir = REPO / "build" / "inverse_render"
@@ -885,20 +969,38 @@ def main() -> int:
     }, {
         "name": "grad_reduce",
         "route": "cuda",
-        "source": f"{PKG}/csrc/grad_kernel.cu",
+        "source": f"{PKG}/csrc/grad_kernel.cu (grad_reduce_chunks + grad_reduce_partials)",
         "replaces": "ray_tracing_in_one_weekend_tpu/ops/pallas_grad.py:476",
         "launches": step["launches"]["grad_reduce"],
         "max_abs_err": sub["reduce_abs_err"],
         "ms": sub["reduce_ms"],
         "plain_ms": sub["reduce_plain_ms"],
-        "tolerance": "rel L2 <= 1e-5 against index_add over the same events (summation order)",
+        "tolerance": "bit-identical to the ordered plain reduction (_reduce_events_ordered, torch.equal) at "
+                     "64x32, on 16384 cost-sorted bench lanes and at full width; rel L2 <= 1e-5 against "
+                     "index_add over the same events (summation order); max_abs_err against index_add",
         "bound_ms": sub["reduce_bound"][0],
         "bound_by": sub["reduce_bound"][1],
+        "bound_ms_whole_events": sub["reduce_bound_whole"][0],
         "library_ms": sub["reduce_library_ms"],
         "library": "one index_add_ of the events' 13 cotangent rows into [13, N]",
+        "shapes": "ms, plain_ms, bound_ms, library_ms on 16384 cost-sorted bench lanes; *_full_width and "
+                  "ms_chunks, ms_partials, parent_ms (medians of 5 rounds in turns) on the train step's events; "
+                  "bound_ms counts the bytes the events need (32 an event with no sphere, 64 the others), "
+                  "*_whole_events 64 bytes every event",
         "bound_ms_full_width": step["reduce_bound"][0],
+        "bound_ms_full_width_whole_events": step["reduce_bound_whole"][0],
         "ms_full_width": step["reduce_ms"],
         "library_ms_full_width": step["reduce_library_ms"],
+        "ms_pair_full_width": mine["pair"],
+        "ms_chunks": mine["chunks"],
+        "ms_partials": mine["partials"],
+        "parent_ms": med["parent"]["pair"] if "parent" in med else None,
+        "parent_ms_chunks": med["parent"]["chunks"] if "parent" in med else None,
+        "parent_ms_partials": med["parent"]["partials"] if "parent" in med else None,
+        "chunks_blocks_per_sm": reduce_blocks,
+        "no_sphere_share": stats["no_sphere_share"],
+        "heaviest_sphere_chunk_median": stats["heaviest_median"],
+        "heaviest_sphere_chunk_max": stats["heaviest_max"],
         "rel_l2": sub["reduce_err"],
     }, *(probe_entry(name, v, readings.get(name)) for name, v in probes.items())]}))
     say(json.dumps({"ok": True, "device": {

@@ -38,9 +38,9 @@
 // in pixel order and follow sample by sample, bounce by bounce. The replay
 // takes the forward's decisions, so a lane fills exactly its range; if it
 // would not, the replay raises a flag and the wrapper refuses the records.
-// grad_reduce_chunks then sums fixed chunks of events in order, thread t
-// owning sphere t, and grad_reduce_partials sums the chunks in order. The
-// result is the same bits for any lane order and any tile.
+// grad_reduce_chunks then sums fixed chunks of events in order, and
+// grad_reduce_partials sums the chunks in order (see the reduction's note
+// below). The result is the same bits for any lane order and any tile.
 //
 // Bounds on this card (counted from this run's bounces by chip_smoke.py):
 // the replay by operations, the forward's sweep of N x 15 flops per bounce
@@ -67,11 +67,13 @@ constexpr int MAX_GRAD_TILE = 512;
 // end: the path goes on after this bounce, ends without radiance (absorbed,
 // or at the depth limit), or ends at the sky (a miss).
 constexpr int END_NONE = 0, END_DARK = 1, END_SKY = 2;
-// Events per reduction block, and per shared-memory stage within it. Fixed:
-// the summation order must not depend on the launch.
+// Events per reduction block: fixed, since the summation order must not
+// depend on the launch. Per shared-memory stage within it: four a lane of
+// a warp (the stage does not enter the order).
 constexpr int CHUNK_EVENTS = 8192;
-constexpr int STAGE_EVENTS = 256;
-// grad_reduce_chunks: one thread a sphere, in one block.
+constexpr int STAGE_EVENTS = 128;
+// The largest scene the reduction takes (its accumulators then take 52 KB
+// of shared memory a block).
 constexpr int MAX_REDUCE_SPHERES = 1024;
 // flags[0]: a lane had more bounces than its slot range; flags[1]: fewer.
 constexpr int FLAG_OVER = 0, FLAG_UNDER = 1;
@@ -226,58 +228,275 @@ __global__ void __launch_bounds__(MAX_GRAD_TILE)
     }
 }
 
-// Sum events [CHUNK_EVENTS * b, CHUNK_EVENTS * (b + 1)) in order: thread t
-// owns sphere t. Writes the chunk's [16, n_spheres] partial.
-__global__ void grad_reduce_chunks(const float4* __restrict__ events, long long n_events, int n_spheres,
-                                   float* __restrict__ partials) {
-    __shared__ float4 s_ev[4 * STAGE_EVENTS];
-    const int t = threadIdx.x;
-    float acc[13];
-    for (int r = 0; r < 13; ++r) acc[r] = 0.0f;
-    const long long c0 = (long long)blockIdx.x * CHUNK_EVENTS;
-    const long long c1 = min(c0 + CHUNK_EVENTS, n_events);
-    for (long long e0 = c0; e0 < c1; e0 += STAGE_EVENTS) {
-        const int m = (int)min((long long)STAGE_EVENTS, c1 - e0);
-        __syncthreads();
-        for (int k = t; k < 4 * m; k += blockDim.x) s_ev[k] = events[4 * e0 + k];
-        __syncthreads();
-        if (t < n_spheres) {
-            for (int e = 0; e < m; ++e) {
-                const float4 w0 = s_ev[4 * e];
-                if (__float_as_int(w0.x) != t) continue;
-                const float4 w1 = s_ev[4 * e + 1], w2 = s_ev[4 * e + 2], w3 = s_ev[4 * e + 3];
-                acc[0] += w0.y;
-                acc[1] += w0.z;
-                acc[2] += w0.w;
-                acc[3] += w1.x;
-                acc[4] += w1.y;
-                acc[5] += w1.z;
-                acc[6] += w1.w;
-                acc[7] += w2.x;
-                acc[8] += w2.y;
-                acc[9] += w2.z;
-                acc[10] += w2.w;
-                acc[11] += w3.x;
-                acc[12] += w3.y;
-            }
-        }
-    }
-    if (t >= n_spheres) return;
-    // Event rows -> P rows (r^2, mat and active, rows 4, 10, 11, stay 0).
-    const int rows[13] = {0, 1, 2, 3, 5, 6, 7, 8, 9, 12, 13, 14, 15};
-    float* out = partials + (size_t)blockIdx.x * P_ROWS * n_spheres;
-    for (int r = 0; r < P_ROWS; ++r) out[(size_t)r * n_spheres + t] = 0.0f;
-    for (int r = 0; r < 13; ++r) out[(size_t)rows[r] * n_spheres + t] = acc[r];
+// ---------------------------------------------------------------------------
+// The reduction: events -> [16, N], in an order fixed by the event index.
+//
+// Replaces the one-hot scatter of ray_tracing_in_one_weekend_tpu/ops/
+// pallas_grad.py::_bwd_kernel (:476-498), an MXU matmul of each bounce's
+// cotangent by the winner's one-hot row. Here the order is the contract:
+// chunk c is events [CHUNK_EVENTS * c, CHUNK_EVENTS * (c + 1)); its partial
+// for (sphere, row) is ((+0 + e0) + e1) + ... over that sphere's events in
+// increasing index, and the result is ((+0 + p0) + p1) + ... over chunks in
+// order. So the gradient is the same bits for any lane order, any tile and
+// any launch shape.
+//
+// Bound by bytes: each 64-byte event read once (at the bench preset 26.5M
+// events, 1.7 GB: 0.51 ms at 3.35 TB/s). The design's answer: work per
+// event, not per sphere x event. A block takes one chunk. It stages
+// STAGE_EVENTS events at a time in a ring in shared memory by cp.async,
+// the next stage in flight while one is added, and copies the stage's
+// winners apart. Warp w owns the spheres s with s % REDUCE_WARPS == w:
+// ballots over the winners list its own events in index order, and it
+// adds each with one lane a cotangent row (13 independent folds, so the
+// heaviest sphere's serial chain is one add an event), a batch of events'
+// loads in flight before their adds. The sphere being added to stays in
+// registers; its 13 accumulators go to shared memory when the warp turns
+// to another sphere, and start at +0. What bounds the kernel is then the
+// chunk's heaviest sphere, the ground in the image's lower half (2,487
+// events of a chunk's 8,192 at the median, bench preset): its events
+// are listed apart and added last, in a loop without a branch, so the
+// warp turns to another sphere at most a few times a stage. Every add of
+// a sphere's events is made in increasing index, on the same values, as
+// the contract orders it: the bits are those of _reduce_events_ordered
+// (ops/cuda_grad.py).
+// ---------------------------------------------------------------------------
+
+constexpr int EVENT_ROWS = 13;  // cotangent words 1-13 of an event
+constexpr int REDUCE_THREADS = 256;
+constexpr int REDUCE_WARPS = REDUCE_THREADS / 32;
+constexpr int STAGE_LOADS = 4 * STAGE_EVENTS / REDUCE_THREADS;  // float4 a thread a stage
+constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int REDUCE_BUFFERS = 2;  // stages in the ring: one in flight while one is added
+constexpr int FOLD_BATCH = 4;      // events a warp loads before adding them
+// A warp's list: a stage's events, the hot ones from a multiple of 4, and
+// the over-read of the batch after the last.
+constexpr int LIST_LEN = STAGE_EVENTS + 4 + 2 * FOLD_BATCH;
+static_assert(FOLD_BATCH % 4 == 0 && STAGE_EVENTS == 4 * 32, "list entries: int4 loads; four events a lane");
+static_assert(STAGE_LOADS * REDUCE_THREADS == 4 * STAGE_EVENTS, "reduction stage");
+static_assert((REDUCE_WARPS & (REDUCE_WARPS - 1)) == 0, "sphere owners by a mask");
+
+// Shared memory of a grad_reduce_chunks block: the ring of staged events,
+// the stage's winners, each warp's list of its own events of the stage,
+// then each sphere's 13 accumulators.
+__host__ __device__ constexpr size_t reduce_smem_bytes(int n_spheres) {
+    return sizeof(float4) * 4 * STAGE_EVENTS * REDUCE_BUFFERS + sizeof(int) * (STAGE_EVENTS + LIST_LEN * REDUCE_WARPS) +
+           sizeof(float) * (size_t)n_spheres * EVENT_ROWS;
 }
 
-// out[i] = sum of partials[c][i] over chunks c in order.
-__global__ void grad_reduce_partials(const float* __restrict__ partials, int n_chunks, int n_out,
-                                     float* __restrict__ out) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n_out) return;
+// 16 bytes from device memory to shared memory, without registers.
+__device__ __forceinline__ void copy16(float4* smem, const float4* gmem) {
+    const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+}
+
+// Stage k's events go to ring slot k % REDUCE_BUFFERS by cp.async, one
+// commit group a stage (empty past the chunk's end).
+__device__ __forceinline__ void fetch_stage(float4* ring, const float4* src, int k, int n, int n_stages, int t) {
+    if (k < n_stages) {
+        const int words = 4 * min(STAGE_EVENTS, n - k * STAGE_EVENTS);
+        float4* dst = ring + 4 * STAGE_EVENTS * (k % REDUCE_BUFFERS);
+#pragma unroll
+        for (int j = 0; j < STAGE_LOADS; ++j) {
+            const int i = t + j * REDUCE_THREADS;
+            if (i < words) copy16(dst + i, src + 4 * STAGE_EVENTS * k + i);
+        }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Entries q .. q + FOLD_BATCH - 1 of a warp's list and their events' row
+// r (positions masked to the stage, so a stale entry reads inside it).
+__device__ __forceinline__ void load_batch(const int* list, const float* ev, int q, int r, int (&x)[FOLD_BATCH],
+                                           float (&v)[FOLD_BATCH]) {
+#pragma unroll
+    for (int i = 0; i < FOLD_BATCH; i += 4) {
+        const int4 l4 = *reinterpret_cast<const int4*>(list + q + i);
+        x[i] = l4.x;
+        x[i + 1] = l4.y;
+        x[i + 2] = l4.z;
+        x[i + 3] = l4.w;
+    }
+#pragma unroll
+    for (int i = 0; i < FOLD_BATCH; ++i) v[i] = ev[16 * (x[i] & (STAGE_EVENTS - 1)) + 1 + r];
+}
+
+// The warp's accumulator turns from sphere `cur` to sphere `s` (-1: none):
+// the old one's rows go to shared memory, the new one's come from there.
+__device__ __forceinline__ void turn_to(float* acc, int& cur, float& a, int s, int lane) {
+    if (cur >= 0 && lane < EVENT_ROWS) acc[EVENT_ROWS * cur + lane] = a;
+    cur = s;
+    if (s >= 0) a = acc[EVENT_ROWS * s + min(lane, EVENT_ROWS - 1)];
+}
+
+// Chunk blockIdx.x's partial, [EVENT_ROWS, n_spheres] at partials +
+// blockIdx.x * EVENT_ROWS * n_spheres. A winner outside [0, n_spheres)
+// (-1: no sphere) adds nothing.
+__global__ void __launch_bounds__(REDUCE_THREADS)
+    grad_reduce_chunks(const float4* __restrict__ events, long long n_events, int n_spheres,
+                       float* __restrict__ partials) {
+    extern __shared__ float4 s_ring[];                                 // [REDUCE_BUFFERS][4 * STAGE_EVENTS]
+    int* s_win = reinterpret_cast<int*>(s_ring + 4 * STAGE_EVENTS * REDUCE_BUFFERS);  // [STAGE_EVENTS]
+    int* s_list = s_win + STAGE_EVENTS;                                // [REDUCE_WARPS][LIST_LEN]
+    float* s_acc = reinterpret_cast<float*>(s_list + LIST_LEN * REDUCE_WARPS);  // [n_spheres][EVENT_ROWS]
+    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+    for (int i = t; i < EVENT_ROWS * n_spheres; i += REDUCE_THREADS) s_acc[i] = 0.0f;
+
+    const long long c0 = (long long)blockIdx.x * CHUNK_EVENTS;
+    const int n = (int)min((long long)CHUNK_EVENTS, n_events - c0);
+    const int n_stages = (n + STAGE_EVENTS - 1) / STAGE_EVENTS;
+    const float4* src = events + 4 * c0;
+    for (int k = 0; k < REDUCE_BUFFERS - 1; ++k) fetch_stage(s_ring, src, k, n, n_stages, t);
+    // The sphere this warp adds to, and its accumulator (row r on lane r;
+    // lanes 13-31 repeat row 12 and store nothing).
+    const int r = min(lane, EVENT_ROWS - 1);
+    int cur = -1;
+    float a = 0.0f;
+    int* list = s_list + LIST_LEN * warp;
+    int hot = -1;
+    for (int k = 0; k < n_stages; ++k) {
+        const int m = min(STAGE_EVENTS, n - k * STAGE_EVENTS);
+        const float4* s_ev = s_ring + 4 * STAGE_EVENTS * (k % REDUCE_BUFFERS);
+        asm volatile("cp.async.wait_group %0;\n" ::"n"(REDUCE_BUFFERS - 2));  // this thread's copies of stage k
+        // Every copy of stage k has landed, and every warp is done with stage
+        // k - 1: its ring slot takes stage k + REDUCE_BUFFERS - 1.
+        __syncthreads();
+        if (t < m) s_win[t] = __float_as_int(s_ev[4 * t].x);
+        fetch_stage(s_ring, src, k + REDUCE_BUFFERS - 1, n, n_stages, t);
+        __syncthreads();
+        const float* ev = reinterpret_cast<const float*>(s_ev);
+
+        // This warp's events of the stage in index order, in two lists:
+        // the others as (winner << 8) | position, then, from the next
+        // multiple of 4, those of sphere `hot` (the sphere its registers
+        // hold, as a rule the chunk's heaviest) as positions. The two
+        // lists share no sphere, so adding the others first and then the
+        // hot ones keeps every sphere's order. Lane l reads the winners of
+        // events 4l .. 4l + 3.
+        const int4 w4 = *reinterpret_cast<const int4*>(s_win + 4 * lane);
+        const int wv[4] = {w4.x, w4.y, w4.z, w4.w};
+        unsigned hot_bits[4], other_bits[4];
+        int n_hot = 0, n_other = 0, hot_below = 0, other_below = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const bool own = 4 * lane + j < m && (unsigned)wv[j] < (unsigned)n_spheres &&
+                             (wv[j] & (REDUCE_WARPS - 1)) == warp;
+            hot_bits[j] = __ballot_sync(FULL_MASK, own && wv[j] == hot);
+            other_bits[j] = __ballot_sync(FULL_MASK, own && wv[j] != hot);
+            const unsigned below = (1u << lane) - 1u;
+            n_hot += __popc(hot_bits[j]);
+            n_other += __popc(other_bits[j]);
+            hot_below += __popc(hot_bits[j] & below);
+            other_below += __popc(other_bits[j] & below);
+        }
+        const int hot_at = (n_other + 3) & ~3;  // int4 loads of the hot list
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            if (other_bits[j] >> lane & 1u) list[other_below++] = (wv[j] << 8) | (4 * lane + j);
+            if (hot_bits[j] >> lane & 1u) list[hot_at + hot_below++] = 4 * lane + j;
+        }
+        __syncwarp();
+        // FOLD_BATCH at a time, the next batch's list entries and values
+        // loaded while this one's are added, in index order (entries past
+        // the list's end are stale and not added): the others, turning the
+        // registers from sphere to sphere, then the hot ones without a
+        // branch.
+        int x[FOLD_BATCH];
+        float v[FOLD_BATCH];
+        load_batch(list, ev, 0, r, x, v);
+        for (int q = 0; q < n_other; q += FOLD_BATCH) {
+            int xn[FOLD_BATCH];
+            float vn[FOLD_BATCH];
+            load_batch(list, ev, q + FOLD_BATCH, r, xn, vn);
+#pragma unroll
+            for (int i = 0; i < FOLD_BATCH; ++i) {
+                if (q + i < n_other) {
+                    if ((x[i] >> 8) != cur) turn_to(s_acc, cur, a, x[i] >> 8, lane);
+                    a += v[i];
+                }
+            }
+#pragma unroll
+            for (int i = 0; i < FOLD_BATCH; ++i) {
+                x[i] = xn[i];
+                v[i] = vn[i];
+            }
+        }
+        if (n_hot > 0) {
+            if (cur != hot) turn_to(s_acc, cur, a, hot, lane);
+            load_batch(list, ev, hot_at, r, x, v);
+            for (int q = 0; q < n_hot; q += FOLD_BATCH) {
+                int xn[FOLD_BATCH];
+                float vn[FOLD_BATCH];
+                load_batch(list, ev, hot_at + q + FOLD_BATCH, r, xn, vn);
+#pragma unroll
+                for (int i = 0; i < FOLD_BATCH; ++i)
+                    if (q + i < n_hot) a += v[i];
+#pragma unroll
+                for (int i = 0; i < FOLD_BATCH; ++i) {
+                    x[i] = xn[i];
+                    v[i] = vn[i];
+                }
+            }
+        }
+        // The next stage's hot sphere: this one's while it holds most of
+        // the warp's events, else the sphere of the first other event.
+        if (n_other > n_hot) hot = list[0] >> 8;
+    }
+    turn_to(s_acc, cur, a, -1, lane);
+    __syncthreads();
+    float* out = partials + (size_t)blockIdx.x * EVENT_ROWS * n_spheres;
+    for (int i = t; i < EVENT_ROWS * n_spheres; i += REDUCE_THREADS) {
+        const int row = i / n_spheres, s = i - row * n_spheres;
+        out[i] = s_acc[EVENT_ROWS * s + row];
+    }
+}
+
+// The fold over chunks: out[row][s] = ((+0 + p_0) + p_1) + ... over the
+// chunks' partials of (row, s) in chunk order; rows 4, 10 and 11 (r^2, mat
+// and active: no event carries them) are +0. One thread an output stays,
+// since the fold is serial; a block takes 32 columns of one row, and its 8
+// warps keep FOLD_ROUND partials a column in flight while warp 0 adds the
+// last round's from shared memory.
+constexpr int FOLD_THREADS = 256;
+constexpr int FOLD_UNROLL = 16;
+constexpr int FOLD_ROUND = FOLD_THREADS / 32 * FOLD_UNROLL;
+
+__global__ void __launch_bounds__(FOLD_THREADS)
+    grad_reduce_partials(const float* __restrict__ partials, int n_chunks, int n_spheres, float* __restrict__ out) {
+    __shared__ float s_buf[FOLD_ROUND][32];
+    const int row = blockIdx.y, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int col = blockIdx.x * 32 + lane;
+    // P row -> event row (words 1-13 of an event hold rows 0-3, 5-9, 12-15).
+    const int r = row < 4 ? row : row == 4 ? -1 : row < 10 ? row - 1 : row < 12 ? -1 : row - 3;
+    if (r < 0) {
+        if (warp == 0 && col < n_spheres) out[(size_t)row * n_spheres + col] = 0.0f;
+        return;
+    }
+    const bool live = col < n_spheres;
+    const float* src = partials + (size_t)r * n_spheres + col;
+    const size_t stride = (size_t)EVENT_ROWS * n_spheres;
+    float v[FOLD_UNROLL];
+    auto fetch = [&](int c0) {
+#pragma unroll
+        for (int u = 0; u < FOLD_UNROLL; ++u) {
+            const int c = c0 + warp * FOLD_UNROLL + u;
+            v[u] = live && c < n_chunks ? src[c * stride] : 0.0f;
+        }
+    };
+    fetch(0);
     float s = 0.0f;
-    for (int c = 0; c < n_chunks; ++c) s += partials[(size_t)c * n_out + i];
-    out[i] = s;
+    for (int c0 = 0; c0 < n_chunks; c0 += FOLD_ROUND) {
+        __syncthreads();  // warp 0 has added the last round
+#pragma unroll
+        for (int u = 0; u < FOLD_UNROLL; ++u) s_buf[warp * FOLD_UNROLL + u][lane] = v[u];
+        __syncthreads();
+        if (c0 + FOLD_ROUND < n_chunks) fetch(c0 + FOLD_ROUND);
+        if (warp == 0) {
+            const int k = min(FOLD_ROUND, n_chunks - c0);
+#pragma unroll 8
+            for (int i = 0; i < k; ++i) s += s_buf[i][lane];
+        }
+    }
+    if (warp == 0 && live) out[(size_t)row * n_spheres + col] = s;
 }
 
 // The largest scene the replay's sweep table takes beside its static camera
@@ -322,24 +541,41 @@ extern "C" int rt_grad_reverse(const void* table, const void* cam, const void* g
     return (int)cudaGetLastError();
 }
 
+static cudaError_t reduce_smem_ready(int n_spheres) {
+    return cudaFuncSetAttribute(grad_reduce_chunks, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)reduce_smem_bytes(n_spheres));
+}
+
 // Reduce `n_events` event records into out [16, n_spheres] through partials
-// [ceil(n_events / CHUNK_EVENTS), 16, n_spheres]. Returns cudaGetLastError(),
-// or cudaErrorInvalidValue for more spheres than one block has threads.
+// [ceil(n_events / CHUNK_EVENTS), 13, n_spheres]. Returns cudaGetLastError(),
+// or cudaErrorInvalidValue for more spheres than the reduction takes.
 extern "C" int rt_grad_reduce(const void* events, long long n_events, int n_spheres, void* partials, void* out,
                               void* stream) {
-    if (n_spheres <= 0 || n_spheres > MAX_REDUCE_SPHERES) return (int)cudaErrorInvalidValue;
+    if (n_spheres <= 0 || n_spheres > MAX_REDUCE_SPHERES || n_events < 0) return (int)cudaErrorInvalidValue;
     const int n_chunks = (int)((n_events + CHUNK_EVENTS - 1) / CHUNK_EVENTS);
     if (n_chunks > 0) {
-        const int threads = (n_spheres + 31) / 32 * 32;
-        grad_reduce_chunks<<<n_chunks, threads, 0, (cudaStream_t)stream>>>((const float4*)events, n_events,
-                                                                           n_spheres, (float*)partials);
+        const cudaError_t set = reduce_smem_ready(n_spheres);
+        if (set != cudaSuccess) return (int)set;
+        grad_reduce_chunks<<<n_chunks, REDUCE_THREADS, reduce_smem_bytes(n_spheres), (cudaStream_t)stream>>>(
+            (const float4*)events, n_events, n_spheres, (float*)partials);
         const int err = (int)cudaGetLastError();
         if (err != 0) return err;
     }
-    const int n_out = P_ROWS * n_spheres;
-    grad_reduce_partials<<<(n_out + 255) / 256, 256, 0, (cudaStream_t)stream>>>((const float*)partials,
-                                                                               n_chunks, n_out, (float*)out);
+    grad_reduce_partials<<<dim3((n_spheres + 31) / 32, P_ROWS), FOLD_THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)partials, n_chunks, n_spheres, (float*)out);
     return (int)cudaGetLastError();
+}
+
+// Resident grad_reduce_chunks blocks an SM holds for a scene of
+// `n_spheres`, or minus the CUDA error.
+extern "C" int rt_reduce_blocks_per_sm(int n_spheres) {
+    if (n_spheres <= 0 || n_spheres > MAX_REDUCE_SPHERES) return -(int)cudaErrorInvalidValue;
+    cudaError_t err = reduce_smem_ready(n_spheres);
+    int blocks = 0;
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, grad_reduce_chunks, REDUCE_THREADS,
+                                                            reduce_smem_bytes(n_spheres));
+    return err == cudaSuccess ? blocks : -(int)err;
 }
 
 // The hand-written adjoint alone, one thread per recorded bounce: how the
@@ -388,3 +624,12 @@ extern "C" int rt_max_grad_tile() { return MAX_GRAD_TILE; }
 extern "C" long long rt_chunk_events() { return CHUNK_EVENTS; }
 
 extern "C" int rt_reduce_max_spheres() { return MAX_REDUCE_SPHERES; }
+
+// The reduction's walk inside a chunk (no part of its order): events a
+// shared-memory stage, warps that own spheres, chunks a round of the fold
+// over chunks. tests/test_torch_reduce.py emulates the walk with them.
+extern "C" int rt_reduce_stage_events() { return STAGE_EVENTS; }
+
+extern "C" int rt_reduce_warps() { return REDUCE_WARPS; }
+
+extern "C" int rt_reduce_fold_round() { return FOLD_ROUND; }

@@ -17,7 +17,7 @@ walk and its reduction; `chain_fma`,
 tensors, allocates the outputs, launches on PyTorch's current stream,
 raises if the launch failed, and counts its launches in `LAUNCHES`.
 `blocks_per_sm` reads the occupancy of the three kernels that sweep the
-scene from the CUDA runtime.
+scene, and of the reduction's chunk kernel, from the CUDA runtime.
 """
 
 from __future__ import annotations
@@ -153,13 +153,15 @@ def load() -> ctypes.CDLL:
             ptr,  # stream
         ]
         # Each kernel's largest scene (its shared-memory sweep table, or the
-        # reduction's one thread a sphere) and its resident blocks an SM.
+        # reduction's accumulators), the reduction's walk, and each kernel's
+        # resident blocks an SM.
         for name in ("rt_max_tile", "rt_render_max_spheres", "rt_replay_max_spheres",
-                     "rt_sweep_probe_max_spheres", "rt_reduce_max_spheres"):
+                     "rt_sweep_probe_max_spheres", "rt_reduce_max_spheres", "rt_reduce_stage_events",
+                     "rt_reduce_warps", "rt_reduce_fold_round"):
             getattr(lib, name).restype = i32
             getattr(lib, name).argtypes = []
         for name, args in (("rt_render_blocks_per_sm", [i32, i32]), ("rt_replay_blocks_per_sm", [i32, i32]),
-                           ("rt_sweep_probe_blocks_per_sm", [i32])):
+                           ("rt_sweep_probe_blocks_per_sm", [i32]), ("rt_reduce_blocks_per_sm", [i32])):
             getattr(lib, name).restype = i32
             getattr(lib, name).argtypes = args
         lib.rt_grad_replay.restype = i32
@@ -226,12 +228,15 @@ def _check_spheres(n_spheres, most):
 
 def blocks_per_sm(kernel: str, tile: int, n_spheres: int) -> int:
     """Resident blocks an SM holds of `kernel` ("render_kernel",
-    "grad_replay" or "sweep_probe", whose block is always 128 threads) at
-    `tile` threads a block for a scene of `n_spheres`: the CUDA runtime's
-    occupancy from the kernel's registers and shared memory."""
+    "grad_replay", "sweep_probe", whose block is always 128 threads, or
+    "grad_reduce_chunks", always 256) at `tile` threads a block for a scene
+    of `n_spheres`: the CUDA runtime's occupancy from the kernel's
+    registers and shared memory."""
     lib = load()
     if kernel == "sweep_probe":
         n = lib.rt_sweep_probe_blocks_per_sm(n_spheres)
+    elif kernel == "grad_reduce_chunks":
+        n = lib.rt_reduce_blocks_per_sm(n_spheres)
     else:
         fn = {"render_kernel": lib.rt_render_blocks_per_sm, "grad_replay": lib.rt_replay_blocks_per_sm}[kernel]
         n = fn(tile, n_spheres)
@@ -436,19 +441,22 @@ def grad_reverse(table, cam_vec, replay: Replay, g, tile):
 def grad_reduce(events, n_spheres):
     """The fixed-order reduction of `csrc/grad_kernel.cu` on CUDA tensors:
     events [E, 16] f32 from `grad_reverse` -> [16, n_spheres] f32, each
-    sphere's cotangent summed over its events. The same bits for the same
-    events, run after run."""
+    sphere's cotangent summed over its events in the order of
+    `ops/cuda_grad.py::_reduce_events_ordered` (chunks of `rt_chunk_events()`
+    events, each sphere's events in index order from +0, then the chunks in
+    order), so the same events give the same bits, run after run. Winners
+    outside [0, n_spheres) add nothing; rows 4, 10 and 11 are +0."""
     device = events.device
     if device.type != "cuda":
         raise ValueError(f"grad_reduce runs on CUDA tensors, got {device}")
     n_events = events.shape[0] if events.dim() == 2 else -1
     _check_tensor("events", events, torch.float32, (n_events, 16), device)
     lib = load()
-    most = lib.rt_reduce_max_spheres()  # one thread a sphere, in one block
+    most = lib.rt_reduce_max_spheres()
     if not 0 < n_spheres <= most:
         raise ValueError(f"{n_spheres} spheres: the reduction takes at most {most}")
     n_chunks = -(-n_events // lib.rt_chunk_events())
-    partials = torch.empty((max(n_chunks, 1), 16, n_spheres), dtype=torch.float32, device=device)
+    partials = torch.empty((max(n_chunks, 1), 13, n_spheres), dtype=torch.float32, device=device)
     out = torch.empty((16, n_spheres), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         err = lib.rt_grad_reduce(events.data_ptr(), n_events, n_spheres, partials.data_ptr(),

@@ -269,13 +269,54 @@ def _grad_pass_plain(p_mat, cam_vec, scalars, pix, g, spp, max_depth):
 _EVENT_ROWS = (0, 1, 2, 3, 5, 6, 7, 8, 9, 12, 13, 14, 15)
 
 
+# Events per chunk of the backward's reduction (`build.grad_reduce`, the
+# kernel's CHUNK_EVENTS): its summation order is fixed by it.
+CHUNK_EVENTS = 8192
+# The reduction kernel's walk inside a chunk (csrc/grad_kernel.cu: events a
+# shared-memory stage, warps that own spheres, chunks a round of the fold
+# over chunks). They do not enter the order; the tests emulate the walk
+# with them, and the card's tests hold them to the library's.
+REDUCE_STAGE_EVENTS, REDUCE_WARPS, REDUCE_FOLD_ROUND = 128, 8, 128
+
+
 def _reduce_events_plain(events, n_spheres):
     """The plain version of the backward's reduction: events
     [E, 16] (word 0 the winner as int32 bits, -1 for none) -> [16, N]."""
     idx = events[:, 0].contiguous().view(torch.int32).to(torch.int64)
-    keep = idx >= 0
+    keep = (idx >= 0) & (idx < n_spheres)
     out = torch.zeros(P_ROWS, n_spheres, dtype=torch.float32, device=events.device)
     out[list(_EVENT_ROWS)] = out[list(_EVENT_ROWS)].index_add(1, idx[keep], events[keep, 1:14].T)
+    return out
+
+
+def _reduce_events_ordered(events, n_spheres):
+    """The backward's reduction in the kernel's exact order, in plain
+    PyTorch: events [E, 16] -> [16, N], the bits of `build.grad_reduce`.
+
+    Chunk c is events [CHUNK_EVENTS * c, CHUNK_EVENTS * (c + 1)). Its
+    partial of (row, sphere) is ((+0 + e0) + e1) + ... over that sphere's
+    events in increasing index; the result is ((+0 + p0) + p1) + ... over
+    the chunks in order. Step p adds the p-th event of every chunk into its
+    chunk's accumulator, one event a chunk, so each add is one float32 add.
+    Winners outside [0, N) add nothing (they go to a spare column)."""
+    dev = events.device
+    n_events = events.shape[0]
+    n_chunks = -(-n_events // CHUNK_EVENTS)
+    pad = n_chunks * CHUNK_EVENTS - n_events
+    idx = events[:, 0].contiguous().view(torch.int32).to(torch.int64)
+    idx = torch.where((idx >= 0) & (idx < n_spheres), idx, n_spheres)
+    idx = torch.cat([idx, idx.new_full((pad,), n_spheres)]).view(n_chunks, CHUNK_EVENTS)
+    vals = torch.cat([events[:, 1:14], events.new_zeros(pad, 13)]).view(n_chunks, CHUNK_EVENTS, 13)
+    acc = torch.zeros(n_chunks, 13, n_spheres + 1, dtype=torch.float32, device=dev)
+    chunks = torch.arange(n_chunks, device=dev)
+    for p in range(CHUNK_EVENTS if n_chunks else 0):
+        w = idx[:, p]
+        acc[chunks, :, w] = acc[chunks, :, w] + vals[:, p]
+    total = torch.zeros(13, n_spheres, dtype=torch.float32, device=dev)
+    for c in range(n_chunks):
+        total = total + acc[c, :, :n_spheres]
+    out = torch.zeros(P_ROWS, n_spheres, dtype=torch.float32, device=dev)
+    out[list(_EVENT_ROWS)] = total
     return out
 
 

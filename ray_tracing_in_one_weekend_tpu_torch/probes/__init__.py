@@ -8,6 +8,8 @@ needs one CUDA GPU with nvcc:
     python -m ray_tracing_in_one_weekend_tpu_torch.probes.device_idle
     python -m ray_tracing_in_one_weekend_tpu_torch.probes.grad_step
     python -m ray_tracing_in_one_weekend_tpu_torch.probes.sweep_variants [--parent DIR]
+    python -m ray_tracing_in_one_weekend_tpu_torch.probes.reduce_parts [--parent DIR]
+    python -m ray_tracing_in_one_weekend_tpu_torch.probes.cold_step [--parent DIR]
 
 Nothing on the render path imports them.
 """
@@ -152,6 +154,33 @@ def random_cotangent(shape, seed, device) -> torch.Tensor:
 
 def rel_l2(a, b) -> float:
     return float((a - b).double().norm() / b.double().norm().clamp_min(1e-30))
+
+
+def synthetic_events(n_events, n_spheres, seed, device=None) -> torch.Tensor:
+    """Backward events [E, 16] f32 in `build.grad_reverse`'s layout, from
+    numpy's generator `seed`, that reach every case of the reduction:
+    winners uniform over [0, n_spheres), except that 90% of chunk 1's
+    events go to sphere n_spheres - 1; 10% -1 (no sphere) and 1% out of
+    range (n_spheres, n_spheres + 5, -2, 2^30); cotangent words of both
+    signs over six decades, 5% -0.0 and 3% +0.0; words 14-15 zero."""
+    from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_grad import CHUNK_EVENTS
+
+    rng = np.random.default_rng(seed)
+    winner = rng.integers(0, n_spheres, n_events)
+    heavy = slice(CHUNK_EVENTS, 2 * CHUNK_EVENTS)
+    winner[heavy] = np.where(rng.random(winner[heavy].shape) < 0.9, n_spheres - 1, winner[heavy])
+    u = rng.random(n_events)
+    winner = np.where(u < 0.1, -1, winner)
+    winner = np.where((u >= 0.1) & (u < 0.11), rng.choice([n_spheres, n_spheres + 5, -2, 1 << 30], n_events),
+                      winner)
+    vals = (rng.standard_normal((n_events, 13)) * 10.0 ** rng.uniform(-3, 3, (n_events, 13))).astype(np.float32)
+    v = rng.random(vals.shape)
+    vals[v < 0.05] = -0.0
+    vals[(v >= 0.05) & (v < 0.08)] = 0.0
+    ev = np.zeros((n_events, 16), dtype=np.float32)
+    ev[:, 0] = winner.astype(np.int32).view(np.float32)
+    ev[:, 1:14] = vals
+    return torch.from_numpy(ev).to(device)
 
 
 def adjoint_errors(scene, cam, seed=0):

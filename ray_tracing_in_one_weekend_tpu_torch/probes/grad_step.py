@@ -4,10 +4,12 @@
 
 Runs `render_grads_cuda` on the bench preset (cover scene, 1200x800,
 10 spp, depth 50, zero target) with the work_hint carry: two warm-up
-steps, then `--reps` steps under torch.profiler. Prints the kernels with
+steps, `--reps` steps each timed alone by the host clock to a
+synchronize (best and median: the step time without the profiler), then
+`--reps` steps under torch.profiler. Prints the kernels with
 the most device time, the device time per step by part (the forward
-render, the backward's replay, its reverse walk and its reduction, the
-lane sorts, the rest),
+render, the backward's replay, its reverse walk, the reduction's chunk
+kernel and its fold over chunks, the lane sorts, the rest),
 the wall time per step, the device-busy time (the device events' own
 times, each once) and the idle share, 1 - busy / wall, and the peak
 device memory of a step. The wall time includes the profiler's overhead.
@@ -20,6 +22,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import statistics
 import sys
 import time
 
@@ -40,7 +43,8 @@ _PARTS = (
     ("forward render_kernel", ("render_kernel",)),
     ("backward replay grad_replay_kernel", ("grad_replay",)),
     ("backward reverse grad_reverse_kernel", ("grad_reverse",)),
-    ("reduction grad_reduce_*", ("grad_reduce",)),
+    ("reduction, chunks grad_reduce_chunks", ("grad_reduce_chunks",)),
+    ("reduction, fold over chunks grad_reduce_partials", ("grad_reduce_partials",)),
     ("sorts (argsort, permutations)", ("sort", "Sort", "radix", "Radix")),
 )
 
@@ -75,6 +79,14 @@ def main(argv=None) -> int:
 
     work = step(step(None))
     torch.cuda.synchronize()
+    alone = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        work = step(work)
+        torch.cuda.synchronize()
+        alone.append((time.perf_counter() - t0) * 1e3)
+    print(f"warm step alone, best / median of {reps}: {min(alone):.3f} / {statistics.median(alone):.3f} ms "
+          f"[{nvidia_smi()}]")
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()

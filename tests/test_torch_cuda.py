@@ -212,6 +212,47 @@ def _grad_inputs(scene, dev, tile=128):
     return p_mat, cam_vec, (0, 0, 0, n), pix, g, work
 
 
+# (n_events, n_spheres, winners): "mixed" as probes.synthetic_events makes
+# them, "none" every winner -1, "one" every event sphere n_spheres - 1's.
+_REDUCE_CASES = [
+    (0, 512, "mixed"), (1000, 512, "none"), (3 * 8192 + 77, 512, "one"), (3 * 8192 + 77, 1, "mixed"),
+    (3 * 8192 + 77, 512, "mixed"), (2 * 8192 + 5, 1024, "mixed"), (8192 + 128 * 3, 37, "mixed"),
+    (129, 512, "mixed"),
+]
+
+
+@pytest.mark.parametrize("n_events,n_spheres,winners", _REDUCE_CASES)
+def test_grad_reduce_equals_ordered_plain(dev, n_events, n_spheres, winners):
+    """`grad_reduce` is `_reduce_events_ordered` bit for bit: empty input,
+    no winner, one sphere taking every event, 1, 37, 512 and 1024 spheres,
+    event counts that are no multiple of the stage (128) or the chunk."""
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_grad as cg
+    from ray_tracing_in_one_weekend_tpu_torch.probes import synthetic_events
+
+    ev = synthetic_events(n_events, n_spheres, seed=n_events + n_spheres)
+    if winners != "mixed":
+        ev.view(torch.int32)[:, 0] = -1 if winners == "none" else n_spheres - 1
+    ev = ev.to(dev)
+    got = build.grad_reduce(ev, n_spheres)
+    want = cg._reduce_events_ordered(ev, n_spheres)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(build.grad_reduce(ev, n_spheres).view(torch.int32), got.view(torch.int32))
+    assert not got.view(torch.int32)[[4, 10, 11]].any()
+
+
+def test_chunk_events_match_the_kernel(dev):
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_grad as cg
+
+    lib = build.load()
+    assert lib.rt_chunk_events() == cg.CHUNK_EVENTS
+    walk = (lib.rt_reduce_stage_events(), lib.rt_reduce_warps(), lib.rt_reduce_fold_round())
+    assert walk == (cg.REDUCE_STAGE_EVENTS, cg.REDUCE_WARPS, cg.REDUCE_FOLD_ROUND)
+    assert build.blocks_per_sm("grad_reduce_chunks", 256, 1024) >= 1
+
+
 def test_replay_kernel_matches_plain_records(dev):
     """grad_replay_kernel's records against `_replay_records_plain` at
     64x32, spp 4, depth 8 on the cover scene: all 16 words bit-identical

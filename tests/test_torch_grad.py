@@ -12,6 +12,7 @@ off a small sphere amplifies it), and the [16, N] sums are taken in another
 order. The bounds below state the measured values and keep a margin.
 """
 
+import functools
 import os
 import subprocess
 import sys
@@ -264,6 +265,7 @@ def _words(t):
     return t.contiguous().view(torch.int32)
 
 
+@functools.lru_cache(maxsize=None)
 def _split(seed, cot_seed):
     """The plain split at 64x32, spp 4, depth 8 for render seed `seed` and
     a radiance cotangent from numpy seed `cot_seed`."""
@@ -336,20 +338,25 @@ def test_events_equal_for_sorted_and_permuted_lanes(split):
     assert torch.equal(_words(replay.records), _words(split["replay"].records))  # the records stay
 
 
+@pytest.mark.parametrize("reduce", ["index_add", "ordered"])
 @pytest.mark.parametrize("seeds", [(SEED, 5), (0, 0), (1, 1), (7, 2), (11, 9)])
-def test_plain_split_matches_grad_pass_plain(split, seeds):
+def test_plain_split_matches_grad_pass_plain(split, seeds, reduce):
     """The reduction of the split's events against `_grad_pass_plain` on
-    the same lanes, for five (render seed, cotangent seed) pairs: per field
-    within 2e-5 relative L2. Both add the same per-bounce cotangents in
-    float32, in another order, and the fields' sums cancel: at most 6.2e-6
-    over these pairs."""
+    the same lanes, for five (render seed, cotangent seed) pairs and both
+    plain reductions (`_reduce_events_plain`'s index_add, and
+    `_reduce_events_ordered`, the kernel's order over the events' chunks):
+    per field within 2e-5 relative L2. Both add the same per-bounce
+    cotangents in float32, in another order, and the fields' sums cancel:
+    at most 6.2e-6 over these pairs."""
     if seeds != (SEED, 5):
         split = _split(*seeds)
     p_mat = split["p_mat"]
     events = split["events"]
     winners = _words(events)[:, 0]
     assert 0 < int((winners >= 0).sum()) < events.shape[0]
-    split_grad = cg._reduce_events_plain(events, p_mat.shape[1])
+    assert events.shape[0] > 2 * cg.CHUNK_EVENTS  # the order spans more than two chunks
+    fn = {"index_add": cg._reduce_events_plain, "ordered": cg._reduce_events_ordered}[reduce]
+    split_grad = fn(events, p_mat.shape[1])
     plain = cg._grad_pass_plain(p_mat, split["cam_vec"], split["scalars"], split["pix"], split["g"], 4, 8)
     fs, fp = cg.params_vjp(split["scene"], split_grad), cg.params_vjp(split["scene"], plain)
     for k in cg.DIFF_FIELDS:
