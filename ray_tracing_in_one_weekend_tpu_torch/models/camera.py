@@ -18,6 +18,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from ray_tracing_in_one_weekend_tpu_torch.models.scene import resolve_device
 from ray_tracing_in_one_weekend_tpu_torch.ops import vecmath as vm
 
 _VECTORS = (
@@ -64,7 +65,7 @@ def make_camera(
     defocus_angle_degrees: float = 0.6,
     focus_dist: float = 10.0,
     aperture: float | None = None,
-    device=None,
+    device="cuda",
 ) -> Camera:
     """Derive the viewport constants exactly as the reference does
     (reference: src/gpu/camera.h:53-110). Defaults are the GPU tree's
@@ -73,6 +74,7 @@ def make_camera(
     (lens_radius = aperture/2, reference: src/cpu/camera.h:20-26).
     """
     image_height = max(1, int(image_width / aspect_ratio))
+    device = resolve_device(device)
 
     def vec(v):
         return torch.tensor(v, dtype=torch.float32, device=device)
@@ -129,10 +131,11 @@ def camera_from_numpy(
     image_height: int,
     samples_per_pixel: int,
     max_depth: int,
-    device=None,
+    device="cuda",
 ) -> Camera:
     """Build a Camera from numpy arrays keyed by field name — e.g. the
     arrays of a JAX `Camera`, so both packages render one camera."""
+    device = resolve_device(device)
     tensors = {
         f: torch.tensor(np.asarray(arrays[f]), dtype=torch.float32, device=device)
         for f in (*_VECTORS, "defocus_angle")

@@ -8,9 +8,11 @@ static slot count, material polymorphism is an integer `mat_type`, and
 rejected grid cells of the cover scene stay in the arrays with
 `active=False`.
 
-Scene builders take an explicit `device`. Random layouts draw from a
-numpy `Generator`; `scene_from_numpy` carries a JAX-built scene's arrays
-over unchanged.
+Scene builders build on the card (`device="cuda"`) unless the caller
+passes another device, such as `device="cpu"`; without a GPU the default
+raises rather than building on the CPU. Random layouts draw from a numpy
+`Generator`; `scene_from_numpy` carries a JAX-built scene's arrays over
+unchanged.
 """
 
 from __future__ import annotations
@@ -64,9 +66,20 @@ class Scene:
         return dataclasses.replace(self, **updates)
 
 
-def scene_from_numpy(arrays: Mapping[str, np.ndarray], device=None) -> Scene:
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device. A CUDA device without a GPU raises: the
+    builders never fall back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={str(device)!r} needs a CUDA GPU, and torch sees none "
+                           "(pass device='cpu' to build on the CPU)")
+    return device
+
+
+def scene_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> Scene:
     """Build a Scene from numpy arrays keyed by field name — e.g. the
     arrays of a JAX `Scene`, so both packages render one layout."""
+    device = resolve_device(device)
     dtypes = {"mat_type": torch.int32, "active": torch.bool}
     return Scene(
         **{
@@ -84,7 +97,7 @@ def from_spheres(
     fuzzes: Sequence[float] | None = None,
     iors: Sequence[float] | None = None,
     pad_to: int | None = None,
-    device=None,
+    device="cuda",
 ) -> Scene:
     """Build a Scene from per-sphere lists (test/bench convenience)."""
     n = len(radii)
@@ -112,7 +125,7 @@ def from_spheres(
     return scene_from_numpy(arrays, device)
 
 
-def single_sphere_scene(pad_to: int | None = None, device=None) -> Scene:
+def single_sphere_scene(pad_to: int | None = None, device="cuda") -> Scene:
     """One lambertian sphere in front of the camera + gradient sky."""
     return from_spheres(
         centers=[[0.0, 0.0, -1.0], [0.0, -100.5, -1.0]],
@@ -124,7 +137,7 @@ def single_sphere_scene(pad_to: int | None = None, device=None) -> Scene:
     )
 
 
-def three_sphere_scene(pad_to: int | None = None, device=None) -> Scene:
+def three_sphere_scene(pad_to: int | None = None, device="cuda") -> Scene:
     """Ground + lambertian / dielectric / metal trio — the
     metal+dielectric milestone scene (reference: archive/listing50 era)."""
     return from_spheres(
@@ -149,7 +162,7 @@ def three_sphere_scene(pad_to: int | None = None, device=None) -> Scene:
     )
 
 
-def cover_scene_reference(pad_to: int = COVER_SCENE_SLOTS, device=None) -> Scene:
+def cover_scene_reference(pad_to: int = COVER_SCENE_SLOTS, device="cuda") -> Scene:
     """The EXACT cover scene the reference CPU build renders.
 
     Replays `random_scene()` (reference: src/cpu/main.cc:32-76) draw for
@@ -235,7 +248,7 @@ def cover_scene_reference(pad_to: int = COVER_SCENE_SLOTS, device=None) -> Scene
 
 
 def cover_scene(
-    seed: int = 0, pad_to: int = COVER_SCENE_SLOTS, device=None
+    seed: int = 0, pad_to: int = COVER_SCENE_SLOTS, device="cuda"
 ) -> Scene:
     """The 488-sphere "cover scene" (reference: src/gpu/main.cu:18-75,
     src/cpu/main.cc:32-76), drawn from `np.random.default_rng(seed)`.

@@ -99,7 +99,7 @@ def small_camera(device, spp=4, max_depth=8, width=64, **kw):
 TIE_DUPLICATES = (3, 5, 8, 9, 10)
 
 
-def tie_scene(device=None):
+def tie_scene(device="cuda"):
     """Eleven slots with exact ties, a count that is no multiple of the
     sweep's group (8, or 4): slot 3 duplicates slot 2 and slot 5 slot 1
     (inside the first group of 8), slots 8, 9 and 10 duplicate slots 4, 6
@@ -131,7 +131,7 @@ def first_slots(scene, n: int):
     return scene.replace(**{f.name: getattr(scene, f.name)[:n] for f in dataclasses.fields(scene)})
 
 
-def tie_camera(device=None):
+def tie_camera(device="cuda"):
     """48x24, 2 spp, depth 6, looking down -z at `tie_scene`."""
     return make_camera(image_width=48, aspect_ratio=2.0, samples_per_pixel=2, max_depth=6,
                        lookfrom=(0.0, 0.0, 1.0), lookat=(0.0, 0.0, -1.0), defocus_angle_degrees=0.0,

@@ -68,7 +68,7 @@ PRESETS = {
 }
 
 
-def make_camera_from_config(config: RenderConfig, device=None):
+def make_camera_from_config(config: RenderConfig, device="cuda"):
     from ray_tracing_in_one_weekend_tpu_torch.models.camera import make_camera
 
     return make_camera(
@@ -87,7 +87,7 @@ def make_camera_from_config(config: RenderConfig, device=None):
     )
 
 
-def make_scene_from_config(config: RenderConfig, device=None):
+def make_scene_from_config(config: RenderConfig, device="cuda"):
     from ray_tracing_in_one_weekend_tpu_torch.models import scene as scene_lib
 
     if config.scene == "cover":

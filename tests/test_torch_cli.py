@@ -118,8 +118,8 @@ def test_port_never_imports_jax():
         "from ray_tracing_in_one_weekend_tpu_torch.probes import device_idle, fma_contraction\n"
         "from ray_tracing_in_one_weekend_tpu_torch.probes import kernel_parts, perf_probe\n"
         "from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import _compact\n"
-        "img = rt.render_cuda(rt.single_sphere_scene(pad_to=128), rt.make_camera("
-        "image_width=16, aspect_ratio=2.0, samples_per_pixel=1, max_depth=2))\n"
+        "img = rt.render_cuda(rt.single_sphere_scene(pad_to=128, device='cpu'), rt.make_camera("
+        "image_width=16, aspect_ratio=2.0, samples_per_pixel=1, max_depth=2, device='cpu'))\n"
         "assert img.shape == (8, 16, 3)\n"
         "cli.run(['--backend', 'torch', '--scene', 'single', '--width', '16', '--aspect', '2',"
         " '--spp', '1', '--max-depth', '2', '--no-output'])\n"

@@ -87,6 +87,19 @@ def test_passes_bit_identical(dev):
     assert torch.equal(cr.render_cuda(scene, cam, tile=256), one)
 
 
+def test_builders_default_to_the_card(dev):
+    """Called without `device`, the library builds on the card, so
+    render_cuda launches the kernel there."""
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+
+    scene, cam = scene_lib.cover_scene(0), make_camera(image_width=64, aspect_ratio=2.0,
+                                                       samples_per_pixel=1, max_depth=4)
+    assert scene.device.type == "cuda" and cam.center.device.type == "cuda"
+    before = build.LAUNCHES["render_kernel"]
+    assert cr.render_cuda(scene, cam).device.type == "cuda"
+    assert build.LAUNCHES["render_kernel"] > before
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
     from ray_tracing_in_one_weekend_tpu_torch.kernels import build
 

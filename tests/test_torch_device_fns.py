@@ -195,7 +195,7 @@ def test_sweep_ts_negative_disc_is_miss():
     kernel-level test): rays pointing away from every sphere — including
     the r^2 = -1 padding slots — yield T_MISS, no NaN escapes, and a
     head-on control ray still gets the analytic root."""
-    sc = scene_lib.single_sphere_scene(pad_to=128)  # sphere (0,0,-1) r=0.5
+    sc = scene_lib.single_sphere_scene(pad_to=128, device="cpu")  # sphere (0,0,-1) r=0.5
     p_mat = cr.pack_scene(sc)
     n, tile = p_mat.shape[1], 128
     o = torch.zeros((3, tile))

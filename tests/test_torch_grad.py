@@ -62,12 +62,13 @@ def _jax_scene():
 
 
 def _carry_scene(js):
-    return scene_lib.scene_from_numpy({f: np.asarray(getattr(js, f)) for f in FIELDS})
+    return scene_lib.scene_from_numpy({f: np.asarray(getattr(js, f)) for f in FIELDS}, device="cpu")
 
 
 def _carry_cam(jc):
     return camera_from_numpy({f: np.asarray(getattr(jc, f)) for f in CAM_FIELDS},
-                             jc.image_width, jc.image_height, jc.samples_per_pixel, jc.max_depth)
+                             jc.image_width, jc.image_height, jc.samples_per_pixel, jc.max_depth,
+                             device="cpu")
 
 
 def _zero_target(cam):
@@ -373,8 +374,8 @@ def test_cover_scene_gradients_finite_and_nonzero():
     """The 512-slot cover scene at 32x16, spp 1, depth 6 (the JAX kernel's
     test at tests/test_pallas_grad.py:184-200): every field finite, and
     each non-zero."""
-    sc = scene_lib.cover_scene(0)
-    cam = make_camera(image_width=32, aspect_ratio=2.0, samples_per_pixel=1, max_depth=6)
+    sc = scene_lib.cover_scene(0, device="cpu")
+    cam = make_camera(image_width=32, aspect_ratio=2.0, samples_per_pixel=1, max_depth=6, device="cpu")
     loss, grads = cg.render_grads_cuda(cg.scene_params(sc), sc, cam, _zero_target(cam), seed=0)
     assert np.isfinite(float(loss)) and float(loss) > 0.0
     for k, g in grads.items():

@@ -109,7 +109,7 @@ def test_sweep_plain_matches_jax_sweep_kernel():
     n = p_mat.shape[1]
     ours_scene = scene_lib.scene_from_numpy(
         {f: np.asarray(getattr(theirs_scene, f)) for f in
-         ("center", "radius", "albedo", "fuzz", "ior", "mat_type", "active")})
+         ("center", "radius", "albedo", "fuzz", "ior", "mat_type", "active")}, device="cpu")
     p_t = cr.pack_scene(ours_scene)
     np.testing.assert_array_equal(p_t.numpy(), p_mat)
     _, o, d = kp.inputs("sweep_probe", TILE, "cpu")
@@ -360,8 +360,8 @@ def test_schedules_report_on_the_cpu():
     schedule does the same lane-iterations, the last cold pass leaves no
     lane unfinished, occupancy is at most 1, and sorting by cost beats
     pixel order (measured 52% pixel order, 61% cold, 98% warm)."""
-    sc = scene_lib.cover_scene_reference()
-    cam = make_camera(image_width=64, aspect_ratio=2.0, samples_per_pixel=4, max_depth=8)
+    sc = scene_lib.cover_scene_reference(device="cpu")
+    cam = make_camera(image_width=64, aspect_ratio=2.0, samples_per_pixel=4, max_depth=8, device="cpu")
     lines = []
     s = pp.schedules(sc, cam, log=lines.append)
     assert len(s["passes"]) == cr.DEFAULT_PASSES == len(lines)

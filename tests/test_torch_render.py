@@ -35,7 +35,7 @@ CAM = dict(image_width=64, aspect_ratio=2.0, samples_per_pixel=2, max_depth=8)
 def _carried_cover_scene():
     """The JAX cover_scene(0) and the same layout in the port."""
     theirs = jax_scene.cover_scene(0)
-    ours = scene_lib.scene_from_numpy({f: np.asarray(getattr(theirs, f)) for f in FIELDS})
+    ours = scene_lib.scene_from_numpy({f: np.asarray(getattr(theirs, f)) for f in FIELDS}, device="cpu")
     return theirs, ours
 
 
@@ -84,7 +84,7 @@ def test_render_matches_jax_render_pallas():
     (measured 0.3-0.7% over seeds 0-2; bound 3%), 8x8 block-mean MAD
     < 0.02 and mean difference < 0.01."""
     theirs, ours = _carried_cover_scene()
-    jcam, tcam = jax_make_camera(**CAM), make_camera(**CAM)
+    jcam, tcam = jax_make_camera(**CAM), make_camera(**CAM, device="cpu")
     np.testing.assert_array_equal(cr.pack_camera(tcam).numpy(), pr.pack_camera(jcam))
     img_j = np.array(pr.render_pallas(theirs, jcam, seed=0, tile=128, interpret=True,
                                         warm=False, n_passes=1))
@@ -96,8 +96,8 @@ def test_render_matches_jax_render_pallas():
 
 
 def test_passes_budget_and_tile_change_no_pixel():
-    sc = scene_lib.three_sphere_scene(pad_to=128)
-    cam = make_camera(lookfrom=(0.0, 0.0, 0.5), lookat=(0.0, 0.0, -1.0), vfov_degrees=90.0,
+    sc = scene_lib.three_sphere_scene(pad_to=128, device="cpu")
+    cam = make_camera(device="cpu", lookfrom=(0.0, 0.0, 0.5), lookat=(0.0, 0.0, -1.0), vfov_degrees=90.0,
                       focus_dist=1.5, defocus_angle_degrees=0.0, **dict(CAM, samples_per_pixel=4))
     base = cr.render_cuda(sc, cam, n_passes=1)
     for kw in (dict(n_passes=4, budget=3), dict(n_passes=2, budget=1), dict(tile=256)):
@@ -113,7 +113,7 @@ def test_sample_offset_progressive_equality():
     """Rendering samples [0, 3) then [3, 5) and averaging equals one
     5-sample render, to float32 rounding of the re-associated mean."""
     _, sc = _carried_cover_scene()
-    cam = make_camera(**CAM)
+    cam = make_camera(**CAM, device="cpu")
     full = cr.render_cuda(sc, cam, spp=5)
     a = cr.render_cuda(sc, cam, spp=3)
     b = cr.render_cuda(sc, cam, spp=2, sample_offset=3)
@@ -125,8 +125,8 @@ def test_shadow_acne_negative_example():
     """Without the t_min epsilon (reference: src/cpu/main.cc:19),
     scattered rays re-hit their own sphere at rounding distance and the
     image darkens into speckle — as the JAX kernel's own test shows."""
-    sc = scene_lib.three_sphere_scene(pad_to=128)
-    cam = make_camera(image_width=48, aspect_ratio=2.0, samples_per_pixel=8, max_depth=6,
+    sc = scene_lib.three_sphere_scene(pad_to=128, device="cpu")
+    cam = make_camera(device="cpu", image_width=48, aspect_ratio=2.0, samples_per_pixel=8, max_depth=6,
                       lookfrom=(0.0, 0.0, 0.0), lookat=(0.0, 0.0, -1.0), vfov_degrees=90.0,
                       defocus_angle_degrees=0.0, focus_dist=1.0)
     good = cr.render_cuda(sc, cam)
@@ -142,8 +142,8 @@ def test_cover_scene_golden_image_parity():
     thresholds (152x101, 12 spp, depth 16; block-averaged to 38x25)."""
     pil = pytest.importorskip("PIL.Image")
 
-    sc = scene_lib.cover_scene_reference()
-    cam = make_camera(image_width=152, aspect_ratio=1.5, samples_per_pixel=12, max_depth=16,
+    sc = scene_lib.cover_scene_reference(device="cpu")
+    cam = make_camera(device="cpu", image_width=152, aspect_ratio=1.5, samples_per_pixel=12, max_depth=16,
                       vfov_degrees=20.0, lookfrom=(13.0, 2.0, 3.0), lookat=(0.0, 0.0, 0.0),
                       aperture=0.1, focus_dist=10.0)
     ours = cr.render_cuda(sc, cam).sqrt().numpy()

@@ -20,6 +20,11 @@ from ray_tracing_in_one_weekend_tpu_torch.models.camera import (
     make_camera,
 )
 from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_render as cr
+from ray_tracing_in_one_weekend_tpu_torch.utils.config import (
+    RenderConfig,
+    make_camera_from_config,
+    make_scene_from_config,
+)
 
 torch.set_num_threads(2)
 
@@ -32,7 +37,7 @@ def _numpy(scene):
 
 
 def test_cover_scene_reference_equals_jax_and_reference_table():
-    ours = scene_lib.cover_scene_reference()
+    ours = scene_lib.cover_scene_reference(device="cpu")
     theirs = _numpy(jax_scene.cover_scene_reference())
     for f in FIELDS:
         np.testing.assert_array_equal(getattr(ours, f).numpy(), theirs[f], err_msg=f)
@@ -63,13 +68,13 @@ def test_cover_scene_reference_equals_jax_and_reference_table():
 def test_pack_scene_equals_jax(make):
     """The carried-over JAX scene packs to the identical [16, N] matrix."""
     theirs = make()
-    ours = scene_lib.scene_from_numpy(_numpy(theirs))
+    ours = scene_lib.scene_from_numpy(_numpy(theirs), device="cpu")
     np.testing.assert_array_equal(cr.pack_scene(ours).numpy(), np.asarray(pr.pack_scene(theirs)))
 
 
 def test_builtin_scenes_equal_jax():
     for name in ("three_sphere_scene", "single_sphere_scene"):
-        ours = getattr(scene_lib, name)(pad_to=128)
+        ours = getattr(scene_lib, name)(pad_to=128, device="cpu")
         theirs = _numpy(getattr(jax_scene, name)(pad_to=128))
         for f in FIELDS:
             np.testing.assert_array_equal(getattr(ours, f).numpy(), theirs[f], err_msg=f"{name}.{f}")
@@ -87,7 +92,7 @@ def test_make_and_pack_camera_match_jax(lens):
             kw = dict(kw, aperture=0.1)
         else:
             kw = dict(kw, defocus_angle_degrees=0.6)
-        ours, theirs = make_camera(**kw), jax_make_camera(**kw)
+        ours, theirs = make_camera(**kw, device="cpu"), jax_make_camera(**kw)
         assert (ours.image_width, ours.image_height) == (theirs.image_width, theirs.image_height)
         np.testing.assert_allclose(
             cr.pack_camera(ours, 2e-3).numpy(), pr.pack_camera(theirs, 2e-3), rtol=1e-6, atol=1e-7
@@ -97,7 +102,7 @@ def test_make_and_pack_camera_match_jax(lens):
                 "center", "pixel00_loc", "pixel_delta_u", "pixel_delta_v",
                 "defocus_disk_u", "defocus_disk_v", "defocus_angle")},
             theirs.image_width, theirs.image_height,
-            theirs.samples_per_pixel, theirs.max_depth,
+            theirs.samples_per_pixel, theirs.max_depth, device="cpu",
         )
         np.testing.assert_array_equal(cr.pack_camera(carried).numpy(), pr.pack_camera(theirs))
 
@@ -108,7 +113,7 @@ def test_cover_scene_statistics():
     0.9 exclusion radius around (4, 0.2, 0)."""
     mats, n_active = [], []
     for seed in range(8):
-        sc = scene_lib.cover_scene(seed)
+        sc = scene_lib.cover_scene(seed, device="cpu")
         assert sc.num_slots == 512
         assert sc.center.dtype == torch.float32 and sc.mat_type.dtype == torch.int32
         active = sc.active.numpy()
@@ -128,5 +133,33 @@ def test_cover_scene_statistics():
     assert 480 <= np.mean(n_active) - 4 <= 484
     mix = np.bincount(np.concatenate(mats), minlength=3) / sum(len(m) for m in mats)
     np.testing.assert_allclose(mix, [0.8, 0.15, 0.05], atol=0.03)
-    a, b = scene_lib.cover_scene(3), scene_lib.cover_scene(3)
-    assert torch.equal(a.center, b.center) and not torch.equal(a.center, scene_lib.cover_scene(4).center)
+    a, b = scene_lib.cover_scene(3, device="cpu"), scene_lib.cover_scene(3, device="cpu")
+    assert torch.equal(a.center, b.center) and not torch.equal(a.center, scene_lib.cover_scene(4, device="cpu").center)
+
+
+@pytest.mark.parametrize(
+    "build",
+    [
+        lambda: scene_lib.scene_from_numpy(_numpy(scene_lib.single_sphere_scene(device="cpu"))),
+        lambda: scene_lib.from_spheres([[0.0, 0.0, -1.0]], [0.5], [scene_lib.LAMBERTIAN]),
+        lambda: scene_lib.single_sphere_scene(pad_to=128),
+        lambda: scene_lib.three_sphere_scene(pad_to=128),
+        lambda: scene_lib.cover_scene_reference(),
+        lambda: scene_lib.cover_scene(0),
+        lambda: make_camera(image_width=32),
+        lambda: camera_from_numpy(
+            {f: np.asarray(getattr(make_camera(image_width=32, device="cpu"), f)) for f in (
+                "center", "pixel00_loc", "pixel_delta_u", "pixel_delta_v",
+                "defocus_disk_u", "defocus_disk_v", "defocus_angle")}, 32, 21, 10, 50),
+        lambda: make_scene_from_config(RenderConfig()),
+        lambda: make_camera_from_config(RenderConfig()),
+    ],
+    ids=["scene_from_numpy", "from_spheres", "single", "three", "cover_reference", "cover",
+         "make_camera", "camera_from_numpy", "scene_from_config", "camera_from_config"],
+)
+def test_builders_default_to_the_card_and_never_fall_back(build, monkeypatch):
+    """Called without `device`, every builder builds on the card; without a
+    GPU it raises and names device='cpu', rather than returning CPU tensors."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build()

@@ -36,7 +36,7 @@ CAM = dict(image_width=64, aspect_ratio=2.0, samples_per_pixel=2, max_depth=8)
 def cover():
     """The JAX cover_scene(0) and the same layout in the port."""
     theirs = jax_scene.cover_scene(0)
-    ours = scene_lib.scene_from_numpy({f: np.asarray(getattr(theirs, f)) for f in FIELDS})
+    ours = scene_lib.scene_from_numpy({f: np.asarray(getattr(theirs, f)) for f in FIELDS}, device="cpu")
     return theirs, ours
 
 
@@ -44,8 +44,8 @@ def cover():
 def small():
     """Three spheres (lambertian, dielectric, metal) seen close up at 64x32,
     spp 4, depth 6: paths of very different lengths side by side."""
-    sc = scene_lib.three_sphere_scene(pad_to=128)
-    cam = make_camera(image_width=64, aspect_ratio=2.0, samples_per_pixel=4, max_depth=6,
+    sc = scene_lib.three_sphere_scene(pad_to=128, device="cpu")
+    cam = make_camera(device="cpu", image_width=64, aspect_ratio=2.0, samples_per_pixel=4, max_depth=6,
                       lookfrom=(0.0, 0.0, 0.5), lookat=(0.0, 0.0, -1.0), vfov_degrees=90.0,
                       focus_dist=1.5, defocus_angle_degrees=0.0)
     return sc, cam
@@ -61,7 +61,7 @@ def empty_cache():
 def _state_after_one_pass(scene, spp, budget, seed=0):
     """The lane state of the cover view at 64x32 after one budgeted plain
     pass: busy lanes mid-path, finished lanes, lanes with samples left."""
-    cam = make_camera(**dict(CAM, samples_per_pixel=spp))
+    cam = make_camera(**dict(CAM, samples_per_pixel=spp), device="cpu")
     n = cam.num_pixels
     sf, si = cr._init_state(0, n, n, spp)
     return cr._render_pass_plain(cr.pack_scene(scene), cr.pack_camera(cam), (seed, 0, 0, budget),
@@ -227,7 +227,7 @@ def test_compacted_render_matches_jax_render_pallas(cover):
     tests/test_torch_render.py), and the port's own one-pass render
     bit-identical."""
     theirs, ours = cover
-    jcam, tcam = jax_make_camera(**CAM), make_camera(**CAM)
+    jcam, tcam = jax_make_camera(**CAM), make_camera(**CAM, device="cpu")
     img_j = np.array(pr.render_pallas(theirs, jcam, seed=0, tile=128, interpret=True,
                                         warm=False, n_passes=3))
     img_t = cr.render_cuda(ours, tcam, seed=0, n_passes=3, warm=False)

@@ -133,7 +133,7 @@ def _bench_rays(budget, n=1 << 16):
     lanes of pixels drawn with numpy (seed 0), after `budget` iterations of
     one plain pass: camera rays at 0, the next ray after each bounce."""
     config = PRESETS["bench"]
-    scene, cam = make_scene_from_config(config), make_camera_from_config(config)
+    scene, cam = make_scene_from_config(config, "cpu"), make_camera_from_config(config, "cpu")
     p_mat, cam_vec = cr.pack_scene(scene), cr.pack_camera(cam)
     pix = np.random.default_rng(0).choice(cam.num_pixels, size=n, replace=False)
     sf, si = cr._init_state(0, n, cam.num_pixels, cam.samples_per_pixel)
@@ -169,7 +169,7 @@ def test_kernel_sweep_bit_identical_on_random_pairs():
     centers = rng.uniform(-1e3, 1e3, (n_sph, 3))
     radii = 10.0 ** rng.uniform(-2, 2, n_sph)
     centers[0], radii[0] = (0.0, -1000.0, 0.0), 1000.0
-    scene = scene_lib.from_spheres(centers.tolist(), radii.tolist(), [0] * n_sph)
+    scene = scene_lib.from_spheres(centers.tolist(), radii.tolist(), [0] * n_sph, device="cpu")
     p_mat = cr.pack_scene(scene)
     o = torch.from_numpy(rng.uniform(-1e3, 1e3, (3, n_ray)).astype(np.float32))
     # Half the rays aim at a sphere, so that many pairs have real roots.
@@ -196,14 +196,14 @@ def test_exact_ties_pick_the_lowest_index():
     """`probes.tie_scene`: every tie goes to the lower index, whether the
     two slots share a group or not, in groups of 8 and of 4, and the plain
     render equals that of the scene without the duplicates."""
-    p_mat = cr.pack_scene(tie_scene())
+    p_mat = cr.pack_scene(tie_scene("cpu"))
     o, d = _rays_at_scene(8192, 6)
     for group in (8, 4):
         t, best = _assert_same_hits(p_mat, o, d, cr.T_MIN_EPS, group)
         won = set(best[t < cr.T_MISS].tolist())
         assert {1, 2, 4, 6, 7} <= won and not won & set(TIE_DUPLICATES), won
     # A duplicate is never hit, so the render is that of the scene without them.
-    cam, scene = tie_camera(), tie_scene()
+    cam, scene = tie_camera("cpu"), tie_scene("cpu")
     assert torch.equal(cr.render_cuda(scene, cam), cr.render_cuda(without_duplicates(scene), cam))
 
 
@@ -212,7 +212,7 @@ def test_ragged_slot_counts_give_the_same_hits(n_slots):
     """Slot counts that are not a multiple of the group: the whole groups
     and the one-by-one remainder together give the plain version's hits,
     in groups of 8, 4 and 16."""
-    p_mat = cr.pack_scene(first_slots(tie_scene(), n_slots))
+    p_mat = cr.pack_scene(first_slots(tie_scene("cpu"), n_slots))
     o, d = _rays_at_scene(2048, n_slots)
     for group in (8, 4, 16):
         _assert_same_hits(p_mat, o, d, cr.T_MIN_EPS, group)
