@@ -5,10 +5,11 @@
 Run from the root of a checkout. It builds the hand-written kernels from
 `ray_tracing_in_one_weekend_tpu_torch/csrc/` with nvcc (into the ignored
 `build/kernels/`), checks each against its plain PyTorch version on the
-card, and drives the port's three paths at the bench preset (the cover
-scene, 1200x800, 10 spp, depth 50) through the kernels: the render CLI
-with its lane scheduler, the fwd+bwd train step of inverse rendering, and
-the occupancy and roofline probes.
+card, and drives the port's paths through the kernels: at the bench
+preset (the cover scene, 1200x800, 10 spp, depth 50) the render CLI with
+its lane scheduler, the fwd+bwd train step of inverse rendering, and the
+occupancy and roofline probes; at the gpu and cpu-mt presets (500 spp)
+the long render, checkpointed, resumed and retried.
 
 Phases, one line each; any failure raises and the script exits non-zero
 without the result lines:
@@ -80,7 +81,23 @@ without the result lines:
    through their entry points (launch counts of all six kernels and
    render_kernel), and the kernels' times at 2048 columns and at 131072
    (enough to fill the card) with their bounds (tensor-core work
-   included) and the torch.matmul yardsticks.
+   included) and the torch.matmul yardsticks;
+10. the long render (`utils/checkpoint.py`, `utils/resilient.py`, the
+   CLI's batched path):
+   a. at 150x100, spp 64, batches of 10: the accumulation through the
+      kernel bit-identical to the same accumulation through the plain
+      version, one or more render_kernel launches a batch;
+   b. the main path of the slice at the gpu preset (1920x1080, 500 spp):
+      the CLI with `--checkpoint` to 250 spp, then resumed to 500 (launch
+      counts from 0); the image within LONG_RENDER_GATE of the exact mean
+      of its 500 samples, each rendered alone by sample_offset, whose
+      float32 sum must be one 500-spp render's bits; no 8-bit value more
+      than one level off that render;
+   c. one NaN batch and one raised batch injected under
+      `render_resilient`: the recovered image bit-identical to 10a's;
+   d. the CLI's batched path at the gpu and cpu-mt presets (3840x2160):
+      seconds a batch, steady Mrays/s, peak memory, and the warm-cache
+      fill's share of a batch.
 
 Then it prints nvidia-smi's line, a JSON line of per-kernel results, and
 last `{"ok": true, "device": {...}}`. It imports no JAX.
@@ -88,6 +105,7 @@ last `{"ok": true, "device": {...}}`. It imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import sys
@@ -538,6 +556,235 @@ def phase_pass_times(scene, cam, rounds=7):
     return {k: (min(ts), statistics.median(ts)) for k, ts in times.items()}
 
 
+@contextlib.contextmanager
+def batch_render(fn):
+    """While open, `utils/checkpoint.accumulate` renders its batches with
+    `fn` in place of `render_cuda`: how phase 10 runs the long render's
+    accumulation through the plain version, or with injected faults."""
+    from ray_tracing_in_one_weekend_tpu_torch.utils import checkpoint as ckpt
+
+    real = ckpt.render_cuda
+    ckpt.render_cuda = fn
+    try:
+        yield real
+    finally:
+        ckpt.render_cuda = real
+
+
+# 10b: the resumed gpu-preset image against the exact mean of its 500
+# samples, max abs of the linear image: about ten float32 ulps at 1.0, one
+# a fold. One 500-spp render is not the yardstick: its float32 sum of 500
+# samples errs by more (4.9e-6 at 96x54 on the CPU, where the batched
+# image errs by 4.8e-7), so it is held to the same samples' float32 sum.
+LONG_RENDER_GATE = 2e-6
+
+
+def phase_long_render_small():
+    """10a and 10c, at 150x100, spp 64, batches of 10 (the bench preset's
+    scene, camera and depth): the accumulation through the kernel against
+    the same accumulation through the plain version (bit-identical, one or
+    more launches a batch); then one NaN batch and one raised batch
+    injected under `render_resilient`, whose recovered image must be the
+    fault-free run's bits."""
+    import dataclasses
+    import functools
+
+    import torch
+
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_render as cr
+    from ray_tracing_in_one_weekend_tpu_torch.utils import checkpoint as ckpt
+    from ray_tracing_in_one_weekend_tpu_torch.utils import resilient
+    from ray_tracing_in_one_weekend_tpu_torch.utils.config import (
+        PRESETS,
+        make_camera_from_config,
+        make_scene_from_config,
+    )
+
+    config = dataclasses.replace(PRESETS["bench"], image_width=150, samples_per_pixel=64)
+    scene, cam = make_scene_from_config(config, DEVICE), make_camera_from_config(config, DEVICE)
+
+    def accumulate():
+        state, launches = ckpt.new_state(cam, DEVICE), []
+        while state.spp_done < config.samples_per_pixel:
+            before = build.LAUNCHES["render_kernel"]
+            state = ckpt.accumulate(state, scene, cam, config.seed,
+                                    min(10, config.samples_per_pixel - state.spp_done))
+            launches.append(build.LAUNCHES["render_kernel"] - before)
+        torch_sync()
+        return state, launches
+
+    cr._WORK_CACHE.clear()
+    kernel, launches = accumulate()
+    check(len(launches) == 7 and min(launches) >= 1,
+          f"phase 10a: render_kernel launches a batch {launches}, one or more each required")
+    cr._WORK_CACHE.clear()
+    with batch_render(functools.partial(cr.render_with, cr._render_pass_plain)):
+        t0 = time.perf_counter()
+        plain, plain_launches = accumulate()
+        plain_s = time.perf_counter() - t0
+    check(sum(plain_launches) == 0, "phase 10a: the plain accumulation launched the kernel")
+    check(torch.equal(kernel.accum, plain.accum) and torch.equal(kernel.work, plain.work),
+          f"phase 10a: the kernel's accumulated image differs from the plain version's in "
+          f"{int((kernel.accum != plain.accum).sum())} values (bit-identical required)")
+
+    calls = []
+
+    def flaky(*a, **kw):
+        calls.append(kw["sample_offset"])
+        if len(calls) == 4:
+            raise RuntimeError("injected transient device fault")
+        colors, work = real(*a, **kw)
+        if len(calls) == 2:
+            colors = colors.clone()
+            colors[0, 0, 0] = float("nan")
+        return colors, work
+
+    stats = resilient.RetryStats()
+    with batch_render(flaky) as real:
+        recovered = resilient.render_resilient(scene, cam, config.seed, spp_batch=10, max_retries=1,
+                                               stats=stats, log=lambda *a: None)
+    check(stats.retries == 2 and stats.batches == 7,
+          f"phase 10c: {stats.retries} retries over {stats.batches} batches, 2 over 7 expected")
+    check([k for _, k, _ in stats.failures] == ["BatchCorruptError", "RuntimeError"],
+          f"phase 10c: failures {stats.failures}")
+    check(torch.equal(recovered, kernel.image),
+          "phase 10c: the recovered image differs from the fault-free batched run")
+    return dict(launches=launches, plain_s=plain_s, retried_at=[s for s, _, _ in stats.failures],
+                calls=len(calls))
+
+
+def phase_long_render_resume(out_dir):
+    """10b: the long render's main path through the CLI at the gpu preset
+    (1920x1080, 500 spp, the cover scene): `--checkpoint FILE --spp 250`,
+    then the same with `--spp 500`, an interrupted run resumed; the launch
+    counts set to 0 before and read after. The resumed image within
+    LONG_RENDER_GATE linear of the exact (float64) mean of the same 500
+    samples, each rendered alone, and at most one 8-bit level off one
+    500-spp `render_cuda`, which must be those samples' float32 sum. Then
+    the time of one checkpoint save."""
+    import numpy as np
+    import torch
+
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_render as cr
+    from ray_tracing_in_one_weekend_tpu_torch.ops.image import to_uint8
+    from ray_tracing_in_one_weekend_tpu_torch.utils import checkpoint as ckpt
+    from ray_tracing_in_one_weekend_tpu_torch.utils import cli, ppm
+    from ray_tracing_in_one_weekend_tpu_torch.utils.config import (
+        make_camera_from_config,
+        make_scene_from_config,
+    )
+
+    path, out = out_dir / "long_render.npz", out_dir / "long_render.ppm"
+    path.unlink(missing_ok=True)
+    build.reset_launches()
+    first = cli.run(["--preset", "gpu", "--spp", "250", "--checkpoint", str(path), "--no-output"])
+    check(ckpt.load(str(path), DEVICE).spp_done == 250, "phase 10b: the checkpoint does not hold 250 spp")
+    resumed = cli.run(["--preset", "gpu", "--checkpoint", str(path), "--out", str(out)])
+    launches = dict(build.LAUNCHES)
+    check(launches["render_kernel"] >= first.batches + resumed.batches,
+          f"phase 10b: {launches['render_kernel']} render_kernel launches for "
+          f"{first.batches + resumed.batches} batches")
+    check(first.session_spp == 250 and resumed.session_spp == 250,
+          f"phase 10b: sessions of {first.session_spp} and {resumed.session_spp} spp")
+    c = resumed.config
+    check(out.read_bytes().startswith(f"P3\n{c.image_width} {c.image_height}\n255\n".encode()),
+          "phase 10b: bad PPM header")
+    scene, cam = make_scene_from_config(c, DEVICE), make_camera_from_config(c, DEVICE)
+    torch_sync()
+    t0 = time.perf_counter()
+    one = cr.render_cuda(scene, cam, seed=c.seed)
+    torch_sync()
+    one_s = time.perf_counter() - t0
+    # Sample k alone (sample_offset k, spp 1) is the value both renders add:
+    # its float32 running sum is the one-piece render's bits, its float64
+    # sum the exact mean.
+    total, exact = torch.zeros_like(one), torch.zeros_like(one, dtype=torch.float64)
+    for k in range(c.samples_per_pixel):
+        x = cr.render_cuda(scene, cam, seed=c.seed, spp=1, sample_offset=k, warm=False)
+        total, exact = total + x, exact + x.double()
+    check(torch.equal(total * (1.0 / c.samples_per_pixel), one),
+          "phase 10b: one 500-spp render is not the float32 sum of its samples rendered one by one")
+    exact /= c.samples_per_pixel
+    img = resumed.image
+    check(bool(torch.isfinite(img).all()) and img.shape == one.shape, "phase 10b: bad resumed image")
+    err = float((img.double() - exact).abs().max())
+    check(err <= LONG_RENDER_GATE,
+          f"phase 10b: resumed image {err:.3e} off the exact mean of its samples (gate {LONG_RENDER_GATE})")
+    u8, u8_one = to_uint8(img).int(), to_uint8(one).int()
+    levels = (u8 - u8_one).abs()
+    check(int(levels.max()) <= 1, f"phase 10b: an 8-bit pixel is {int(levels.max())} levels off one piece")
+    check(torch.equal(torch.from_numpy(ppm.read_ppm(str(out))).int(), u8.cpu()),
+          "phase 10b: the PPM is not the resumed image")
+    # What persisting a batch costs: the checkpoint's save (zlib-compressed
+    # npz, the JAX package's format), and np.savez of the same arrays.
+    state = ckpt.load(str(path), DEVICE)
+    t0 = time.perf_counter()
+    ckpt.save(state, str(path))
+    save_s = time.perf_counter() - t0
+    raw = out_dir / "long_render_raw.npz"
+    t0 = time.perf_counter()
+    np.savez(raw, accum=state.accum.cpu().numpy(), spp_done=np.asarray(state.spp_done, np.int32),
+             work=state.work.cpu().numpy())
+    save_raw_s = time.perf_counter() - t0
+    sizes = (path.stat().st_size / 1e6, raw.stat().st_size / 1e6)
+    raw.unlink()
+    return dict(first=first, resumed=resumed, launches=launches, max_abs_err=err, one_s=one_s,
+                one_err=float((one.double() - exact).abs().max()),
+                vs_one=float((img - one).abs().max()), u8_off=int((levels > 0).sum()),
+                u8_values=levels.numel(), save_s=save_s, save_raw_s=save_raw_s, sizes=sizes)
+
+
+def phase_long_render_times(preset, rounds=3):
+    """10d: the CLI's batched path at `preset` with --no-output (seconds a
+    batch, the first apart; steady Mrays/s; peak device memory), then the
+    warm-cache fill's share of a batch: the fill alone (`_perm_from_hint`
+    of a batch's cost map, CUDA events) and one batch with warm=True
+    against warm=False in turns (host clock to a synchronize)."""
+    import statistics
+
+    import torch
+
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_render as cr
+    from ray_tracing_in_one_weekend_tpu_torch.probes import cuda_ms
+    from ray_tracing_in_one_weekend_tpu_torch.utils import checkpoint as ckpt
+    from ray_tracing_in_one_weekend_tpu_torch.utils import cli
+    from ray_tracing_in_one_weekend_tpu_torch.utils.config import (
+        make_camera_from_config,
+        make_scene_from_config,
+    )
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = cli.run(["--preset", preset, "--no-output"])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    c = res.config
+    batch = c.samples_per_pixel // 10
+    steady = c.image_width * c.image_height * (res.session_spp - batch) / sum(res.batch_s[1:]) / 1e6
+    scene, cam = make_scene_from_config(c, DEVICE), make_camera_from_config(c, DEVICE)
+    state = ckpt.accumulate(ckpt.new_state(cam, DEVICE), scene, cam, c.seed, batch)
+    padded = -(-cam.num_pixels // cr.DEFAULT_TILE) * cr.DEFAULT_TILE
+    hint = torch.zeros(padded, dtype=torch.float32, device=DEVICE)
+    hint[:cam.num_pixels] = state.work.reshape(-1)
+    fill_ms = cuda_ms(lambda: cr._perm_from_hint(hint), reps=5)
+    times = {True: [], False: []}
+    cr._WORK_CACHE.clear()
+    for _ in range(rounds):
+        for warm in (True, False):
+            torch_sync()
+            t0 = time.perf_counter()
+            ckpt.accumulate(state, scene, cam, c.seed, batch, warm=warm)
+            torch_sync()
+            times[warm].append(time.perf_counter() - t0)
+            cr._WORK_CACHE.clear()  # the next warm=True batch misses, as every batch does
+    warm_s, cold_s = statistics.median(times[True]), statistics.median(times[False])
+    return dict(config=c, batch_s=res.batch_s, steady_mrays=steady, total_s=res.render_s,
+                mrays=res.mrays_per_s, peak_gb=peak_gb, fill_ms=fill_ms, batch_warm_s=warm_s,
+                batch_nowarm_s=cold_s, fill_share=fill_ms / 1e3 / warm_s,
+                fill_share_turns=(warm_s - cold_s) / warm_s)
+
+
 PROBE_REPLACES = {
     "chain_fma": "scripts/perf_probe.py:47",
     "fma_peak": "scripts/kernel_parts_probe.py:67",
@@ -893,6 +1140,39 @@ def main(argv=None) -> int:
         f"{probe['roofline_share_cold']:.3f} of cold, {probe['roofline_share_warm']:.3f} of warm; "
         f"fma peak {probe['peak_tflops']:.2f} TFLOP/s, chain {probe['chain_tflops']:.2f} TFLOP/s [{smi}]")
 
+    # 10. the long render
+    small_long = phase_long_render_small()
+    say(f"phase 10a long render (150x100, spp 64, batches of 10): the kernel's accumulated image "
+        f"bit-identical to the plain version's; render_kernel launches a batch {small_long['launches']}; "
+        f"plain accumulation {small_long['plain_s']:.2f}s [{smi}]")
+    say(f"phase 10c retry: a NaN batch at spp {small_long['retried_at'][0]} and a raised one at spp "
+        f"{small_long['retried_at'][1]} rendered again ({small_long['calls']} batch renders for 7 "
+        f"batches); the recovered image bit-identical to the fault-free run")
+    long = phase_long_render_resume(REPO / "build")
+    f, r = long["first"], long["resumed"]
+    say(f"phase 10b resumed render (CLI, gpu preset {r.config.image_width}x{r.config.image_height}, "
+        f"--checkpoint): {f.batches} batches to 250 spp in {f.render_s:.3f}s, then {r.batches} batches to "
+        f"{r.config.samples_per_pixel} spp in {r.render_s:.3f}s; render_kernel launches "
+        f"{long['launches']['render_kernel']}; max abs off the exact mean of its 500 samples "
+        f"{long['max_abs_err']:.3e} (gate {LONG_RENDER_GATE}); one 500-spp render_cuda "
+        f"({long['one_s']:.3f}s), bit-identical to the float32 sum of the samples rendered one by one "
+        f"(sample_offset 0-499), is {long['one_err']:.3e} off that mean and {long['vs_one']:.3e} off the "
+        f"resumed image, with {long['u8_off']} of {long['u8_values']} 8-bit values one level apart, "
+        f"none more; a checkpoint save {long['save_s']:.3f}s ({long['sizes'][0]:.1f} MB), np.savez "
+        f"of the same arrays {long['save_raw_s']:.3f}s ({long['sizes'][1]:.1f} MB) [{smi}]")
+    long_times = {preset: phase_long_render_times(preset) for preset in ("gpu", "cpu-mt")}
+    for preset, t in long_times.items():
+        c = t["config"]
+        say(f"phase 10d long render, {preset} preset ({c.image_width}x{c.image_height}, "
+            f"{c.samples_per_pixel} spp, CLI --no-output, {len(t['batch_s'])} batches of "
+            f"{c.samples_per_pixel // 10}): first batch {t['batch_s'][0]:.4f}s, then "
+            + ", ".join(f"{b:.4f}" for b in t["batch_s"][1:])
+            + f" s; total {t['total_s']:.3f}s = {t['mrays']:.2f} Mrays/s, steady {t['steady_mrays']:.2f} "
+            f"Mrays/s; peak memory {t['peak_gb']:.3f} GB; the warm-cache fill {t['fill_ms']:.3f} ms = "
+            f"{t['fill_share']:.2%} of a batch ({t['batch_warm_s']:.4f}s with the fill, "
+            f"{t['batch_nowarm_s']:.4f}s without, medians of 3 in turns: {t['fill_share_turns']:.2%}) "
+            f"[{smi}]")
+
     check("jax" not in sys.modules and "flax" not in sys.modules, "JAX was imported")
     say(smi)
     grad_tol = (f"the gradient after the reduction: per field rel L2 <= {GRAD_GATE} against the plain "
@@ -918,6 +1198,9 @@ def main(argv=None) -> int:
         "flipped_frac": full.flipped_frac,
         "block_mad": full.block_mad,
         **readings["render_kernel"].fields(),
+        "launches_long_render": long["launches"]["render_kernel"],
+        "long_render_max_abs_err": long["max_abs_err"],
+        "long_render_steady_mrays_per_s": {k: t["steady_mrays"] for k, t in long_times.items()},
         "render_s": run.render_s,
         "render_warm_hit": run.warm_hit,
         "mrays_per_s": run.mrays_per_s,

@@ -8,8 +8,14 @@ scheduler (`ops/cuda_render.py`, `csrc/`, `kernels/`), 8-bit output and
 PPM (`ops/image.py`, `utils/ppm.py`), and the CLI (`utils/cli.py`); the
 gradient path: the backward render kernel, the differentiable render and
 the inverse-rendering train step (`ops/cuda_grad.py`,
-`examples/inverse_render.py`); and the occupancy and roofline probes
-with their probe kernels (`probes/`, `csrc/probe_kernels.cu`).
+`examples/inverse_render.py`); the occupancy and roofline probes
+with their probe kernels (`probes/`, `csrc/probe_kernels.cu`); and the
+long render: progressive accumulation with checkpoints
+(`utils/checkpoint.py`), batch-grain retry (`utils/resilient.py`), the
+NaN guards (`utils/debug.py`) and PNG output (`utils/png.py`).
+
+Scenes and cameras are built on the card unless the caller passes
+`device="cpu"`; without a GPU the default raises.
 
 It imports torch and numpy only, never jax or flax.
 """
@@ -29,7 +35,21 @@ from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_grad import (
     train_step_cuda,
 )
 from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import render_cuda
+from ray_tracing_in_one_weekend_tpu_torch.utils.checkpoint import (
+    RenderState,
+    accumulate,
+    new_state,
+)
 from ray_tracing_in_one_weekend_tpu_torch.utils.config import RenderConfig
+from ray_tracing_in_one_weekend_tpu_torch.utils.debug import assert_finite_tree, checked_render
+from ray_tracing_in_one_weekend_tpu_torch.utils.png import write_png
+from ray_tracing_in_one_weekend_tpu_torch.utils.resilient import (
+    BatchCorruptError,
+    CheckpointCorruptError,
+    RetryStats,
+    accumulate_resilient,
+    render_resilient,
+)
 
 __version__ = "0.1.0"
 
@@ -47,4 +67,15 @@ __all__ = [
     "render_grads_cuda",
     "train_step_cuda",
     "RenderConfig",
+    "RenderState",
+    "new_state",
+    "accumulate",
+    "RetryStats",
+    "BatchCorruptError",
+    "CheckpointCorruptError",
+    "accumulate_resilient",
+    "render_resilient",
+    "checked_render",
+    "assert_finite_tree",
+    "write_png",
 ]

@@ -1,0 +1,113 @@
+"""Progressive rendering with checkpoint/resume.
+
+The PyTorch counterpart of ray_tracing_in_one_weekend_tpu/utils/checkpoint.py.
+The reference has no checkpointing; its closest analogue is merging
+partial renders offline (reference: gallery/gpu/image11-source-images/).
+Here the framebuffer accumulates per-sample sums plus a sample counter,
+and is serializable at any point.
+
+Every sample draws from a stream keyed by the GLOBAL (pixel, sample)
+index (`render_cuda`'s `sample_offset`), so rendering samples [k, k+n)
+after a checkpoint at k draws the samples one k+n-sample run would have
+drawn. The accumulated mean equals the monolithic mean up to float
+summation order: each batch boundary re-associates the per-sample sum.
+
+Files are `np.savez_compressed` archives with the JAX package's keys
+(`accum`, `spp_done`, `work`), so a checkpoint written by one package
+resumes in the other.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ray_tracing_in_one_weekend_tpu_torch.models.camera import Camera
+from ray_tracing_in_one_weekend_tpu_torch.models.scene import Scene, resolve_device
+from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import DEFAULT_TILE, render_cuda
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderState:
+    """Accumulated render progress.
+
+    `work` is the latest batch's per-pixel cost map (None until the first
+    batch). It is kept for diagnostics and as an explicit `work_hint`
+    after a resume; the batches themselves schedule through the
+    renderer's own warm-start cache."""
+
+    accum: torch.Tensor  # [H, W, 3] float32 sum of per-sample radiance
+    spp_done: int  # samples accumulated so far
+    work: torch.Tensor | None = None  # [H, W] float32 cost map
+
+    @property
+    def image(self) -> torch.Tensor:
+        """Current linear framebuffer estimate [H, W, 3]."""
+        return self.accum / float(max(self.spp_done, 1))
+
+
+def new_state(cam: Camera, device="cuda") -> RenderState:
+    device = resolve_device(device)
+    return RenderState(
+        accum=torch.zeros((cam.image_height, cam.image_width, 3), dtype=torch.float32, device=device),
+        spp_done=0,
+    )
+
+
+def accumulate(
+    state: RenderState,
+    scene: Scene,
+    cam: Camera,
+    seed: int,
+    spp_batch: int,
+    tile: int = DEFAULT_TILE,
+    warm: bool = True,
+) -> RenderState:
+    """Render the next `spp_batch` samples and fold them into `state`.
+
+    Sample indices continue from `state.spp_done`, so any batching
+    schedule yields the same final image as one monolithic run (to float
+    summation order). The render runs on the scene's device: the kernel
+    on the card, the plain version on the CPU. A state on another device
+    raises; nothing is moved.
+
+    Each batch renders a new sample window, so it misses the warm-start
+    cache and runs the cold schedule; with `warm` it refills the entry
+    all the same, as the JAX package's `accumulate` does.
+    """
+    if state.accum.device != scene.device:
+        raise ValueError(f"the render state is on {state.accum.device} and the scene on "
+                         f"{scene.device}; build both on one device")
+    colors, work = render_cuda(
+        scene, cam, seed=seed, tile=tile, spp=spp_batch, sample_offset=state.spp_done,
+        return_work=True, warm=warm,
+    )
+    # Two operations, as the JAX package's fold rounds them: one fused
+    # multiply-add would change the bits.
+    return RenderState(
+        accum=state.accum + colors * float(spp_batch),
+        spp_done=state.spp_done + spp_batch,
+        work=work,
+    )
+
+
+def save(state: RenderState, path: str) -> None:
+    arrays = dict(
+        accum=state.accum.cpu().numpy(),
+        spp_done=np.asarray(state.spp_done, np.int32),
+    )
+    if state.work is not None:
+        arrays["work"] = state.work.cpu().numpy()
+    np.savez_compressed(path, **arrays)
+
+
+def load(path: str, device="cuda") -> RenderState:
+    device = resolve_device(device)
+    with np.load(path) as z:
+        return RenderState(
+            accum=torch.tensor(z["accum"], dtype=torch.float32, device=device),
+            spp_done=int(z["spp_done"]),
+            work=torch.tensor(z["work"], dtype=torch.float32, device=device) if "work" in z.files else None,
+        )

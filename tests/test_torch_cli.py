@@ -5,6 +5,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -41,7 +42,7 @@ def test_auto_backend_logs_choice_and_cuda_never_falls_back(monkeypatch, capsys)
     assert cli.build_parser().parse_args([]).backend is None
     assert cli.config_from_args(cli.build_parser().parse_args([])).backend == "cuda"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for argv in ([], ["--backend", "cuda"]):
+    for argv in ([], ["--backend", "cuda"], ["--spp", "64"], ["--checkpoint", "never.npz"]):
         with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
             cli.run([*argv, "--scene", "single", *TINY, "--no-output"])
     assert "backend:" not in capsys.readouterr().err
@@ -107,9 +108,94 @@ def test_presets_equal_jax_presets():
             assert getattr(ours, field) == getattr(theirs, field), (name, field)
 
 
-def test_port_never_imports_jax():
-    """A fresh interpreter imports the port, renders through the CLI and the
-    library, and has neither jax nor flax in sys.modules."""
+LONG = ["--backend", "torch", "--scene", "three", "--width", "32", "--aspect", "2", "--max-depth", "4"]
+
+
+def test_long_render_prints_a_progress_line_a_batch(capsys):
+    """At spp >= 64 the CLI renders in batches of --spp-batch samples, each
+    on the next sample window, with the JAX CLI's lines on stderr; the image
+    is the one-piece render's to float rounding of the re-associated mean."""
+    res = cli.run([*LONG, "--spp", "64", "--spp-batch", "10", "--no-output"])
+    err = capsys.readouterr().err
+    assert "samples 10/64 (+10 in " in err and "samples 64/64 (+4 in " in err
+    assert err.count("samples ") == 7 and "s remaining)" in err
+    assert "render: " in err and "s total for 64 spp (" in err and "Mrays/s incl compile)" in err
+    assert res.batches == 7 and res.session_spp == 64 and not res.warm_hit
+    assert res.first_s == res.batch_s[0] and res.render_s == pytest.approx(sum(res.batch_s))
+    assert res.mrays_per_s > 0
+    one = cli.run([*LONG, "--spp", "64", "--no-progress", "--no-output"])
+    err = capsys.readouterr().err
+    assert "samples " not in err and "first render" in err and one.batches == 0
+    torch.testing.assert_close(res.image, one.image, atol=1e-6, rtol=0)
+
+
+def test_checkpoint_resumes_and_a_complete_one_renders_nothing(tmp_path, capsys):
+    """--checkpoint saves after every batch and resumes; a rerun on a
+    complete checkpoint renders no sample and writes the same bytes."""
+    ckpt, first, again = tmp_path / "run.npz", tmp_path / "a.ppm", tmp_path / "b.ppm"
+    part = cli.run([*LONG, "--spp", "3", "--checkpoint", str(ckpt), "--no-output"])
+    assert part.session_spp == 3 and ckpt.exists()
+    res = cli.run([*LONG, "--spp", "8", "--checkpoint", str(ckpt), "--out", str(first)])
+    err = capsys.readouterr().err
+    assert f"resumed {ckpt} at 3 spp" in err and "samples 8/8" in err
+    assert res.session_spp == 5
+    assert torch.equal(res.image, cli.run([*LONG, "--spp", "8", "--checkpoint",
+                                           str(tmp_path / "fresh.npz"), "--spp-batch", "1",
+                                           "--no-output"]).image)
+    capsys.readouterr()
+    res = cli.run([*LONG, "--spp", "8", "--checkpoint", str(ckpt), "--out", str(again)])
+    err = capsys.readouterr().err
+    assert "checkpoint already complete at 8 spp" in err and "samples " not in err
+    assert res.batches == 0 and res.session_spp == 0 and res.mrays_per_s == 0.0
+    assert again.read_bytes() == first.read_bytes()
+
+
+def test_png_decodes_to_the_ppm_pixels(tmp_path):
+    pil = pytest.importorskip("PIL.Image")
+
+    out, png = tmp_path / "out.ppm", tmp_path / "out.png"
+    cli.run([*LONG, "--spp", "2", "--out", str(out), "--png", str(png)])
+    decoded = np.asarray(pil.open(png))
+    assert decoded.dtype == np.uint8
+    np.testing.assert_array_equal(decoded, ppm.read_ppm(str(out)))
+
+
+def test_profile_writes_a_trace_of_the_one_piece_render(tmp_path, capsys):
+    res = cli.run([*LONG, "--spp", "64", "--max-depth", "2", "--width", "16", "--profile",
+                   str(tmp_path / "prof"), "--no-output"])
+    assert res.batches == 0  # --profile renders in one piece
+    trace = tmp_path / "prof" / "trace.json"
+    assert trace.stat().st_size > 0 and "traceEvents" in trace.read_text()
+    assert f"profile trace written to {trace}" in capsys.readouterr().err
+
+
+def test_retries_recover_an_injected_nan_batch(monkeypatch, capsys):
+    """--retries 1: one NaN batch is rendered again, and the image is the
+    bits of the run without the fault."""
+    from ray_tracing_in_one_weekend_tpu_torch.utils import checkpoint
+
+    argv = [*LONG, "--spp", "64", "--max-depth", "2", "--width", "16", "--no-output"]
+    clean = cli.run(argv)
+    real, calls = checkpoint.render_cuda, []
+
+    def flaky(*a, **kw):
+        calls.append(kw["sample_offset"])
+        colors, work = real(*a, **kw)
+        return (colors * float("nan") if len(calls) == 2 else colors), work
+
+    monkeypatch.setattr(checkpoint, "render_cuda", flaky)
+    assert not bool(torch.isfinite(cli.run(argv).image).all())  # the fault reaches the image
+    calls.clear()
+    capsys.readouterr()
+    res = cli.run([*argv, "--retries", "1"])
+    assert "resilient: batch at spp=6 failed (BatchCorruptError" in capsys.readouterr().err
+    assert calls[:3] == [0, 6, 6] and torch.equal(res.image, clean.image)
+
+
+def test_port_never_imports_jax(tmp_path):
+    """A fresh interpreter imports the port, renders through the CLI (in one
+    piece and checkpointed) and the library, and has neither jax nor flax
+    in sys.modules."""
     code = (
         "import sys\n"
         "import ray_tracing_in_one_weekend_tpu_torch as rt\n"
@@ -118,18 +204,22 @@ def test_port_never_imports_jax():
         "from ray_tracing_in_one_weekend_tpu_torch.probes import device_idle, fma_contraction\n"
         "from ray_tracing_in_one_weekend_tpu_torch.probes import kernel_parts, perf_probe\n"
         "from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import _compact\n"
+        "from ray_tracing_in_one_weekend_tpu_torch.utils import checkpoint, debug, png, resilient\n"
         "img = rt.render_cuda(rt.single_sphere_scene(pad_to=128, device='cpu'), rt.make_camera("
         "image_width=16, aspect_ratio=2.0, samples_per_pixel=1, max_depth=2, device='cpu'))\n"
         "assert img.shape == (8, 16, 3)\n"
         "cli.run(['--backend', 'torch', '--scene', 'single', '--width', '16', '--aspect', '2',"
         " '--spp', '1', '--max-depth', '2', '--no-output'])\n"
+        "res = cli.run(['--backend', 'torch', '--scene', 'single', '--width', '16', '--aspect', '2',"
+        " '--spp', '2', '--max-depth', '2', '--checkpoint', sys.argv[1], '--no-output'])\n"
+        "assert res.batches == 2 and checkpoint.load(sys.argv[1], device='cpu').spp_done == 2\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
-        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300
+        [sys.executable, "-c", code, str(tmp_path / "ckpt.npz")], cwd=REPO, env=env, capture_output=True, text=True, timeout=300
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("clean")

@@ -418,3 +418,57 @@ def test_probe_wrappers_refuse_what_the_kernels_do_not_take(dev):
                 fn(torch.zeros(m, 8, device=dev), r, 2)
         with pytest.raises(TypeError, match="dtype"):
             fn(l.bfloat16(), r, 2)
+
+
+def test_batched_accumulation_kernel_equals_plain(dev, monkeypatch):
+    """The long render's accumulation (utils/checkpoint.py) through the
+    kernel and through the plain version, batch for batch: the same bits,
+    with one or more kernel launches a batch."""
+    import functools
+
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.utils import checkpoint as ckpt
+
+    scene = scene_lib.cover_scene_reference(device=dev)
+    cam = _cam(dev, samples_per_pixel=16)
+
+    def accumulate():
+        state, launches = ckpt.new_state(cam, device=dev), []
+        for n in (5, 1, 10):
+            before = build.LAUNCHES["render_kernel"]
+            state = ckpt.accumulate(state, scene, cam, 3, n)
+            launches.append(build.LAUNCHES["render_kernel"] - before)
+        return state, launches
+
+    kernel, launches = accumulate()
+    assert kernel.spp_done == 16 and min(launches) >= 1
+    monkeypatch.setattr(ckpt, "render_cuda", functools.partial(cr.render_with, cr._render_pass_plain))
+    plain, launches = accumulate()
+    assert launches == [0, 0, 0]
+    assert torch.equal(kernel.accum, plain.accum) and torch.equal(kernel.work, plain.work)
+
+
+def test_sample_offset_kernel_equals_plain(dev):
+    """A render of samples [5, 9) (sample_offset 5) through the kernel has
+    the plain version's bits, and is not the render of samples [0, 4)."""
+    scene = scene_lib.cover_scene_reference(device=dev)
+    cam = _cam(dev)
+    img = cr.render_cuda(scene, cam, seed=2, sample_offset=5, warm=False)
+    assert torch.equal(img, cr.render_with(cr._render_pass_plain, scene, cam, seed=2, sample_offset=5,
+                                           warm=False))
+    assert not torch.equal(img, cr.render_cuda(scene, cam, seed=2, warm=False))
+
+
+def test_checked_render_catches_a_nan_center_on_the_card(dev):
+    from ray_tracing_in_one_weekend_tpu_torch.utils import debug
+
+    scene = scene_lib.single_sphere_scene(pad_to=8, device=dev)
+    cam = _cam(dev, samples_per_pixel=2, max_depth=4)
+    err, img = debug.checked_render(scene, cam, 0)
+    err.throw()
+    center = scene.center.clone()
+    center[0, 0] = float("nan")
+    err, img = debug.checked_render(scene.replace(center=center), cam, 0)
+    assert img.device.type == "cuda" and bool(torch.isfinite(img).all())
+    with pytest.raises(FloatingPointError, match=r"scene\.center"):
+        err.throw()
