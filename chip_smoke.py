@@ -97,7 +97,12 @@ without the result lines:
       `render_resilient`: the recovered image bit-identical to 10a's;
    d. the CLI's batched path at the gpu and cpu-mt presets (3840x2160):
       seconds a batch, steady Mrays/s, peak memory, and the warm-cache
-      fill's share of a batch.
+      fill's share of a batch;
+   e. the kernel against the plain version at the shapes of the last
+      batch of those renders (50 spp at sample_offset 450), bit for bit,
+      at the gpu and the cpu-mt preset: one budgeted pass over every lane
+      of the image, and the whole batch, scheduled as the main path
+      schedules it, on 65536 pixels drawn across the image.
 
 Then it prints nvidia-smi's line, a JSON line of per-kernel results, and
 last `{"ok": true, "device": {...}}`. It imports no JAX.
@@ -785,6 +790,80 @@ def phase_long_render_times(preset, rounds=3):
                 fill_share_turns=(warm_s - cold_s) / warm_s)
 
 
+# 10e: the last batch of a 500-spp render at the gpu and cpu-mt presets:
+# 50 samples from sample 450 on.
+LONG_BATCH, LONG_OFFSET = 50, 450
+
+
+def phase_long_render_kernel_vs_plain(preset, budget=8, n_lanes=65536):
+    """10e: render_kernel against `_render_pass_plain` at `preset`'s shapes
+    for its last batch (spp LONG_BATCH at sample_offset LONG_OFFSET), bit
+    for bit as phase 6 holds them. First one pass over every lane of the
+    image, stopped after `budget` iterations: the plain version's cost
+    grows with lanes times iterations, and the whole batch on every lane
+    is out of its reach. Then the whole batch, scheduled as the main path
+    schedules it (`_multipass`: the budgeted pass, the compaction, the
+    last pass), through the kernel and through the plain version, on
+    `n_lanes` pixels drawn across the image (numpy, seed 0): the kernel
+    takes pixel ids as data, so the subset runs the image's own ids."""
+    import numpy as np
+    import torch
+
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_render as cr
+    from ray_tracing_in_one_weekend_tpu_torch.utils import compare
+    from ray_tracing_in_one_weekend_tpu_torch.utils.config import (
+        PRESETS,
+        make_camera_from_config,
+        make_scene_from_config,
+    )
+
+    label = f"phase 10e ({preset})"
+    c = PRESETS[preset]
+    scene, cam = make_scene_from_config(c, DEVICE), make_camera_from_config(c, DEVICE)
+    spp, depth, n, tile = LONG_BATCH, cam.max_depth, cam.num_pixels, cr.DEFAULT_TILE
+    p_mat, cam_vec = cr.pack_scene(scene), cr.pack_camera(cam)
+    table = p_mat.T.contiguous()
+
+    sf, si = cr._init_state(0, -(-n // tile) * tile, n, spp, DEVICE)
+    args = (cam_vec, (c.seed, 0, LONG_OFFSET, budget), sf, si, tile, spp, depth)
+    of_k, oi_k = build.render_pass(table, *args)
+    t0 = time.perf_counter()
+    of_p, oi_p = cr._render_pass_plain(p_mat, *args)
+    torch_sync()
+    full_plain_s = time.perf_counter() - t0
+    full = compare.lane_states(of_k, oi_k, of_p, oi_p, n, spp)
+    check(full.flipped_frac == 0.0 and full.max_abs_err == 0.0
+          and torch.equal(of_k[cr._SF_WORK], of_p[cr._SF_WORK]),
+          f"{label}: a pass over all {n} lanes (budget {budget}) not bit-identical to plain: {full}")
+    full_iters = float(of_k[cr._SF_WORK].double().sum())
+    started = int(oi_k[cr._SI_STARTED, :n].long().sum())
+    del of_k, oi_k, of_p, oi_p
+
+    pix = np.random.default_rng(0).choice(n, size=n_lanes, replace=False)
+    sf, si = cr._init_state(0, n_lanes, n, spp, DEVICE)
+    si[cr._SI_PIX] = torch.from_numpy(pix).to(DEVICE, torch.int32)
+    runs = {}
+    for name, pass_fn in (("kernel", cr._render_pass), ("plain", cr._render_pass_plain)):
+        before = build.LAUNCHES["render_kernel"]
+        torch_sync()
+        t0 = time.perf_counter()
+        rad, work = cr._multipass(p_mat, cam_vec, (c.seed, 0, LONG_OFFSET, 0), sf.clone(), si.clone(),
+                                  tile, spp, depth, cr._default_budget(spp), cr.DEFAULT_PASSES, pass_fn)
+        torch_sync()
+        runs[name] = (rad, work, time.perf_counter() - t0, build.LAUNCHES["render_kernel"] - before)
+    (rad_k, work_k, sub_s, sub_launches), (rad_p, work_p, sub_plain_s, plain_launches) = runs.values()
+    check(sub_launches == cr.DEFAULT_PASSES and plain_launches == 0,
+          f"{label}: {sub_launches} kernel and {plain_launches} plain launches for a batch of "
+          f"{cr.DEFAULT_PASSES} passes")
+    check(torch.equal(rad_k, rad_p) and torch.equal(work_k, work_p),
+          f"{label}: the batch on {n_lanes} lanes differs from plain in "
+          f"{int((rad_k != rad_p).sum())} radiance values (bit-identical required)")
+    return dict(n=n, budget=budget, full_plain_s=full_plain_s, full_iters=full_iters, started=started,
+                n_lanes=n_lanes, sub_iters=float(work_k.double().sum()), sub_s=sub_s,
+                sub_plain_s=sub_plain_s)
+
+
 PROBE_REPLACES = {
     "chain_fma": "scripts/perf_probe.py:47",
     "fma_peak": "scripts/kernel_parts_probe.py:67",
@@ -1172,6 +1251,15 @@ def main(argv=None) -> int:
             f"{t['fill_share']:.2%} of a batch ({t['batch_warm_s']:.4f}s with the fill, "
             f"{t['batch_nowarm_s']:.4f}s without, medians of 3 in turns: {t['fill_share_turns']:.2%}) "
             f"[{smi}]")
+    for preset in ("gpu", "cpu-mt"):
+        e = phase_long_render_kernel_vs_plain(preset)
+        say(f"phase 10e kernel vs plain, {preset} preset, a batch of {LONG_BATCH} spp at sample_offset "
+            f"{LONG_OFFSET}: one pass over all {e['n']} lanes (budget {e['budget']}, "
+            f"{e['full_iters']:.0f} lane-iterations, {e['started']} samples started) bit-identical "
+            f"(plain {e['full_plain_s']:.2f}s); the whole batch ({cr.DEFAULT_PASSES} passes with "
+            f"compaction) on {e['n_lanes']} pixels drawn across the image bit-identical, "
+            f"{e['sub_iters']:.0f} lane-iterations, kernel {e['sub_s']:.4f}s, plain "
+            f"{e['sub_plain_s']:.2f}s [{smi}]")
 
     check("jax" not in sys.modules and "flax" not in sys.modules, "JAX was imported")
     say(smi)

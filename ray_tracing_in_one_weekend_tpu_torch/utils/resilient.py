@@ -68,6 +68,37 @@ def _validate(new_state: ckpt.RenderState, prev: ckpt.RenderState) -> None:
         raise BatchCorruptError("non-finite pixels in rendered batch")
 
 
+def with_retries(attempt, check, *, max_retries: int, what: str, log, stats: RetryStats | None = None,
+                 at: int = 0, delay_s: float = 0.0):
+    """`attempt()`, then `check(result)`, up to 1 + max_retries times ->
+    the first result that passes its check.
+
+    Any exception of either counts as a failure: it is logged as `what`
+    failed, recorded in `stats` (at sample `at`), and followed by a pause
+    of `delay_s` and another attempt while the budget lasts. Raises the
+    last error when the budget is exhausted.
+    """
+    last_err = None
+    for k in range(1 + max_retries):
+        try:
+            result = attempt()
+            check(result)
+            return result
+        except Exception as e:  # noqa: BLE001 — retry any device fault
+            last_err = e
+            if stats is not None:
+                stats.retries += 1
+                stats.failures.append((at, type(e).__name__, str(e)[:200]))
+            log(
+                f"{what} failed ({type(e).__name__}: {str(e)[:120]}) — retry {k + 1}/{max_retries}"
+                if k < max_retries
+                else f"{what} failed after {max_retries} retries — failing stop"
+            )
+            if k < max_retries and delay_s:
+                time.sleep(delay_s)
+    raise last_err
+
+
 def accumulate_resilient(
     state: ckpt.RenderState,
     scene,
@@ -83,36 +114,25 @@ def accumulate_resilient(
 ) -> ckpt.RenderState:
     """`checkpoint.accumulate` with batch-grain retry.
 
-    Attempts the batch up to 1 + max_retries times; each attempt
-    re-renders the SAME global sample window [spp_done, spp_done+batch),
-    so a successful retry is indistinguishable from never having failed.
-    Raises the last error when the budget is exhausted.
+    Attempts the batch up to 1 + max_retries times, `retry_delay_s` apart;
+    each attempt re-renders the SAME global sample window
+    [spp_done, spp_done+batch), so a successful retry is indistinguishable
+    from never having failed. Raises the last error when the budget is
+    exhausted.
     """
-    log = log or (lambda *a: print(*a, file=sys.stderr, flush=True))
-    last_err = None
-    for attempt in range(1 + max_retries):
-        try:
-            new_state = ckpt.accumulate(state, scene, cam, seed, spp_batch, **accumulate_kw)
-            _validate(new_state, state)
-            if stats is not None:
-                stats.batches += 1
-            return new_state
-        except Exception as e:  # noqa: BLE001 — retry any device fault
-            last_err = e
-            if stats is not None:
-                stats.retries += 1
-                stats.failures.append((state.spp_done, type(e).__name__, str(e)[:200]))
-            log(
-                f"resilient: batch at spp={state.spp_done} failed "
-                f"({type(e).__name__}: {str(e)[:120]}) — "
-                f"retry {attempt + 1}/{max_retries}"
-                if attempt < max_retries
-                else f"resilient: batch at spp={state.spp_done} failed "
-                     f"after {max_retries} retries — failing stop"
-            )
-            if attempt < max_retries and retry_delay_s:
-                time.sleep(retry_delay_s)
-    raise last_err
+    new_state = with_retries(
+        lambda: ckpt.accumulate(state, scene, cam, seed, spp_batch, **accumulate_kw),
+        lambda new: _validate(new, state),
+        max_retries=max_retries,
+        what=f"resilient: batch at spp={state.spp_done}",
+        log=log or (lambda *a: print(*a, file=sys.stderr, flush=True)),
+        stats=stats,
+        at=state.spp_done,
+        delay_s=retry_delay_s,
+    )
+    if stats is not None:
+        stats.batches += 1
+    return new_state
 
 
 def render_resilient(

@@ -192,6 +192,30 @@ def test_retries_recover_an_injected_nan_batch(monkeypatch, capsys):
     assert calls[:3] == [0, 6, 6] and torch.equal(res.image, clean.image)
 
 
+def test_retries_recover_an_injected_nan_frame_in_one_piece(monkeypatch, capsys):
+    """--no-progress --retries 1: a NaN timed frame is rendered again, and
+    the image is the bits of the run without the fault; with --retries 0
+    the NaN frame raises, as the JAX CLI's does."""
+    argv = [*TINY, "--backend", "torch", "--no-output", "--no-progress"]
+    clean = cli.run(argv)
+    real, calls = cli.render_cuda, []
+
+    def flaky(*a, **kw):
+        calls.append(len(calls))
+        img = real(*a, **kw)
+        return img * float("nan") if len(calls) == 2 else img  # call 2: the timed render
+
+    monkeypatch.setattr(cli, "render_cuda", flaky)
+    with pytest.raises(RuntimeError, match="non-finite pixels in rendered frame"):
+        cli.run(argv)
+    assert "render failed after 0 retries" in capsys.readouterr().err
+    calls.clear()
+    res = cli.run([*argv, "--retries", "1"])
+    assert len(calls) == 3 and res.batches == 0
+    assert "render failed (RuntimeError: non-finite pixels" in capsys.readouterr().err
+    assert torch.equal(res.image, clean.image)
+
+
 def test_port_never_imports_jax(tmp_path):
     """A fresh interpreter imports the port, renders through the CLI (in one
     piece and checkpointed) and the library, and has neither jax nor flax

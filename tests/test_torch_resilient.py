@@ -20,6 +20,7 @@ from ray_tracing_in_one_weekend_tpu_torch.utils.resilient import (
     BatchCorruptError,
     CheckpointCorruptError,
     RetryStats,
+    accumulate_resilient,
     render_resilient,
 )
 
@@ -127,3 +128,30 @@ def test_nan_checkpoint_raises_and_is_never_retried(scene, tmp_path, monkeypatch
         render_resilient(scene, _cam(), SEED, spp_batch=2, max_retries=3, checkpoint_path=path,
                          log=lambda *a: None)
     assert flaky.calls == 0
+
+
+@pytest.mark.parametrize("fail_calls, recovers", [({0, 1}, True), ({0, 1, 2}, False)])
+def test_retry_delay_pauses_between_attempts_only(scene, fail_calls, recovers, monkeypatch):
+    """retry_delay_s: one pause after each failed attempt that has another
+    to follow, none after the last; the recovered batch is the bits of an
+    unfailed one."""
+    from ray_tracing_in_one_weekend_tpu_torch.utils import resilient
+
+    cam, pauses = _cam(), []
+    monkeypatch.setattr(resilient.time, "sleep", pauses.append)
+    want = ckpt.accumulate(ckpt.new_state(cam, device="cpu"), scene, cam, SEED, 2)
+    monkeypatch.setattr(TARGET, _Flaky(ckpt.render_cuda, fail_calls=fail_calls, kind="raise"))
+    stats = RetryStats()
+
+    def run():
+        return accumulate_resilient(ckpt.new_state(cam, device="cpu"), scene, cam, SEED, 2,
+                                    max_retries=2, stats=stats, retry_delay_s=0.25,
+                                    log=lambda *a: None)
+
+    if recovers:
+        assert torch.equal(run().accum, want.accum) and stats.batches == 1
+    else:
+        with pytest.raises(RuntimeError, match="injected"):
+            run()
+        assert stats.batches == 0
+    assert pauses == [0.25, 0.25] and stats.retries == len(fail_calls)
