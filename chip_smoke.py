@@ -9,7 +9,8 @@ card, and drives the port's paths through the kernels: at the bench
 preset (the cover scene, 1200x800, 10 spp, depth 50) the render CLI with
 its lane scheduler, the fwd+bwd train step of inverse rendering, and the
 occupancy and roofline probes; at the gpu and cpu-mt presets (500 spp)
-the long render, checkpointed, resumed and retried.
+the long render, checkpointed, resumed and retried; and, in local ranks
+at the bench preset, the sharded render, train step, CLI and dry run.
 
 Phases, one line each; any failure raises and the script exits non-zero
 without the result lines:
@@ -102,7 +103,32 @@ without the result lines:
       batch of those renders (50 spp at sample_offset 450), bit for bit,
       at the gpu and the cpu-mt preset: one budgeted pass over every lane
       of the image, and the whole batch, scheduled as the main path
-      schedules it, on 65536 pixels drawn across the image.
+      schedules it, on 65536 pixels drawn across the image;
+11. sharding (`parallel/dist.py`, `parallel/worker.py`, `entry.py`): local
+   ranks on the card at the bench preset, each a process (ranks that
+   share the one card time-slice it, so the times are overhead and
+   correctness readings, not scaling):
+   a. one rank over NCCL on a (1, 1) mesh: the sharded forward
+      bit-identical to `render_cuda`, the sharded step's loss and
+      gradients to `render_grads_cuda`;
+   b. 2 and 4 ranks over gloo on (2, 1), (1, 2), (2, 2) and (4, 1): pixel
+      meshes bit-identical to `render_cuda`, sample meshes to the sample
+      windows rendered on one device and averaged in rank order (and
+      within 1e-6 of `render_cuda`); the step's loss within 1e-6 relative
+      (bit for bit on pixel meshes), the same bits on every rank and run
+      to run, and its gradients within rtol 2e-5 + atol 1e-6 of one
+      device's at 64x32 and, at the bench preset, off the exact float64
+      sum of one device's events by at most SHARD_EXACT_FACTOR times one
+      device's own excess (see there); the warm cache hit per slab;
+      render_kernel, grad_replay, grad_reverse and grad_reduce launched on
+      every rank; a 24x16 camera on (4, 1), whose slab 3 lies past the
+      image and launches no backward kernel; the forward's and the step's
+      seconds, the collectives' share and the peak memory of each rank;
+   c. the CLI under torchrun, 2 ranks: `--preset bench --mesh 2`, whose PPM
+      must be phase 6's bytes, and the batched path `--mesh 1,2 --spp 64
+      --spp-batch 15 --checkpoint`, whose checkpoint must hold each batch's
+      rank-order composite folded, bit for bit;
+   d. `entry.dryrun_multichip(2)` and `(4)` on the card.
 
 Then it prints nvidia-smi's line, a JSON line of per-kernel results, and
 last `{"ok": true, "device": {...}}`. It imports no JAX.
@@ -111,6 +137,7 @@ last `{"ok": true, "device": {...}}`. It imports no JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import statistics
 import sys
@@ -966,6 +993,323 @@ def probe_entry(name, v, reading=None):
     return entry
 
 
+# ---------------------------------------------------------------------------
+# 11. sharding on the card (parallel/dist.py, parallel/worker.py, entry.py)
+# ---------------------------------------------------------------------------
+
+# Each local launch, torchrun run and dry run of phase 11 must end within this.
+SHARD_TIMEOUT = 300.0
+# Sharded against one device (tests/test_pallas_grad.py:171-181,
+# tests/test_pallas_dist.py:43): gradients elementwise, the loss relative,
+# a sample mesh's image absolute.
+SHARD_GRAD_RTOL, SHARD_GRAD_ATOL, SHARD_LOSS_RTOL, SHARD_IMAGE_ATOL = 2e-5, 1e-6, 1e-6, 1e-6
+# At the bench preset one device's own float32 gradient is about one gate
+# (the elementwise rtol/atol above) off the exact sum of its events: sphere
+# 303's center x sums to -1.29e-4 from far larger terms, and one device
+# gives -1.28e-4 (`probes/shard_error.py`, H100). Any other summation order
+# is as far off, so there the sharded gradient is held to that exact sum,
+# at most SHARD_EXACT_FACTOR times one device's own excess over the gate
+# (at least one gate); the gate against one device holds at 64x32.
+SHARD_EXACT_FACTOR = 2.0
+PATH_KERNELS = ("render_kernel", "grad_replay", "grad_reverse", "grad_reduce")
+GRAD_KERNELS = ("grad_replay", "grad_reverse", "grad_reduce")
+
+
+def composite(scene, cam, spp, n_smp, sample_offset=0):
+    """The S sample windows of a sample axis rendered on one device and
+    averaged in rank order: what a sample mesh must give bit for bit."""
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_render as cr
+
+    part = spp // n_smp
+    wins = [cr.render_cuda(scene, cam, spp=part, sample_offset=sample_offset + s * part)
+            for s in range(n_smp)]
+    out = wins[0]
+    for w in wins[1:]:
+        out = out + w
+    return out / n_smp
+
+
+def grad_excess(got, want):
+    """max over elements of |got - want| / (atol + rtol |want|), in float64:
+    at most 1 passes the elementwise gradient gate."""
+    from ray_tracing_in_one_weekend_tpu_torch.probes.shard_error import excess
+
+    return excess(got, want)[0]
+
+
+class OneDevice:
+    """The one-device references of a scene and camera, each computed once."""
+
+    def __init__(self, scene, cam):
+        self.scene, self.cam, self._cache = scene, cam, {}
+
+    def get(self, key, fn):
+        if key not in self._cache:
+            self._cache[key] = fn()
+        return self._cache[key]
+
+    def target(self):
+        import torch
+
+        return torch.zeros(self.cam.image_height, self.cam.image_width, 3, device=DEVICE)
+
+    def image(self):
+        from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_render as cr
+
+        return self.get("image", lambda: cr.render_cuda(self.scene, self.cam).cpu())
+
+    def composite(self, n_smp):
+        return self.get(("composite", n_smp), lambda: composite(
+            self.scene, self.cam, self.cam.samples_per_pixel, n_smp).cpu())
+
+    def grads(self):
+        from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_grad as cg
+
+        def run():
+            loss, grads = cg.render_grads_cuda(cg.scene_params(self.scene), self.scene, self.cam,
+                                               self.target())
+            return loss.cpu(), {k: v.cpu() for k, v in grads.items()}
+
+        return self.get("grads", run)
+
+    def exact(self):
+        """The step's gradient with its events summed in float64, and one
+        device's excess over the gate against it, by field."""
+        from ray_tracing_in_one_weekend_tpu_torch.probes.shard_error import exact_grads
+
+        def run():
+            exact = {k: v.cpu() for k, v in exact_grads(self.scene, self.cam, self.target()).items()}
+            return exact, {k: grad_excess(g, exact[k]) for k, g in self.grads()[1].items()}
+
+        return self.get("exact", run)
+
+
+def check_render(label, mesh, ranks, ref, backend):
+    """One mesh's sharded renders (every rank's) against one device -> the
+    image's max abs off `render_cuda`."""
+    import torch
+
+    check(all(r["backend"] == backend for r in ranks),
+          f"{label}: backend {[r['backend'] for r in ranks]}, expected {backend}")
+    img = ranks[0]["image"]
+    check(all(torch.equal(r["image"], img) for r in ranks), f"{label}: the ranks' images differ")
+    check(all(all(r["same"]) for r in ranks), f"{label}: a repeated render gave other bits")
+    check(all(r["hits"][1:] == [True] * (len(r["hits"]) - 1) and not r["hits"][0] for r in ranks),
+          f"{label}: warm-cache hits {[r['hits'] for r in ranks]}, a miss then hits expected")
+    one = ref.image()
+    if mesh[1] == 1:
+        check(torch.equal(img, one), f"{label}: the pixel mesh's image is not render_cuda's bits")
+        return 0.0
+    check(torch.equal(img, ref.composite(mesh[1])),
+          f"{label}: the sample mesh's image is not the rank-order composite's bits")
+    err = float((img - one).abs().max())
+    check(err <= SHARD_IMAGE_ATOL, f"{label}: image {err:.2e} off render_cuda")
+    return err
+
+
+def check_step(label, mesh, ranks, ref, yardstick):
+    """One mesh's sharded steps (every rank's) against one device: the same
+    bits on every rank and run to run, the loss within SHARD_LOSS_RTOL (bit
+    for bit on a pixel mesh), and the gradients by `yardstick`: "bits" (one
+    device's), "one" (the elementwise gate against one device) or "exact"
+    (against the exact sum, see SHARD_EXACT_FACTOR). -> readings."""
+    import torch
+
+    loss_ref, grads_ref = ref.grads()
+    loss = ranks[0]["loss"]
+    check(all(torch.equal(r["loss"], loss) for r in ranks), f"{label}: the ranks' losses differ")
+    check(all(all(r["same"]) for r in ranks), f"{label}: a repeated step gave other bits")
+    loss_err = abs(float(loss) - float(loss_ref)) / float(loss_ref)
+    if mesh[1] == 1:
+        check(torch.equal(loss, loss_ref), f"{label}: the pixel mesh's loss is not one device's bits")
+    check(loss_err <= SHARD_LOSS_RTOL, f"{label}: loss {loss_err:.2e} relative off one device")
+    grads = ranks[0]["grads"]
+    for k in grads_ref:
+        check(all(torch.equal(r["grads"][k], grads[k]) for r in ranks), f"{label}: the ranks' {k} gradients differ")
+    vs_one = {k: grad_excess(grads[k], g) for k, g in grads_ref.items()}
+    out = {"loss_err": loss_err, "vs_one": vs_one}
+    if yardstick == "bits":
+        check(all(torch.equal(grads[k], g) for k, g in grads_ref.items()),
+              f"{label}: the gradients are not one device's bits")
+    elif yardstick == "one":
+        for k, e in vs_one.items():
+            check(e <= 1.0, f"{label}: {k} gradient off one device by {e:.3f} of rtol "
+                            f"{SHARD_GRAD_RTOL} + atol {SHARD_GRAD_ATOL}")
+    else:
+        exact, one_excess = ref.exact()
+        out["vs_exact"] = {k: grad_excess(grads[k], v) for k, v in exact.items()}
+        out["one_vs_exact"] = one_excess
+        for k, e in out["vs_exact"].items():
+            most = SHARD_EXACT_FACTOR * max(1.0, one_excess[k])
+            check(e <= most, f"{label}: {k} gradient {e:.3f} of the gate off the exact sum, one device "
+                             f"{one_excess[k]:.3f}, at most {most:.3f} allowed")
+    return out
+
+
+def mesh_readings(ranks_render, ranks_step):
+    """Times, the collectives' share and peak memory of one mesh's jobs."""
+    return {
+        "launches": {k: sum(r["launches"][k] for r in ranks_render + ranks_step) for k in PATH_KERNELS},
+        "launches_per_rank": [{k: rr["launches"][k] + rs["launches"][k] for k in PATH_KERNELS}
+                              for rr, rs in zip(ranks_render, ranks_step)],
+        "render_cold_s": max(r["seconds"][0] for r in ranks_render),
+        "render_warm_s": [max(r["seconds"][i] for r in ranks_render)
+                          for i in range(1, len(ranks_render[0]["seconds"]))],
+        "step_s": [max(r["seconds"][i] for r in ranks_step) for i in range(len(ranks_step[0]["seconds"]))],
+        "render_coll_share": [r["collective_s"][-1] / r["seconds"][-1] for r in ranks_render],
+        "step_coll_share": [r["collective_s"][-1] / r["seconds"][-1] for r in ranks_step],
+        "peak_gb": [max(rr.get("peak_bytes", 0), rs.get("peak_bytes", 0)) / 1e9
+                    for rr, rs in zip(ranks_render, ranks_step)],
+    }
+
+
+def job(kind, scene, cam, mesh, repeat):
+    from ray_tracing_in_one_weekend_tpu_torch.parallel import worker
+
+    return {"job": kind, "mesh": mesh, "scene": worker.scene_spec(scene),
+            "camera": worker.camera_spec(cam), "repeat": repeat}
+
+
+def phase_sharding_ranks(scene, cam, cam24, cam64, out_dir):
+    """11a and 11b: the sharded forward and train step in local ranks at the
+    bench preset (`cam`); the step at 64x32 (`cam64`); the empty slab at
+    24x16 (`cam24`) on (4, 1). -> readings by mesh."""
+    from ray_tracing_in_one_weekend_tpu_torch.parallel import worker
+
+    ref, ref24, ref64 = OneDevice(scene, cam), OneDevice(scene, cam24), OneDevice(scene, cam64)
+    readings = {}
+    # 11a: one rank over NCCL (gloo without a card): every collective adds one term.
+    one = "nccl" if DEVICE == "cuda" else "gloo"
+    ranks = worker.launch([job("render", scene, cam, (1, 1), 2), job("step", scene, cam, (1, 1), 2)], 1,
+                          out_dir / "ranks1", device=DEVICE, backend=one, timeout=SHARD_TIMEOUT)
+    r = mesh_readings([ranks[0][0]], [ranks[0][1]])
+    r["image_err"] = check_render("phase 11a (1x1)", (1, 1), [ranks[0][0]], ref, one)
+    r.update(check_step("phase 11a (1x1)", (1, 1), [ranks[0][1]], ref, "bits"))
+    readings["1x1"] = r
+    # 11b: 2 and 4 ranks sharing the card, over gloo.
+    for n_ranks, meshes in ((2, [(2, 1), (1, 2)]), (4, [(2, 2), (4, 1)])):
+        jobs = []
+        for m in meshes:
+            jobs += [job("render", scene, cam, m, 3), job("step", scene, cam, m, 3),
+                     job("step", scene, cam64, m, 1)]
+        if n_ranks == 4:
+            jobs += [job("render", scene, cam24, (4, 1), 2), job("step", scene, cam24, (4, 1), 2)]
+        ranks = worker.launch(jobs, n_ranks, out_dir / f"ranks{n_ranks}", device=DEVICE,
+                              timeout=SHARD_TIMEOUT)
+        for i, m in enumerate(meshes):
+            label = f"{m[0]}x{m[1]}"
+            rr, rs, r64 = ([r[3 * i + j] for r in ranks] for j in range(3))
+            r = mesh_readings(rr, rs)
+            r["image_err"] = check_render(f"phase 11b ({label})", m, rr, ref, "gloo")
+            r.update(check_step(f"phase 11b ({label})", m, rs, ref, "exact"))
+            r["small"] = check_step(f"phase 11b ({label}, 64x32)", m, r64, ref64, "one")
+            for rank, counts in enumerate(r["launches_per_rank"]):
+                for k in PATH_KERNELS:
+                    check(counts[k] > 0, f"phase 11b ({label}): rank {rank} never launched {k}")
+            readings[label] = r
+        if n_ranks == 4:
+            i = 3 * len(meshes)
+            rr, rs = [r[i] for r in ranks], [r[i + 1] for r in ranks]
+            r = mesh_readings(rr, rs)
+            r["image_err"] = check_render("phase 11b (4x1, 24x16)", (4, 1), rr, ref24, "gloo")
+            r.update(check_step("phase 11b (4x1, 24x16)", (4, 1), rs, ref24, "one"))
+            per_rank = r["launches_per_rank"]
+            for rank in range(3):
+                for k in GRAD_KERNELS:
+                    check(per_rank[rank][k] > 0, f"phase 11b (24x16): rank {rank} never launched {k}")
+            check(all(per_rank[3][k] == 0 for k in GRAD_KERNELS),
+                  f"phase 11b (24x16): rank 3's slab lies past the image but launched {per_rank[3]}")
+            readings["4x1@24x16"] = r
+    return readings
+
+
+def torchrun(args, timeout=SHARD_TIMEOUT):
+    """`torchrun --nproc-per-node 2 -m ray_tracing_in_one_weekend_tpu_torch
+    ARGS` from the repo root -> (seconds, stdout, stderr). Fails unless it
+    exits 0 in time."""
+    import os
+    import socket
+    import subprocess
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2", "--master-addr",
+           "127.0.0.1", "--master-port", str(port), "-m", PKG, *args]
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True, timeout=timeout)
+    except subprocess.TimeoutExpired as e:
+        raise SmokeFailure(f"phase 11c: torchrun {' '.join(args)} outlived {timeout:.0f} s") from e
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"phase 11c: torchrun {' '.join(args)} exited {proc.returncode}:\n"
+                                f"{proc.stderr[-3000:]}")
+    return seconds, proc.stdout, proc.stderr
+
+
+def phase_sharding_cli(one_device_ppm, out_dir, preset=("--preset", "bench")):
+    """11c: the CLI under torchrun, 2 ranks on the card: the bench preset
+    (`preset`, the CLI's arguments) on a pixel mesh against the one-device
+    CLI's PPM, and the batched path on a sample mesh against the rank-order
+    composite of each batch."""
+    import torch
+
+    from ray_tracing_in_one_weekend_tpu_torch.utils import checkpoint as ckpt
+    from ray_tracing_in_one_weekend_tpu_torch.utils import cli
+    from ray_tracing_in_one_weekend_tpu_torch.utils.config import (
+        make_camera_from_config,
+        make_scene_from_config,
+    )
+
+    ppm_out = out_dir / "mesh2.ppm"
+    ppm_out.unlink(missing_ok=True)
+    mono_s, stdout, err = torchrun([*preset, "--mesh", "2", "--out", str(ppm_out)])
+    check(stdout == "", "phase 11c: a rank wrote to stdout")
+    check(err.count(f"wrote {ppm_out}") == 1, "phase 11c: not exactly one rank wrote the PPM")
+    check("backend gloo" in err, "phase 11c: two ranks on one card did not choose gloo")
+    check(ppm_out.read_bytes() == one_device_ppm.read_bytes(),
+          "phase 11c: the 2-rank pixel mesh's PPM differs from the one-device CLI's")
+    render_line = [line for line in err.splitlines() if line.startswith("render: ")]
+    check(len(render_line) == 1, f"phase 11c: {len(render_line)} timing lines, one (rank 0's) expected")
+
+    npz = out_dir / "mesh12.npz"
+    npz.unlink(missing_ok=True)
+    argv = [*preset, "--mesh", "1,2", "--spp", "64", "--spp-batch", "15", "--checkpoint", str(npz),
+            "--no-output"]
+    batched_s, stdout, err = torchrun(argv)
+    check(stdout == "" and err.count("samples 64/64") == 1, "phase 11c: the batched path's progress lines")
+    config = cli.config_from_args(cli.build_parser().parse_args(argv))
+    scene, cam = make_scene_from_config(config, DEVICE), make_camera_from_config(config, DEVICE)
+    state = ckpt.new_state(cam, device=DEVICE)
+    batches = []
+    while state.spp_done < 64:
+        n = min(14, 64 - state.spp_done)  # --spp-batch 15 rounded to the sample axis
+        colors = composite(scene, cam, n, 2, sample_offset=state.spp_done)
+        state = ckpt.RenderState(state.accum + colors * float(n), state.spp_done + n)
+        batches.append(n)
+    saved = ckpt.load(str(npz), device=DEVICE)
+    check(saved.spp_done == 64, f"phase 11c: the checkpoint holds {saved.spp_done} spp")
+    check(torch.equal(saved.accum, state.accum),
+          "phase 11c: the 1x2 batched accumulation is not the composites' fold, bit for bit")
+    rate = [line for line in err.splitlines() if line.startswith("render: ")]
+    check(len(rate) == 1, f"phase 11c: {len(rate)} timing lines of the batched path, one expected")
+    return {"mono_s": mono_s, "mono_line": render_line[0], "batched_s": batched_s,
+            "batched_line": rate[0], "batches": batches}
+
+
+def phase_sharding_dryrun():
+    """11d: the multi-rank dry run of `entry.py` on the card, 2 and 4 ranks."""
+    from ray_tracing_in_one_weekend_tpu_torch import entry
+
+    out = {}
+    for n in (2, 4):
+        t0 = time.perf_counter()
+        res = entry.dryrun_multichip(n, device=DEVICE, timeout=SHARD_TIMEOUT)
+        out[n] = {"mesh": res["mesh"], "loss": res["losses"][0], "s": time.perf_counter() - t0}
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1261,6 +1605,49 @@ def main(argv=None) -> int:
             f"{e['sub_iters']:.0f} lane-iterations, kernel {e['sub_s']:.4f}s, plain "
             f"{e['sub_plain_s']:.2f}s [{smi}]")
 
+    # 11. sharding
+    torch.cuda.empty_cache()
+    small_cfg = PRESETS["bench"]
+    cam24 = make_camera_from_config(dataclasses.replace(small_cfg, image_width=24), DEVICE)
+    check((cam24.image_width, cam24.image_height) == (24, 16), "phase 11: the small camera is not 24x16")
+    shard = phase_sharding_ranks(scene, cam, cam24, cam_small, REPO / "build" / "sharding")
+
+    def worst(d):
+        return max(d.values())
+
+    for label, r in shard.items():
+        phase = "11a" if label == "1x1" else "11b"
+        image = ("bit-identical to render_cuda" if label.split("x")[1].startswith("1") else
+                 f"the rank-order composite's bits, {r['image_err']:.2e} off render_cuda")
+        if label == "1x1":
+            grads = "loss and gradients render_grads_cuda's bits"
+        elif "vs_exact" in r:
+            grads = (f"loss {r['loss_err']:.2e} relative off one device; gradients, in gates of rtol "
+                     f"{SHARD_GRAD_RTOL} + atol {SHARD_GRAD_ATOL}: {worst(r['vs_one']):.3f} off one device, "
+                     f"{worst(r['vs_exact']):.3f} off the exact sum (one device {worst(r['one_vs_exact']):.3f}), "
+                     f"at 64x32 {worst(r['small']['vs_one']):.3f} off one device (loss "
+                     f"{r['small']['loss_err']:.2e})")
+        else:
+            grads = (f"loss {r['loss_err']:.2e} relative off one device; gradients {worst(r['vs_one']):.3f} "
+                     f"of the gate off one device")
+        say(f"phase {phase} sharded {label} ({'24x16' if '@' in label else 'bench preset'}): image "
+            f"{image}; {grads}; launches {r['launches']}; forward cold {r['render_cold_s']:.4f}s, warm "
+            + ", ".join(f"{t:.4f}" for t in r["render_warm_s"]) + "s; step "
+            + ", ".join(f"{t:.4f}" for t in r["step_s"]) + "s; collectives' share of the last forward "
+            + ", ".join(f"{c:.3f}" for c in r["render_coll_share"]) + " and step "
+            + ", ".join(f"{c:.3f}" for c in r["step_coll_share"]) + " by rank; peak memory "
+            + ", ".join(f"{g:.3f}" for g in r["peak_gb"]) + f" GB by rank [{smi}]")
+    shard_cli = phase_sharding_cli(out, REPO / "build")
+    say(f"phase 11c torchrun, 2 ranks over gloo: --preset bench --mesh 2 in {shard_cli['mono_s']:.1f}s, "
+        f"rank 0's PPM phase 6's bytes ({shard_cli['mono_line']}); --mesh 1,2 --spp 64 --spp-batch 15 "
+        f"--checkpoint in {shard_cli['batched_s']:.1f}s, batches {shard_cli['batches']}, the checkpoint the "
+        f"fold of each batch's rank-order composite bit for bit ({shard_cli['batched_line']}) [{smi}]")
+    dry = phase_sharding_dryrun()
+    say("phase 11d dryrun_multichip on the card: " + "; ".join(
+        f"{n} ranks, mesh {d['mesh']}, loss {d['loss']:.6g}, {d['s']:.1f}s" for n, d in dry.items()))
+    sharded_launches = {name: {label: r["launches"][name] for label, r in shard.items()}
+                        for name in PATH_KERNELS}
+
     check("jax" not in sys.modules and "flax" not in sys.modules, "JAX was imported")
     say(smi)
     grad_tol = (f"the gradient after the reduction: per field rel L2 <= {GRAD_GATE} against the plain "
@@ -1287,6 +1674,7 @@ def main(argv=None) -> int:
         "block_mad": full.block_mad,
         **readings["render_kernel"].fields(),
         "launches_long_render": long["launches"]["render_kernel"],
+        "launches_sharded": sharded_launches["render_kernel"],
         "long_render_max_abs_err": long["max_abs_err"],
         "long_render_steady_mrays_per_s": {k: t["steady_mrays"] for k, t in long_times.items()},
         "render_s": run.render_s,
@@ -1310,6 +1698,7 @@ def main(argv=None) -> int:
         "shapes": "ms (the kernel's device time by torch.profiler) and bound_ms at full width on the "
                   "train step's own cost-sorted lanes; plain_ms on 16384 cost-sorted bench lanes",
         **readings["grad_replay"].fields(),
+        "launches_sharded": sharded_launches["grad_replay"],
         "rel_l2": sub["errs"],
         "rel_l2_64x32": small_errs,
         "adjoint_rel_l2": adj,
@@ -1333,6 +1722,7 @@ def main(argv=None) -> int:
         "library_ms": None,
         "shapes": "ms and bound_ms at full width on the train step's own lanes, each launch on a fresh "
                   "copy of the records; plain_ms on 16384 cost-sorted bench lanes",
+        "launches_sharded": sharded_launches["grad_reverse"],
         "rel_l2": sub["event_err"],
         "rel_l2_64x32": small["event_err"],
         "rel_l2_by_back": sub["event_err_by_back"],
@@ -1368,6 +1758,7 @@ def main(argv=None) -> int:
         "parent_ms": med["parent"]["pair"] if "parent" in med else None,
         "parent_ms_chunks": med["parent"]["chunks"] if "parent" in med else None,
         "parent_ms_partials": med["parent"]["partials"] if "parent" in med else None,
+        "launches_sharded": sharded_launches["grad_reduce"],
         "chunks_blocks_per_sm": reduce_blocks,
         "no_sphere_share": stats["no_sphere_share"],
         "heaviest_sphere_chunk_median": stats["heaviest_median"],

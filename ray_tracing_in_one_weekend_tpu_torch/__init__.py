@@ -12,7 +12,10 @@ the inverse-rendering train step (`ops/cuda_grad.py`,
 with their probe kernels (`probes/`, `csrc/probe_kernels.cu`); and the
 long render: progressive accumulation with checkpoints
 (`utils/checkpoint.py`), batch-grain retry (`utils/resilient.py`), the
-NaN guards (`utils/debug.py`) and PNG output (`utils/png.py`).
+NaN guards (`utils/debug.py`) and PNG output (`utils/png.py`); and the
+pixel x sample sharding of the render and the train step over
+torch.distributed, one process a rank (`parallel/`), with the entry
+points' multi-rank dry run (`entry.py`).
 
 Scenes and cameras are built on the card unless the caller passes
 `device="cpu"`; without a GPU the default raises.
@@ -30,11 +33,15 @@ from ray_tracing_in_one_weekend_tpu_torch.models.scene import (
 )
 from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_grad import (
     render_cuda_diff,
+    render_cuda_diff_distributed,
     render_grads_cuda,
     render_loss_cuda,
     train_step_cuda,
 )
-from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import render_cuda
+from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import (
+    render_cuda,
+    render_cuda_distributed,
+)
 from ray_tracing_in_one_weekend_tpu_torch.utils.checkpoint import (
     RenderState,
     accumulate,
@@ -62,7 +69,9 @@ __all__ = [
     "single_sphere_scene",
     "three_sphere_scene",
     "render_cuda",
+    "render_cuda_distributed",
     "render_cuda_diff",
+    "render_cuda_diff_distributed",
     "render_loss_cuda",
     "render_grads_cuda",
     "train_step_cuda",

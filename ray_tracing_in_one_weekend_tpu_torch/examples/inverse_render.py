@@ -15,11 +15,20 @@ half its start.
 
 `--device cuda` (the default) needs a GPU and never moves to the CPU on
 its own; `--device cpu` runs the plain PyTorch versions.
+
+`--mesh P[,S]` shards the target render and every step over a mesh of
+ranks (`parallel/dist.py`), one process a rank, as the root example's
+`--mesh` does:
+
+    torchrun --nproc-per-node 2 -m ray_tracing_in_one_weekend_tpu_torch.examples.inverse_render --mesh 1,2
+
+Every rank takes the same steps; rank 0 alone logs and writes the images.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from pathlib import Path
 
@@ -28,7 +37,7 @@ import torch
 from ray_tracing_in_one_weekend_tpu_torch.models import scene as scene_lib
 from ray_tracing_in_one_weekend_tpu_torch.models.camera import make_camera
 from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_grad as cg
-from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import render_cuda
+from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import render_cuda, render_cuda_distributed
 from ray_tracing_in_one_weekend_tpu_torch.ops.image import to_uint8
 from ray_tracing_in_one_weekend_tpu_torch.utils import ppm
 
@@ -42,6 +51,8 @@ def main(argv=None) -> int:
     ap.add_argument("--width", type=int, default=64)
     ap.add_argument("--spp", type=int, default=4)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--mesh", default=None, metavar="P[,S]",
+                    help="rank mesh: pixel shards, optional sample shards (under torchrun)")
     ap.add_argument("--outdir", default=str(_DEFAULT_OUTDIR))
     args = ap.parse_args(argv)
     device = torch.device(args.device)
@@ -49,8 +60,30 @@ def main(argv=None) -> int:
         print("inverse_render: --device cuda needs a CUDA GPU (use --device cpu for the plain "
               "version)", file=sys.stderr)
         return 2
+    mesh = None
+    if args.mesh is not None:
+        from ray_tracing_in_one_weekend_tpu_torch.parallel import dist
+        from ray_tracing_in_one_weekend_tpu_torch.utils.cli import parse_mesh
+
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            dist.init_distributed()
+            if device.type == "cuda":
+                device = torch.device("cuda", torch.cuda.current_device())
+        mesh = dist.make_mesh(parse_mesh(args.mesh))
+        mesh.build_kernels(device)
+    rank0 = mesh is None or mesh.rank == 0
+
+    def log(*a):
+        if rank0:
+            print(*a, file=sys.stderr)
+
     outdir = Path(args.outdir)
     outdir.mkdir(parents=True, exist_ok=True)
+
+    def render(scene):
+        if mesh is not None:
+            return render_cuda_distributed(scene, cam, seed=0, mesh=mesh)
+        return render_cuda(scene, cam, seed=0)
 
     scene = scene_lib.three_sphere_scene(pad_to=128, device=device)
     cam = make_camera(
@@ -58,7 +91,7 @@ def main(argv=None) -> int:
         vfov_degrees=90.0, lookfrom=(0.0, 0.0, 0.5), lookat=(0.0, 0.0, -1.0),
         defocus_angle_degrees=0.0, focus_dist=1.5, device=device,
     )
-    target = render_cuda(scene, cam, seed=0)
+    target = render(scene)
 
     params = cg.scene_params(scene)
     true_albedo = params["albedo"]
@@ -71,20 +104,21 @@ def main(argv=None) -> int:
     work = None  # the warm-start carry: the previous step's cost map
     for step in range(args.steps):
         (loss, work), grads = cg.render_grads_cuda(
-            params, scene, cam, target, seed=0, work_hint=work, return_work=True
+            params, scene, cam, target, mesh=mesh, seed=0, work_hint=work, return_work=True
         )
         # albedo-only SGD: the geometry is already right in this demo
         params["albedo"] = torch.clamp(params["albedo"] - args.lr * grads["albedo"], 0.0, 1.0)
         if step % 5 == 0 or step == args.steps - 1:
-            print(f"step {step:3d}  loss {float(loss):.6f}", file=sys.stderr)
+            log(f"step {step:3d}  loss {float(loss):.6f}")
 
     after_err = float((params["albedo"][1] - true_albedo[1]).abs().sum())
-    print(f"albedo L1 error sphere 1: {before_err:.3f} -> {after_err:.3f}", file=sys.stderr)
+    log(f"albedo L1 error sphere 1: {before_err:.3f} -> {after_err:.3f}")
 
-    final = render_cuda(cg.scene_with_params(scene, params), cam, seed=0)
-    for name, img in (("target", target), ("recovered", final)):
-        ppm.write_ppm(to_uint8(img).cpu().numpy(), str(outdir / f"inverse_{name}.ppm"))
-    print(f"wrote {outdir}/inverse_{{target,recovered}}.ppm", file=sys.stderr)
+    final = render(cg.scene_with_params(scene, params))
+    if rank0:
+        for name, img in (("target", target), ("recovered", final)):
+            ppm.write_ppm(to_uint8(img).cpu().numpy(), str(outdir / f"inverse_{name}.ppm"))
+    log(f"wrote {outdir}/inverse_{{target,recovered}}.ppm")
     return 0 if after_err < before_err * 0.5 else 1
 
 

@@ -66,7 +66,9 @@ from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import (
     _perm_from_hint,
     _render_pass,
     _scatter_block,
+    _rank_share,
     _sky,
+    _slab_hint,
     _sqrt,
     _surface,
     _u32,
@@ -469,63 +471,91 @@ def _grad_pass(p_mat, cam_vec, scalars, pix, g, work, tile, spp, max_depth):
 
 @dataclasses.dataclass(frozen=True)
 class _DiffCfg:
-    n_pixels: int
+    n_lanes: int  # this rank's slab: the whole padded image on one device
+    pixel_offset: int  # the slab's first global pixel id
+    n_pixels_total: int  # the image's pixels
     seed: int
-    spp: int
+    spp: int  # this rank's samples (spp / S on a mesh)
+    sample_shards: int  # S: the image is the mean of S sample windows
     max_depth: int
     tile: int
     bwd_tile: int
     n_passes: int
     budget: int
-    sample_offset: int
+    sample_offset: int  # this rank's window starts here
+
+    @property
+    def n_live(self) -> int:
+        """The slab's pixels inside the image (0 or fewer: none)."""
+        return min(self.pixel_offset + self.n_lanes, self.n_pixels_total) - self.pixel_offset
 
 
 class _DiffRender(torch.autograd.Function):
-    """(p_mat, cam_vec, hint) -> (rad [3, n], work [n]): the render with the
-    backward kernels as its vector-Jacobian product. `work`, the per-pixel
-    bounce count, is scheduling metadata and has no gradient."""
+    """(p_mat, cam_vec, hint) -> (rad [3, n], work [n]) of the whole image:
+    the render with the backward kernels as its vector-Jacobian product.
+    `work`, the per-pixel bounce count, is scheduling metadata and has no
+    gradient.
+
+    On a mesh each rank renders its slab and sample window; the forward
+    averages the windows and gathers the slabs, so every rank returns the
+    whole image. Every rank then holds the same cotangent of the image, and
+    its backward takes its slab's part (each window's radiance enters the
+    image with weight 1/S, and each sample with 1/spp of the whole
+    budget), runs the backward kernels on it, and sums the [16, N]
+    cotangent over the mesh in rank order, so the chain rule through
+    `pack_scene` runs once, on the sum."""
 
     @staticmethod
-    def forward(ctx, p_mat, cam_vec, cfg: _DiffCfg, hint):
-        n = cfg.n_pixels
-        padded = -(-n // cfg.tile) * cfg.tile
-        sf, si = _init_state(0, padded, n, cfg.spp, p_mat.device)
+    def forward(ctx, p_mat, cam_vec, cfg: _DiffCfg, hint, mesh):
+        sf, si = _init_state(cfg.pixel_offset, cfg.n_lanes, cfg.n_pixels_total, cfg.spp, p_mat.device)
         work_perm = None
         if hint is not None:
             # Warm start: lanes sorted by a previous step's cost map.
-            padded_hint = torch.zeros(padded, dtype=torch.float32, device=p_mat.device)
-            padded_hint[:n] = hint
-            perm, inv = _perm_from_hint(padded_hint).reshape(2, -1)
+            perm, inv = _perm_from_hint(hint).reshape(2, -1)
             work_perm = (perm, inv)
         rad, work = _multipass(
-            p_mat, cam_vec, (cfg.seed, 0, cfg.sample_offset, 0), sf, si, cfg.tile, cfg.spp,
-            cfg.max_depth, cfg.budget, cfg.n_passes, _render_pass, work_perm=work_perm,
+            p_mat, cam_vec, (cfg.seed, cfg.pixel_offset, cfg.sample_offset, 0), sf, si, cfg.tile,
+            cfg.spp, cfg.max_depth, cfg.budget, cfg.n_passes, _render_pass, work_perm=work_perm,
         )
+        # The backward replays this rank's own window: its bounce counts.
+        local_work = work[: max(cfg.n_live, 0)].contiguous()
+        if mesh is not None:
+            rad, work = mesh.sample_mean(rad), mesh.sample_mean(work)
+            rad, work = mesh.gather_pixels(rad), mesh.gather_pixels(work)
+        n = cfg.n_pixels_total
         rad, work = rad[:, :n].contiguous(), work[:n].contiguous()
-        ctx.save_for_backward(p_mat, cam_vec, work)
-        ctx.cfg = cfg
+        ctx.save_for_backward(p_mat, cam_vec, local_work)
+        ctx.cfg, ctx.mesh = cfg, mesh
         ctx.mark_non_differentiable(work)
         return rad, work
 
     @staticmethod
     def backward(ctx, grad_rad, _grad_work):
         p_mat, cam_vec, work = ctx.saved_tensors
-        cfg = ctx.cfg
-        pix, g = _bwd_lanes(work, grad_rad, cfg.spp, cfg.bwd_tile)
-        grads = _grad_pass(
-            p_mat, cam_vec, (cfg.seed, 0, cfg.sample_offset, cfg.n_pixels), pix, g, work,
-            cfg.bwd_tile, cfg.spp, cfg.max_depth,
-        )
-        return grads, None, None, None
+        cfg, mesh = ctx.cfg, ctx.mesh
+        start, n_live = cfg.pixel_offset, cfg.n_live
+        if n_live <= 0:
+            # A slab wholly past the image: no launch, a zero cotangent.
+            grads = torch.zeros_like(p_mat)
+        else:
+            g = None if grad_rad is None else grad_rad[:, start : start + n_live]
+            pix, g = _bwd_lanes(work, g, cfg.spp * cfg.sample_shards, cfg.bwd_tile, start)
+            grads = _grad_pass(
+                p_mat, cam_vec, (cfg.seed, start, cfg.sample_offset, start + n_live), pix, g, work,
+                cfg.bwd_tile, cfg.spp, cfg.max_depth,
+            )
+        if mesh is not None:
+            grads = mesh.sum_all(grads)
+        return grads, None, None, None, None
 
 
-def _bwd_lanes(work, grad_rad, spp, bwd_tile):
+def _bwd_lanes(work, grad_rad, spp, bwd_tile, pixel_offset=0):
     """The backward's lanes -> (pix [P] int32, g [3, P]): lane i replays
-    pixel pix[i], the pixels sorted by descending cost (`work`, this
-    step's own cost map: each block then holds paths of similar length),
-    with its radiance cotangent per sample (the pixel's / spp, since the
-    output is the mean over samples). Pad lanes carry ids past the image
-    and idle."""
+    global pixel pix[i] = pixel_offset + perm[i], the slab's pixels sorted
+    by descending cost (`work`, this step's own cost map: each block then
+    holds paths of similar length), with its radiance cotangent per sample
+    (the pixel's / spp, the whole budget of samples that the image
+    averages). Pad lanes carry ids past the slab's pixels and idle."""
     n = work.numel()
     padded = -(-n // bwd_tile) * bwd_tile
     g = torch.zeros(3, padded, dtype=torch.float32, device=work.device)
@@ -534,7 +564,7 @@ def _bwd_lanes(work, grad_rad, spp, bwd_tile):
     cost = torch.zeros(padded, dtype=torch.float32, device=work.device)
     cost[:n] = work
     perm = _cost_perm(cost)
-    return perm.to(torch.int32), g[:, perm].contiguous()
+    return (perm + pixel_offset).to(torch.int32), g[:, perm].contiguous()
 
 
 def params_vjp(scene: Scene, p_bar: torch.Tensor) -> dict:
@@ -561,6 +591,7 @@ def render_cuda_diff(
     sample_offset: int = 0,
     work_hint: torch.Tensor | None = None,
     return_work: bool = False,
+    mesh=None,
 ):
     """Differentiable render -> [H, W, 3] float32 on the scene's device.
 
@@ -577,45 +608,75 @@ def render_cuda_diff(
     The render never reads or fills `render_cuda`'s warm-start cache. The
     JAX package's `interpret` and `bwd_group` are TPU scheduling knobs and
     have no counterpart: the replay runs all of a lane's samples in one
-    persistent loop, and its records live in device memory."""
+    persistent loop, and its records live in device memory.
+
+    With a `mesh` it is `render_cuda_diff_distributed`."""
     _check_tile(tile)
     _check_tile(bwd_tile)
     spp = cam.samples_per_pixel if spp is None else spp
     max_depth = cam.max_depth if max_depth is None else max_depth
     n = cam.num_pixels
+    start, shard, spp_local, window = _rank_share(n, tile, spp, sample_offset, mesh)
     cfg = _DiffCfg(
-        n_pixels=n, seed=seed, spp=spp, max_depth=max_depth, tile=tile, bwd_tile=bwd_tile,
-        n_passes=n_passes, budget=_default_budget(spp) if budget is None else budget,
-        sample_offset=sample_offset,
+        n_lanes=shard, pixel_offset=start, n_pixels_total=n, seed=seed, spp=spp_local,
+        sample_shards=spp // spp_local, max_depth=max_depth, tile=tile, bwd_tile=bwd_tile, n_passes=n_passes,
+        budget=_default_budget(spp_local) if budget is None else budget, sample_offset=window,
     )
     p_mat = pack_scene(scene)
     cam_vec = pack_camera(cam).to(scene.device)
     hint = None
     if work_hint is not None:
-        hint = work_hint.reshape(-1)[:n].to(device=scene.device, dtype=torch.float32)
-    rad, work = _DiffRender.apply(p_mat, cam_vec, cfg, hint)
+        hint = _slab_hint(work_hint, n, start, shard, scene.device)
+    rad, work = _DiffRender.apply(p_mat, cam_vec, cfg, hint, mesh)
     img = rad.T.reshape(cam.image_height, cam.image_width, 3)
     if return_work:
         return img, work.reshape(cam.image_height, cam.image_width)
     return img
 
 
+def render_cuda_diff_distributed(scene: Scene, cam: Camera, seed: int = 0, mesh=None, **kw):
+    """The differentiable render sharded over `mesh` (`parallel/dist.py`;
+    default: every rank on the pixel axis) -> [H, W, 3], the whole image on
+    every rank; the counterpart of `render_pallas_diff_distributed`
+    (ops/pallas_grad.py:786-928).
+
+    The forward is `render_cuda_distributed`'s layout: each rank renders its
+    tile-aligned pixel slab and its window of spp / S samples, the windows
+    are averaged and the slabs gathered in rank order. The backward runs
+    the backward kernels on each rank's slab and window, for the rank's
+    part of the image's cotangent; a slab wholly past the image launches
+    nothing. The [16, N] cotangent is summed over every rank in rank order
+    before the chain rule through `pack_scene`, so every rank gets the same
+    gradients: within float32 summation order of one device's. Keywords as
+    `render_cuda_diff`'s; `work_hint` is the whole image's cost map and
+    `return_work` gives it back averaged over the sample axis."""
+    if mesh is None:
+        from ray_tracing_in_one_weekend_tpu_torch.parallel.dist import make_mesh
+
+        mesh = make_mesh()
+    return render_cuda_diff(scene, cam, seed=seed, mesh=mesh, **kw)
+
+
 def render_loss_cuda(params: dict, scene: Scene, cam: Camera, target: torch.Tensor,
-                     return_work: bool = False, **kw):
+                     mesh=None, return_work: bool = False, **kw):
     """Mean squared pixel error of the render of `scene` with `params`
-    against `target`; with `return_work`, (loss, [H, W] cost map)."""
-    out = render_cuda_diff(scene_with_params(scene, params), cam, return_work=return_work, **kw)
+    against `target`; with `return_work`, (loss, [H, W] cost map). With a
+    `mesh` the render is sharded over it, and the loss is the whole
+    image's, on every rank."""
+    out = render_cuda_diff(scene_with_params(scene, params), cam, return_work=return_work,
+                           mesh=mesh, **kw)
     img, work = out if return_work else (out, None)
     loss = torch.mean((img - target) ** 2)
     return (loss, work) if return_work else loss
 
 
 def render_grads_cuda(params: dict, scene: Scene, cam: Camera, target: torch.Tensor,
-                      return_work: bool = False, **kw):
+                      mesh=None, return_work: bool = False, **kw):
     """(loss, grads) of the render with respect to `params`, one gradient
-    per field; with `return_work`, ((loss, work), grads)."""
+    per field; with `return_work`, ((loss, work), grads). With a `mesh`
+    the gradients are the sum over its ranks, the same on every rank."""
     leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
-    out = render_loss_cuda(leaves, scene, cam, target, return_work=return_work, **kw)
+    out = render_loss_cuda(leaves, scene, cam, target, mesh=mesh, return_work=return_work, **kw)
     loss, work = out if return_work else (out, None)
     grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
     loss = loss.detach()
@@ -623,13 +684,15 @@ def render_grads_cuda(params: dict, scene: Scene, cam: Camera, target: torch.Ten
 
 
 def train_step_cuda(params: dict, scene: Scene, cam: Camera, target: torch.Tensor,
-                    lr: float = 1e-2, work_hint=None, return_work: bool = False, **kw):
+                    mesh=None, lr: float = 1e-2, work_hint=None, return_work: bool = False, **kw):
     """One SGD step of inverse rendering -> (loss, new_params), or (loss,
     new_params, work) with `return_work`. Pass the previous step's `work`
     back as `work_hint` to warm-start the forward (the warm carry): the
-    loss and gradients do not change."""
+    loss and gradients do not change. With a `mesh` the step is sharded
+    over it (`render_cuda_diff_distributed`), and every rank takes the
+    same step."""
     (loss, work), grads = render_grads_cuda(
-        params, scene, cam, target, return_work=True, work_hint=work_hint, **kw
+        params, scene, cam, target, mesh=mesh, return_work=True, work_hint=work_hint, **kw
     )
     new_params = {k: (params[k] - lr * grads[k]).detach() for k in params}
     return (loss, new_params, work) if return_work else (loss, new_params)

@@ -685,19 +685,52 @@ def _warm_cache_put(key, perm_inv, seed: int, sample_offset: int) -> None:
         _WORK_CACHE.popitem(last=False)
 
 
-def _cache_key_for(scene, cam_vec, padded, tile, spp):
+def _cache_key_for(scene, cam_vec, padded, tile, spp, mesh=None):
     # spp is part of the key: a cost map measured at another spp is a noisy
-    # estimate of this render's (the JAX package's policy).
-    return _warm_cache_key(scene, cam_vec.cpu().numpy().tobytes(), padded, tile, extra=(spp,))
+    # estimate of this render's (the JAX package's policy). On a mesh the
+    # key adds its shape and this rank's coordinates: the entry holds this
+    # rank's slab.
+    extra = (spp,) if mesh is None else (
+        spp, mesh.pixels, mesh.samples, mesh.pixel_index, mesh.sample_index)
+    return _warm_cache_key(scene, cam_vec.cpu().numpy().tobytes(), padded, tile, extra=extra)
+
+
+def _rank_share(n_pixels: int, tile: int, spp: int, sample_offset: int, mesh):
+    """This rank's share of a render -> (first pixel, lanes, samples, first
+    sample): the image's flat pixel space split into P contiguous,
+    tile-aligned slabs of ceil(n / (P * tile)) * tile pixels
+    (ops/pallas_render.py:1365), and the spp split into S windows. Without
+    a mesh, one slab of every pixel and every sample."""
+    n_pix, n_smp = (1, 1) if mesh is None else (mesh.pixels, mesh.samples)
+    if spp % n_smp != 0:
+        raise ValueError(f"samples_per_pixel={spp} must divide evenly over the 'samples' mesh "
+                         f"axis of size {n_smp}")
+    shard = -(-n_pixels // (n_pix * tile)) * tile
+    spp_local = spp // n_smp
+    if mesh is None:
+        return 0, shard, spp_local, sample_offset
+    return mesh.pixel_index * shard, shard, spp_local, sample_offset + mesh.sample_index * spp_local
+
+
+def _slab_hint(work_hint, n_pixels, start, shard, device):
+    """A per-pixel cost map ([H, W] or flat) -> this slab's [shard] part,
+    zero past the image."""
+    flat = work_hint.reshape(-1)[:n_pixels].to(device=device, dtype=torch.float32)
+    hint = torch.zeros(shard, dtype=torch.float32, device=device)
+    live = flat[start : start + shard]
+    hint[: live.numel()] = live
+    return hint
 
 
 def warm_cache_hit(scene: Scene, cam: Camera, seed: int = 0, tile: int = DEFAULT_TILE,
-                   spp: int | None = None, sample_offset: int = 0, t_min: float = T_MIN_EPS) -> bool:
-    """Whether `render_cuda` with these arguments and `warm=True` would run
-    the cached warm schedule (one pass over cost-sorted lanes)."""
+                   spp: int | None = None, sample_offset: int = 0, t_min: float = T_MIN_EPS,
+                   mesh=None) -> bool:
+    """Whether `render_cuda` (or `render_cuda_distributed` on `mesh`) with
+    these arguments and `warm=True` would run the cached warm schedule (one
+    pass over cost-sorted lanes) on this rank."""
     spp = cam.samples_per_pixel if spp is None else spp
-    padded = -(-cam.num_pixels // tile) * tile
-    key = _cache_key_for(scene, pack_camera(cam, t_min), padded, tile, spp)
+    _, shard, _, _ = _rank_share(cam.num_pixels, tile, spp, sample_offset, mesh)
+    key = _cache_key_for(scene, pack_camera(cam, t_min), shard, tile, spp, mesh)
     return key is not None and _warm_cache_get(key, seed, sample_offset) is not None
 
 
@@ -716,34 +749,39 @@ def render_with(
     return_work: bool = False,
     warm: bool = True,
     t_min: float = T_MIN_EPS,
+    mesh=None,
 ):
-    """`render_cuda` with an explicit pass function (`_render_pass`,
-    `_render_pass_plain`): how a check runs the plain version on the
-    card."""
+    """`render_cuda` (`render_cuda_distributed` with a `mesh`) with an
+    explicit pass function (`_render_pass`, `_render_pass_plain`): how a
+    check runs the plain version on the card.
+
+    The lanes are this rank's slab: global pixel ids [start, start +
+    shard), the whole padded image without a mesh. The rank renders its
+    sample window, and the mesh's collectives turn the slabs into the
+    image on every rank."""
     _check_tile(tile)
     spp = cam.samples_per_pixel if spp is None else spp
     max_depth = cam.max_depth if max_depth is None else max_depth
     w, h = cam.image_width, cam.image_height
     n_pixels = cam.num_pixels
-    padded = -(-n_pixels // tile) * tile
+    start, shard, spp_local, window = _rank_share(n_pixels, tile, spp, sample_offset, mesh)
     device = scene.device
 
     p_mat = pack_scene(scene)
     cam_vec = pack_camera(cam, t_min).to(device)
     work_perm, cache_key = None, None
     if work_hint is not None:
-        hint = torch.zeros(padded, dtype=torch.float32, device=device)
-        hint[:n_pixels] = work_hint.reshape(-1)[:n_pixels].to(device=device, dtype=torch.float32)
-        work_perm = _perm_from_hint(hint).reshape(2, padded)
+        hint = _slab_hint(work_hint, n_pixels, start, shard, device)
+        work_perm = _perm_from_hint(hint).reshape(2, shard)
     elif warm:
-        cache_key = _cache_key_for(scene, cam_vec, padded, tile, spp)
+        cache_key = _cache_key_for(scene, cam_vec, shard, tile, spp, mesh)
         if cache_key is not None:
             work_perm = _warm_cache_get(cache_key, seed, sample_offset)
     if n_passes is None:
         n_passes = 1 if work_perm is not None else DEFAULT_PASSES
     if n_passes < 1:
         raise ValueError(f"n_passes ({n_passes}) must be >= 1")
-    budget = _default_budget(spp) if budget is None else budget
+    budget = _default_budget(spp_local) if budget is None else budget
     if isinstance(budget, (tuple, list)):
         budget = tuple(budget)
         if len(budget) < n_passes - 1:
@@ -752,14 +790,20 @@ def render_with(
                 f"needs {n_passes - 1} budgeted passes"
             )
 
-    sf, si = _init_state(0, padded, n_pixels, spp, device)
+    sf, si = _init_state(start, shard, n_pixels, spp_local, device)
     rad, work = _multipass(
-        p_mat, cam_vec, (seed, 0, sample_offset, 0), sf, si, tile, spp, max_depth,
+        p_mat, cam_vec, (seed, start, window, 0), sf, si, tile, spp_local, max_depth,
         budget, n_passes, pass_fn, work_perm=work_perm,
     )
+    if mesh is not None:
+        # The sample windows' mean; the cost map too, so that every rank of
+        # a pixel group sorts its lanes alike.
+        rad, work = mesh.sample_mean(rad), mesh.sample_mean(work)
     if cache_key is not None and work_perm is None:
-        # Once per (scene, realization): the full cost sort.
-        _warm_cache_put(cache_key, _perm_from_hint(work).reshape(2, padded), seed, sample_offset)
+        # Once per (scene, realization): the full cost sort of this slab.
+        _warm_cache_put(cache_key, _perm_from_hint(work).reshape(2, shard), seed, sample_offset)
+    if mesh is not None:
+        rad, work = mesh.gather_pixels(rad), mesh.gather_pixels(work)
     img = rad[:, :n_pixels].T.reshape(h, w, 3)
     if return_work:
         return img, work[:n_pixels].reshape(h, w)
@@ -806,4 +850,52 @@ def render_cuda(
         max_depth=max_depth, n_passes=n_passes, budget=budget,
         sample_offset=sample_offset, work_hint=work_hint, return_work=return_work,
         warm=warm, t_min=t_min,
+    )
+
+
+def render_cuda_distributed(
+    scene: Scene,
+    cam: Camera,
+    seed: int = 0,
+    mesh=None,
+    tile: int = DEFAULT_TILE,
+    spp: int | None = None,
+    max_depth: int | None = None,
+    n_passes: int | None = None,
+    budget: int | tuple | None = None,
+    sample_offset: int = 0,
+    work_hint: torch.Tensor | None = None,
+    return_work: bool = False,
+    warm: bool = True,
+    t_min: float = T_MIN_EPS,
+):
+    """Render the full image sharded over `mesh` (`parallel/dist.py`;
+    default: every rank on the pixel axis) -> [H, W, 3] float32, the whole
+    image on every rank, on the scene's device.
+
+    The counterpart of `render_pallas_distributed`
+    (ops/pallas_render.py:1306-1411). Each rank runs the lane scheduler on
+    its slab of ceil(n / (P * tile)) * tile pixels and its sample window of
+    spp / S samples: the kernel on a CUDA scene, the plain version on a CPU
+    scene. Compaction stays inside the slab. The sample axis is averaged in
+    rank order and the slabs are gathered (the mesh's fixed-order
+    collectives). A pixel mesh gives `render_cuda`'s image bit for bit, a
+    sample mesh the windows rendered on one device and averaged in rank
+    order. `spp % S != 0` raises.
+
+    Warm start as in `render_cuda`, per rank: the cache key adds the mesh's
+    shape and the rank's coordinates, and each rank caches its slab's
+    permutation of the cost map averaged over the sample axis. A
+    `work_hint` is the whole image's map; each rank takes its slab. With
+    `return_work`, the cost map [H, W] (averaged over the sample axis)
+    comes back too."""
+    if mesh is None:
+        from ray_tracing_in_one_weekend_tpu_torch.parallel.dist import make_mesh
+
+        mesh = make_mesh()
+    return render_with(
+        _render_pass, scene, cam, seed=seed, tile=tile, spp=spp,
+        max_depth=max_depth, n_passes=n_passes, budget=budget,
+        sample_offset=sample_offset, work_hint=work_hint, return_work=return_work,
+        warm=warm, t_min=t_min, mesh=mesh,
     )

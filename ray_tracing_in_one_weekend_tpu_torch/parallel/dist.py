@@ -1,0 +1,260 @@
+"""Pixel x sample sharding over torch.distributed, one process per rank.
+
+The PyTorch counterpart of ray_tracing_in_one_weekend_tpu/parallel/dist.py.
+The JAX package shards over a `jax.sharding.Mesh` of devices inside one
+program; here every rank of a `(P, S)` mesh is a process of its own
+(torchrun, or `parallel/worker.py`), and rank r holds pixel coordinate
+r // S and sample coordinate r % S.
+
+* **pixel axis** (`'pixels'`): the flat pixel space is split into P
+  contiguous, tile-aligned slabs of `shard_pixels = ceil(n / (P·tile))·tile`
+  pixels (ops/pallas_render.py:1365). A slab may lie partly or wholly past
+  the image: its lanes are born finished.
+* **sample axis** (`'samples'`): rank s of a pixel group renders the sample
+  window [offset + s·spp/S, offset + (s+1)·spp/S), and the group's images
+  are averaged.
+
+Every random draw keys on GLOBAL (pixel, sample) ids, so a pixel mesh gives
+one device's image bit for bit, and a sample mesh gives the windows rendered
+on one device and averaged in rank order.
+
+The collectives are the two fixed-order ones below, written once: a sum over
+a group that all-gathers the ranks' tensors and adds them in rank order
+(every rank holds the same bits whatever the backend: a backend's own
+`all_reduce` may add in any order, and NCCL and gloo differ), and an
+all-gather of the pixel slabs into the image. gloo carries CUDA tensors
+for only some collectives, so under gloo a CUDA operand is copied to the
+host for the exchange and back; the render itself stays on the card.
+
+NCCL refuses two ranks on one GPU, so ranks that share a card use gloo
+(`init_distributed` picks it).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_grad import (
+    DIFF_FIELDS,
+    scene_params,
+    scene_with_params,
+)
+
+PIXEL_AXIS = "pixels"
+SAMPLE_AXIS = "samples"
+
+__all__ = [
+    "PIXEL_AXIS", "SAMPLE_AXIS", "DIFF_FIELDS", "Mesh", "make_mesh", "init_distributed",
+    "fetch_image", "sum_in_order", "gather_in_order", "scene_params", "scene_with_params",
+]
+
+
+def _all_gather(t: torch.Tensor, group) -> list:
+    """Every rank's `t` (same shape and dtype on every rank), in group-rank
+    order, on `t`'s device."""
+    src = t.detach().contiguous()
+    on_host = src.device.type == "cuda" and dist.get_backend(group) != "nccl"
+    if on_host:
+        src = src.cpu()
+    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, src, group=group)
+    return [p.to(t.device) for p in parts] if on_host else parts
+
+
+def sum_in_order(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's `t` over `group`, ((t0 + t1) + t2) + ... in
+    group-rank order: the same bits on every rank and under any backend.
+    With no group (one rank) it is `t` itself."""
+    if group is None:
+        return t
+    parts = _all_gather(t, group)
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
+
+
+def gather_in_order(t: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's `t` over `group` joined along the last dimension in
+    group-rank order (the pixel slabs into the image)."""
+    if group is None:
+        return t
+    return torch.cat(_all_gather(t, group), dim=-1)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """A ('pixels', 'samples') mesh of `pixels` x `samples` ranks, seen from
+    rank `rank`. `sample_group` holds the S ranks that share this rank's
+    pixel slab, `pixel_group` the P ranks that share its sample window,
+    `world` all of them; each is None when it would hold one rank.
+    `seconds["collectives"]` adds up the wall time spent in this mesh's
+    collectives (each starts and ends with a synchronize of the operand's
+    device, so the time is the exchange's own)."""
+
+    pixels: int
+    samples: int
+    rank: int = 0
+    sample_group: object = None
+    pixel_group: object = None
+    world: object = None
+    seconds: dict = dataclasses.field(default_factory=lambda: {"collectives": 0.0})
+
+    @property
+    def shape(self) -> dict:
+        return {PIXEL_AXIS: self.pixels, SAMPLE_AXIS: self.samples}
+
+    @property
+    def pixel_index(self) -> int:
+        return self.rank // self.samples
+
+    @property
+    def sample_index(self) -> int:
+        return self.rank % self.samples
+
+    def _timed(self, fn, t, group):
+        if group is None:
+            return fn(t, group)
+        if t.device.type == "cuda":
+            torch.cuda.synchronize(t.device)
+        t0 = time.perf_counter()
+        out = fn(t, group)
+        if out.device.type == "cuda":
+            torch.cuda.synchronize(out.device)
+        self.seconds["collectives"] += time.perf_counter() - t0
+        return out
+
+    def sample_mean(self, t: torch.Tensor) -> torch.Tensor:
+        """The mean of `t` over this rank's pixel group: the rank-order sum
+        divided by S."""
+        return self._timed(sum_in_order, t, self.sample_group) / self.samples
+
+    def gather_pixels(self, t: torch.Tensor) -> torch.Tensor:
+        """The P slabs [..., shard_pixels] -> [..., P * shard_pixels]."""
+        return self._timed(gather_in_order, t, self.pixel_group)
+
+    def sum_all(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of `t` over every rank of the mesh, in rank order."""
+        return self._timed(sum_in_order, t, self.world)
+
+    def barrier(self) -> None:
+        if self.world is not None:
+            dist.barrier(group=self.world)
+
+    def build_kernels(self, device) -> None:
+        """On the card, rank 0 builds the kernels of `csrc/` before the others
+        load them (the build is atomic, but concurrent nvcc runs are waste)."""
+        if torch.device(device).type != "cuda":
+            return
+        if self.rank == 0:
+            from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+
+            build.build()
+        self.barrier()
+
+
+def make_mesh(mesh_shape: tuple | None = None) -> Mesh:
+    """Build a ('pixels', 'samples') mesh over the default process group.
+
+    `mesh_shape=(P,)` shards pixels only; `(P, S)` also shards the sample
+    budget S ways. Default: every rank on the pixel axis. Without a process
+    group there is one rank. The mesh must cover every rank of the group:
+    each rank is a process, and a rank outside the mesh would have nothing
+    to run. Every rank must call this with the same shape, in the same
+    order with respect to other calls that create process groups."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    if mesh_shape is None or len(mesh_shape) == 0:
+        mesh_shape = (world,)
+    if len(mesh_shape) == 1:
+        mesh_shape = (mesh_shape[0], 1)
+    if len(mesh_shape) != 2:
+        raise ValueError(f"mesh_shape must be (P,) or (P, S), got {mesh_shape}")
+    n_pix, n_smp = (int(v) for v in mesh_shape)
+    if n_pix < 1 or n_smp < 1:
+        raise ValueError(f"mesh_shape {mesh_shape} must be positive")
+    n = n_pix * n_smp
+    if n > world:
+        raise ValueError(f"mesh {mesh_shape} needs {n} devices, have {world}")
+    if n < world:
+        raise ValueError(f"mesh {mesh_shape} covers {n} of the {world} ranks; each rank is a "
+                         f"process, so the mesh must cover all of them")
+    sample_group = pixel_group = None
+    if n_smp > 1:
+        for p in range(n_pix):  # every rank creates every group, in one order
+            g = dist.new_group([p * n_smp + s for s in range(n_smp)])
+            if p == rank // n_smp:
+                sample_group = g
+    if n_pix > 1:
+        for s in range(n_smp):
+            g = dist.new_group([p * n_smp + s for p in range(n_pix)])
+            if s == rank % n_smp:
+                pixel_group = g
+    return Mesh(n_pix, n_smp, rank, sample_group, pixel_group,
+                dist.group.WORLD if world > 1 else None)
+
+
+def _default_backend(local_ranks: int) -> tuple[str, str]:
+    """(backend, why): nccl when every rank of this host has a GPU of its
+    own, gloo when ranks share a card or there is none."""
+    if not torch.cuda.is_available():
+        return "gloo", "no GPU"
+    n_gpus = torch.cuda.device_count()
+    if local_ranks > n_gpus:
+        return "gloo", f"{local_ranks} ranks share {n_gpus} GPU(s), and NCCL needs one GPU a rank"
+    return "nccl", f"{local_ranks} rank(s) on {n_gpus} GPU(s)"
+
+
+# How long a rank waits in a collective for the others before it raises.
+COLLECTIVE_TIMEOUT_S = 600.0
+
+
+def init_distributed(backend: str | None = None, coordinator: str | None = None,
+                     num_processes: int | None = None, process_id: int | None = None) -> None:
+    """Join the process group of a multi-rank run.
+
+    Without `coordinator` it reads torchrun's RANK, WORLD_SIZE, LOCAL_RANK,
+    LOCAL_WORLD_SIZE, MASTER_ADDR and MASTER_PORT; with it (HOST:PORT) it
+    takes `num_processes` and `process_id` as given. The rank's GPU, if
+    there is one, becomes LOCAL_RANK % device_count. The backend defaults
+    to nccl when every rank of this host has a GPU of its own and to gloo
+    otherwise; the choice is printed on stderr, and an explicit `backend`
+    always wins. gloo carries only the collectives: the render stays on
+    the card."""
+    if coordinator is not None:
+        if num_processes is None or process_id is None:
+            raise ValueError("a coordinator needs num_processes and process_id")
+        world, rank = int(num_processes), int(process_id)
+        init_method = f"tcp://{coordinator}"
+    else:
+        if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+            raise RuntimeError("init_distributed: RANK and WORLD_SIZE are not set (run under "
+                               "torchrun, or pass coordinator, num_processes and process_id)")
+        world, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
+        init_method = "env://"
+    local_rank = int(os.environ.get("LOCAL_RANK", rank))
+    local_ranks = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    if torch.cuda.is_available():
+        torch.cuda.set_device(local_rank % torch.cuda.device_count())
+    if backend is None:
+        backend, why = _default_backend(local_ranks)
+    else:
+        why = "asked for"
+    print(f"init_distributed: rank {rank} of {world}, backend {backend} ({why})",
+          file=sys.stderr, flush=True)
+    dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+
+
+def fetch_image(img: torch.Tensor) -> np.ndarray:
+    """The whole image as a numpy array. The sharded renders return the
+    gathered image on every rank, so this is a copy to the host."""
+    return img.detach().cpu().numpy()

@@ -26,7 +26,11 @@ import torch
 
 from ray_tracing_in_one_weekend_tpu_torch.models.camera import Camera
 from ray_tracing_in_one_weekend_tpu_torch.models.scene import Scene, resolve_device
-from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import DEFAULT_TILE, render_cuda
+from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import (
+    DEFAULT_TILE,
+    render_cuda,
+    render_cuda_distributed,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +68,7 @@ def accumulate(
     spp_batch: int,
     tile: int = DEFAULT_TILE,
     warm: bool = True,
+    mesh=None,
 ) -> RenderState:
     """Render the next `spp_batch` samples and fold them into `state`.
 
@@ -76,14 +81,21 @@ def accumulate(
     Each batch renders a new sample window, so it misses the warm-start
     cache and runs the cold schedule; with `warm` it refills the entry
     all the same, as the JAX package's `accumulate` does.
+
+    With a `mesh` (`parallel/dist.py`) the batch renders sharded over it
+    (`render_cuda_distributed`), as the JAX package's does over its mesh,
+    and every rank folds the same whole image into its state: the batch
+    must divide evenly over the sample axis.
     """
     if state.accum.device != scene.device:
         raise ValueError(f"the render state is on {state.accum.device} and the scene on "
                          f"{scene.device}; build both on one device")
-    colors, work = render_cuda(
-        scene, cam, seed=seed, tile=tile, spp=spp_batch, sample_offset=state.spp_done,
-        return_work=True, warm=warm,
-    )
+    kw = dict(seed=seed, tile=tile, spp=spp_batch, sample_offset=state.spp_done,
+              return_work=True, warm=warm)
+    if mesh is not None:
+        colors, work = render_cuda_distributed(scene, cam, mesh=mesh, **kw)
+    else:
+        colors, work = render_cuda(scene, cam, **kw)
     # Two operations, as the JAX package's fold rounds them: one fused
     # multiply-add would change the bits.
     return RenderState(

@@ -8,6 +8,8 @@ is `./main > out.ppm`, reference: script/windows/rt-utility.psm1:33-47):
     python -m ray_tracing_in_one_weekend_tpu_torch --backend torch --width 200 > out.ppm
     python -m ray_tracing_in_one_weekend_tpu_torch --preset gpu \
         --checkpoint gpu.npz --png gpu.png > gpu.ppm
+    torchrun --nproc-per-node 2 -m ray_tracing_in_one_weekend_tpu_torch \
+        --preset bench --mesh 2 > out.ppm
 
 Backends: `cuda` (the default) runs the hand-written kernel on the first
 GPU, and raises when there is none; `torch` runs the plain PyTorch
@@ -33,6 +35,15 @@ Mrays/s = width * height * spp / render seconds / 1e6, over this
 session's samples. In one piece the render seconds span the render that
 made the image, to its synchronize; the finiteness check that `--retries`
 acts on, and failed attempts, fall outside them.
+
+Sharding (`--mesh P[,S]`, parallel/dist.py): under torchrun, or with
+`--multihost` and an explicit `--coordinator`, each process is one rank of
+the ('pixels', 'samples') mesh and renders its pixel slab and sample
+window; every rank gets the whole image. Rank 0 builds the kernels before
+the others load them, and rank 0 alone logs and writes stdout, the PPM,
+the PNG and the checkpoint. A timed span ends when every rank has
+synchronized its device (a barrier), and Mrays/s counts the whole image.
+The batched path rounds its batch to a multiple of S.
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ import torch
 from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import (
     DEFAULT_TILE,
     render_cuda,
+    render_cuda_distributed,
     warm_cache_hit,
 )
 from ray_tracing_in_one_weekend_tpu_torch.ops.image import to_uint8
@@ -99,6 +111,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help=f"lanes per CUDA block, a multiple of 128 (default {DEFAULT_TILE})")
     p.add_argument("--backend", choices=BACKENDS, default=None,
                    help="cuda (default): the kernel on the GPU; torch: the plain version on the CPU")
+    p.add_argument("--mesh", default=None, metavar="P[,S]",
+                   help="rank mesh: pixel shards, optional sample shards (one process a rank: "
+                        "run under torchrun, or with --multihost)")
+    p.add_argument("--multihost", action="store_true",
+                   help="join a torch.distributed process group (implied under torchrun)")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="rendezvous address for --multihost (default: torchrun's environment)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="process count for --multihost with --coordinator")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's id for --multihost with --coordinator")
     p.add_argument("--cold", action="store_true",
                    help="disable warm-start scheduling: every render runs the cold multi-pass "
                         "compaction schedule instead of reusing the cached cost-sorted lane "
@@ -147,7 +170,48 @@ def config_from_args(args) -> RenderConfig:
         v = getattr(args, arg_name)
         if v is not None:
             updates[field] = tuple(v) if isinstance(v, list) else v
+    if args.mesh is not None:
+        updates["mesh_shape"] = parse_mesh(args.mesh)
     return dataclasses.replace(config, **updates)
+
+
+def parse_mesh(text: str) -> tuple:
+    """"P" or "P,S" -> (P,) or (P, S)."""
+    try:
+        shape = tuple(int(x) for x in text.split(","))
+    except ValueError:
+        raise ValueError(f"--mesh takes P or P,S (integers), got {text!r}") from None
+    if len(shape) not in (1, 2) or min(shape) < 1:
+        raise ValueError(f"--mesh takes P or P,S (positive integers), got {text!r}")
+    return shape
+
+
+def batch_for_mesh(batch: int, mesh) -> int:
+    """The batched path's samples a batch, rounded down to a multiple of the
+    mesh's sample shards S (at least S): each batch must divide evenly over
+    the sample axis (JAX cli.py:327-335)."""
+    if mesh is None:
+        return batch
+    return max(mesh.samples, (batch // mesh.samples) * mesh.samples)
+
+
+def _join_ranks(args, mesh_shape):
+    """Join the process group under torchrun (WORLD_SIZE > 1) or with
+    --multihost; build the mesh of `mesh_shape` (none for ()). -> (mesh or
+    None, rank)."""
+    import torch.distributed as dist
+
+    from ray_tracing_in_one_weekend_tpu_torch.parallel import dist as pdist
+
+    if (args.multihost or int(os.environ.get("WORLD_SIZE", "1")) > 1) and not dist.is_initialized():
+        pdist.init_distributed(coordinator=args.coordinator, num_processes=args.num_processes,
+                               process_id=args.process_id)
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    return (pdist.make_mesh(mesh_shape) if mesh_shape else None), rank
+
+
+def _logger(rank: int):
+    return _log if rank == 0 else (lambda *a: None)
 
 
 def resolve_backend(backend: str) -> str:
@@ -191,12 +255,18 @@ def run(argv=None) -> CliResult:
     args = build_parser().parse_args(argv)
     config = config_from_args(args)
     backend = resolve_backend(config.backend)
-    device = torch.device("cuda", 0) if backend == "cuda" else torch.device("cpu")
-    _log(f"renderer: {config.image_width}x{config.image_height} "
-         f"spp={config.samples_per_pixel} depth={config.max_depth} "
-         f"scene={config.scene} seed={config.seed}")
+    mesh, rank = _join_ranks(args, config.mesh_shape)
+    log = _logger(rank)
+    # The current GPU: a rank's own, which init_distributed chose.
+    device = torch.device("cuda") if backend == "cuda" else torch.device("cpu")
+    log(f"renderer: {config.image_width}x{config.image_height} "
+        f"spp={config.samples_per_pixel} depth={config.max_depth} "
+        f"scene={config.scene} seed={config.seed}")
     device_name = torch.cuda.get_device_name(device) if backend == "cuda" else "cpu"
-    _log(f"backend: {backend} on {device_name}")
+    log(f"backend: {backend} on {device_name} mesh="
+        + (f"{mesh.pixels}x{mesh.samples}" if mesh is not None else "1-device"))
+    if mesh is not None:
+        mesh.build_kernels(device)
 
     scene = make_scene_from_config(config, device)
     cam = make_camera_from_config(config, device)
@@ -208,29 +278,40 @@ def run(argv=None) -> CliResult:
     batched = args.checkpoint or (
         not args.no_progress and not args.profile and config.samples_per_pixel >= 64)
     run_path = _run_batched if batched else _run_monolithic
-    result = run_path(args, config, backend, scene, cam, device)
+    result = run_path(args, config, backend, scene, cam, device, mesh, log)
 
-    if not args.no_output:
+    if not args.no_output and rank == 0:
         u8 = to_uint8(result.image).cpu().numpy()
         if args.png:
             write_png(u8, args.png)
-            _log(f"wrote {args.png}")
+            log(f"wrote {args.png}")
         if args.out == "-":
             ppm.write_ppm(u8, sys.stdout.buffer)
             sys.stdout.buffer.flush()
         else:
             ppm.write_ppm(u8, args.out)
-            _log(f"wrote {args.out}")
+            log(f"wrote {args.out}")
     return result
 
 
-def _run_monolithic(args, config, backend, scene, cam, device) -> CliResult:
+def _sync(device, mesh):
+    """The completion barrier: this device, then every rank's."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    if mesh is not None:
+        mesh.barrier()
+
+
+def _run_monolithic(args, config, backend, scene, cam, device, mesh, log) -> CliResult:
     """One warm-up render, then the timed one (under --profile, traced)."""
 
     def render():
-        img = render_cuda(scene, cam, seed=config.seed, tile=args.tile, warm=not args.cold)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        kw = dict(seed=config.seed, tile=args.tile, warm=not args.cold)
+        if mesh is not None:
+            img = render_cuda_distributed(scene, cam, mesh=mesh, **kw)
+        else:
+            img = render_cuda(scene, cam, **kw)
+        _sync(device, mesh)
         return img
 
     def timed_render():
@@ -251,13 +332,14 @@ def _run_monolithic(args, config, backend, scene, cam, device) -> CliResult:
         that made it): the finiteness check and failed attempts fall
         outside the timed span."""
         return with_retries(timed_render, check_frame, max_retries=max(0, args.retries),
-                            what="render", log=_log)
+                            what="render", log=log)
 
     t0 = time.perf_counter()
     render()
     first_s = time.perf_counter() - t0
-    _log(f"first render (kernel build included): {first_s:.2f}s")
-    warm_hit = not args.cold and warm_cache_hit(scene, cam, seed=config.seed, tile=args.tile)
+    log(f"first render (kernel build included): {first_s:.2f}s")
+    warm_hit = not args.cold and warm_cache_hit(scene, cam, seed=config.seed, tile=args.tile,
+                                                mesh=mesh)
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
 
@@ -266,23 +348,24 @@ def _run_monolithic(args, config, backend, scene, cam, device) -> CliResult:
             activities.append(ProfilerActivity.CUDA)
         with profile(activities=activities) as prof:
             img, render_s = render_with_retries()
-        os.makedirs(args.profile, exist_ok=True)
-        trace = os.path.join(args.profile, "trace.json")
-        prof.export_chrome_trace(trace)
-        _log(f"profile trace written to {trace}")
+        if mesh is None or mesh.rank == 0:
+            os.makedirs(args.profile, exist_ok=True)
+            trace = os.path.join(args.profile, "trace.json")
+            prof.export_chrome_trace(trace)
+            log(f"profile trace written to {trace}")
     else:
         img, render_s = render_with_retries()
     result = CliResult(config, backend, img, first_s, render_s, warm_hit)
-    _log(f"render: {render_s:.3f}s  ({result.mrays_per_s:.2f} Mrays/s, "
-         f"{'warm' if warm_hit else 'cold'} schedule)")
+    log(f"render: {render_s:.3f}s  ({result.mrays_per_s:.2f} Mrays/s, "
+        f"{'warm' if warm_hit else 'cold'} schedule)")
     return result
 
 
-def _run_batched(args, config, backend, scene, cam, device) -> CliResult:
+def _run_batched(args, config, backend, scene, cam, device, mesh, log) -> CliResult:
     """Progressive accumulation (utils/checkpoint.py) with one progress line
     a batch. With --checkpoint the state resumes from and is saved to the
-    file after every batch; with --retries a failed or non-finite batch is
-    rendered again (utils/resilient.py)."""
+    file after every batch (by rank 0 on a mesh); with --retries a failed
+    or non-finite batch is rendered again (utils/resilient.py)."""
     if args.checkpoint and os.path.exists(args.checkpoint):
         state = ckpt.load(args.checkpoint, device=device)
         validate_state(state)  # corrupt on disk fails fast, distinctly
@@ -290,12 +373,14 @@ def _run_batched(args, config, backend, scene, cam, device) -> CliResult:
         if tuple(state.accum.shape) != shape:
             raise ValueError(f"{args.checkpoint} holds a {list(state.accum.shape)} image, "
                              f"this render is {list(shape)}")
-        _log(f"resumed {args.checkpoint} at {state.spp_done} spp")
+        log(f"resumed {args.checkpoint} at {state.spp_done} spp")
     else:
         state = ckpt.new_state(cam, device=device)
+    if mesh is not None:
+        mesh.barrier()  # every rank has read the checkpoint before rank 0 writes it
 
     target_spp = config.samples_per_pixel
-    batch = args.spp_batch or max(1, target_spp // 10)
+    batch = batch_for_mesh(args.spp_batch or max(1, target_spp // 10), mesh)
     start_spp = state.spp_done  # session accounting (resume-aware)
     batch_s = []
     while state.spp_done < target_spp:
@@ -303,13 +388,12 @@ def _run_batched(args, config, backend, scene, cam, device) -> CliResult:
         t0 = time.perf_counter()
         if args.retries > 0:
             state = accumulate_resilient(state, scene, cam, config.seed, n, max_retries=args.retries,
-                                         log=_log, tile=args.tile, warm=not args.cold)
+                                         log=log, tile=args.tile, warm=not args.cold, mesh=mesh)
         else:
             state = ckpt.accumulate(state, scene, cam, config.seed, n, tile=args.tile,
-                                    warm=not args.cold)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)  # completion barrier
-        if args.checkpoint:
+                                    warm=not args.cold, mesh=mesh)
+        _sync(device, mesh)  # completion barrier
+        if args.checkpoint and (mesh is None or mesh.rank == 0):
             ckpt.save(state, args.checkpoint)
         dt = time.perf_counter() - t0
         batch_s.append(dt)
@@ -321,16 +405,16 @@ def _run_batched(args, config, backend, scene, cam, device) -> CliResult:
             steady = (sum(batch_s) - batch_s[0]) / (session - batch)
         else:
             steady = dt / max(n, 1)
-        _log(f"samples {done}/{target_spp} (+{n} in {dt:.2f}s, "
-             f"~{(target_spp - done) * steady:.0f}s remaining)")
+        log(f"samples {done}/{target_spp} (+{n} in {dt:.2f}s, "
+            f"~{(target_spp - done) * steady:.0f}s remaining)")
     session = state.spp_done - start_spp
     result = CliResult(config, backend, state.image, batch_s[0] if batch_s else 0.0,
                        sum(batch_s), False, tuple(batch_s), session)
     if session > 0 and result.render_s > 0:
-        _log(f"render: {result.render_s:.3f}s total for {session} spp "
-             f"({result.mrays_per_s:.2f} Mrays/s incl compile)")
+        log(f"render: {result.render_s:.3f}s total for {session} spp "
+            f"({result.mrays_per_s:.2f} Mrays/s incl compile)")
     else:
-        _log(f"checkpoint already complete at {state.spp_done} spp")
+        log(f"checkpoint already complete at {state.spp_done} spp")
     return result
 
 

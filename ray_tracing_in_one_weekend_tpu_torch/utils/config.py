@@ -39,6 +39,9 @@ class RenderConfig:
     seed: int = 0
     scene: str = "cover"  # cover | three | single
     backend: str = "cuda"  # cuda | torch
+    # Ranks of the ('pixels', 'samples') mesh, (P,) or (P, S); () = one
+    # device (parallel/dist.py).
+    mesh_shape: Tuple[int, ...] = ()
 
     @property
     def image_height(self) -> int:

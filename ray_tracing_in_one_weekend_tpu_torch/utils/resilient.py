@@ -154,16 +154,23 @@ def render_resilient(
     Optionally persists each completed batch to `checkpoint_path`, so even
     a process-killing failure resumes from the last good batch on the next
     invocation (process-grain elasticity on top of the in-process batch
-    retries).
+    retries). With a `mesh` among the keywords every rank loads the file,
+    and rank 0 alone saves it. A non-finite batch is seen by every rank (the
+    image is gathered), so all ranks retry it together; an exception on one
+    rank alone leaves the others waiting in the next collective until the
+    process group's timeout.
     """
     spp = cam.samples_per_pixel if spp is None else spp
     spp_batch = spp_batch or max(1, spp // 10)
 
+    mesh = accumulate_kw.get("mesh")
     if checkpoint_path and os.path.exists(checkpoint_path):
         state = ckpt.load(checkpoint_path, device=scene.device)
         validate_state(state)
     else:
         state = ckpt.new_state(cam, device=scene.device)
+    if mesh is not None:
+        mesh.barrier()  # every rank has read the file before rank 0 writes it
 
     while state.spp_done < spp:
         n = min(spp_batch, spp - state.spp_done)
@@ -171,6 +178,6 @@ def render_resilient(
             state, scene, cam, seed, n,
             max_retries=max_retries, stats=stats, log=log, **accumulate_kw,
         )
-        if checkpoint_path:
+        if checkpoint_path and (mesh is None or mesh.rank == 0):
             ckpt.save(state, checkpoint_path)
     return state.image

@@ -247,3 +247,67 @@ def test_port_never_imports_jax(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("clean")
+
+
+@pytest.mark.parametrize("text,shape", [("2", (2,)), ("1,2", (1, 2)), ("4,2", (4, 2))])
+def test_mesh_flag_parses_as_the_jax_cli(text, shape):
+    """`--mesh P[,S]` gives the JAX CLI's mesh_shape; anything else raises."""
+    ours = cli.config_from_args(cli.build_parser().parse_args(["--mesh", text]))
+    theirs = jax_cli.config_from_args(jax_cli.build_parser().parse_args(["--mesh", text]))
+    assert ours.mesh_shape == theirs.mesh_shape == shape
+    assert cli.config_from_args(cli.build_parser().parse_args([])).mesh_shape == ()
+    for bad in ("", "2,x", "1,2,3", "0", "-1,2"):
+        with pytest.raises(ValueError, match="--mesh takes P or P,S"):
+            cli.parse_mesh(bad)
+
+
+def test_batch_rounds_to_the_sample_axis():
+    """The batched path's batch is a multiple of the mesh's S, at least S
+    (JAX cli.py:327-335); without a mesh it is unchanged."""
+    from ray_tracing_in_one_weekend_tpu_torch.parallel.dist import Mesh
+
+    assert cli.batch_for_mesh(7, None) == 7
+    assert cli.batch_for_mesh(7, Mesh(2, 1)) == 7
+    assert cli.batch_for_mesh(7, Mesh(1, 2)) == 6
+    assert cli.batch_for_mesh(6, Mesh(2, 4)) == 4
+    assert cli.batch_for_mesh(1, Mesh(1, 2)) == 2
+
+
+def test_torchrun_sample_mesh_rank_zero_writes_the_composite_ppm(tmp_path):
+    """`torchrun --nproc-per-node 2 ... --backend torch --mesh 1,2` on the
+    CPU (gloo): rank 0 alone writes the PPM, and its bytes are those of the
+    two sample windows rendered in one process and averaged in rank order;
+    stdout stays empty."""
+    import socket
+
+    from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import render_cuda
+    from ray_tracing_in_one_weekend_tpu_torch.ops.image import to_uint8
+    from ray_tracing_in_one_weekend_tpu_torch.utils.config import (
+        make_camera_from_config,
+        make_scene_from_config,
+    )
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = tmp_path / "mesh.ppm"
+    argv = ["--backend", "torch", "--scene", "three", *TINY, "--mesh", "1,2", "--out", str(out)]
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2",
+         "--master-addr", "127.0.0.1", "--master-port", str(port),
+         "-m", "ray_tracing_in_one_weekend_tpu_torch", *argv],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout == ""
+    assert proc.stderr.count(f"wrote {out}") == 1 and proc.stderr.count("render: ") == 1
+    assert "backend gloo" in proc.stderr and "mesh=1x2" in proc.stderr
+
+    config = cli.config_from_args(cli.build_parser().parse_args(argv))
+    scene = make_scene_from_config(config, "cpu")
+    cam = make_camera_from_config(config, "cpu")
+    windows = [render_cuda(scene, cam, seed=config.seed, spp=1, sample_offset=s) for s in (0, 1)]
+    expected = tmp_path / "composite.ppm"
+    ppm.write_ppm(to_uint8((windows[0] + windows[1]) / 2).numpy(), str(expected))
+    assert out.read_bytes() == expected.read_bytes()

@@ -472,3 +472,43 @@ def test_checked_render_catches_a_nan_center_on_the_card(dev):
     assert img.device.type == "cuda" and bool(torch.isfinite(img).all())
     with pytest.raises(FloatingPointError, match=r"scene\.center"):
         err.throw()
+
+
+@pytest.mark.parametrize("mesh", [(2, 1), (1, 2)], ids=["2x1", "1x2"])
+def test_sharded_render_and_step_on_the_card(dev, tmp_path, mesh):
+    """Two ranks sharing the card over gloo (`parallel/worker.py`): the
+    sharded image is `render_cuda`'s (pixel mesh) or the rank-order
+    composite of the sample windows (sample mesh) bit for bit, the sharded
+    gradients within rtol 2e-5, atol 1e-6 of one device's, and every rank
+    launched the forward and the three backward kernels."""
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_grad as cg
+    from ray_tracing_in_one_weekend_tpu_torch.parallel import worker
+
+    scene = scene_lib.cover_scene_reference(device=dev)
+    cam = _cam(dev)
+    spec = {"scene": worker.scene_spec(scene), "camera": worker.camera_spec(cam), "mesh": mesh}
+    ranks = worker.launch([{"job": "render", **spec}, {"job": "step", **spec}], 2, tmp_path,
+                          device="cuda", timeout=300.0)
+    if mesh[1] == 1:
+        want = cr.render_cuda(scene, cam)
+    else:
+        wins = [cr.render_cuda(scene, cam, spp=2, sample_offset=s) for s in (0, 2)]
+        want = (wins[0] + wins[1]) / 2
+    target = torch.zeros(cam.image_height, cam.image_width, 3, device=dev)
+    loss, grads = cg.render_grads_cuda(cg.scene_params(scene), scene, cam, target)
+    for render, step in ranks:
+        assert render["backend"] == "gloo"
+        assert torch.equal(render["image"], want.cpu())
+        assert abs(float(step["loss"]) - float(loss)) <= 1e-6 * float(loss)
+        for k, g in grads.items():
+            torch.testing.assert_close(step["grads"][k], g.cpu(), rtol=2e-5, atol=1e-6)
+        assert render["launches"]["render_kernel"] > 0
+        for name in ("render_kernel", "grad_replay", "grad_reverse", "grad_reduce"):
+            assert step["launches"][name] > 0, name
+
+
+def test_dryrun_multichip_on_the_card(dev):
+    from ray_tracing_in_one_weekend_tpu_torch import entry
+
+    res = entry.dryrun_multichip(2, device="cuda", timeout=300.0)
+    assert res["mesh"] == (2, 1) and res["losses"][0] > 0.0
