@@ -9,8 +9,10 @@ card, and drives the port's paths through the kernels: at the bench
 preset (the cover scene, 1200x800, 10 spp, depth 50) the render CLI with
 its lane scheduler, the fwd+bwd train step of inverse rendering, and the
 occupancy and roofline probes; at the gpu and cpu-mt presets (500 spp)
-the long render, checkpointed, resumed and retried; and, in local ranks
-at the bench preset, the sharded render, train step, CLI and dry run.
+the long render, checkpointed, resumed and retried; in local ranks at
+the bench preset, the sharded render, train step, CLI and dry run; and
+the book's milestone scenes and cameras at the book's size, the
+closed-form render probes and the milestone shading renders.
 
 Phases, one line each; any failure raises and the script exits non-zero
 without the result lines:
@@ -128,7 +130,28 @@ without the result lines:
       must be phase 6's bytes, and the batched path `--mesh 1,2 --spp 64
       --spp-batch 15 --checkpoint`, whose checkpoint must hold each batch's
       rank-order composite folded, bit for bit;
-   d. `entry.dryrun_multichip(2)` and `(4)` on the card.
+   d. `entry.dryrun_multichip(2)` and `(4)` on the card;
+12. the book milestones (`models/milestones.py`, `probes/closed_form.py`):
+   a. every milestone the final integrator renders (`MILESTONE_RENDERS`:
+      the sky alone, the sphere over the ground, the metal trios, the
+      glass trios solid and hollow, the wide two spheres, and the hollow
+      trio under the positioned cameras, wide, zoomed and with the
+      aperture lens) at the book's size, 400 wide, 100 spp, depth 50,
+      through `render_cuda` (launch counts from 0, finite pixels, the warm
+      render's seconds and Mrays/s, and its bound over the active slots,
+      beside the bound over all 128 that the sweep tests);
+   b. the kernel against the plain version on 1024 pixels drawn across
+      each of those ten images, scheduled as the main path schedules
+      them, bit for bit;
+   c. the five closed-form probes of tests/test_pallas.py through the
+      kernel, each within its closed form and bit-identical to the plain
+      version;
+   d. the four shading renders (both v2 dielectric modes) at full width on
+      the card with the JAX package's spp and depth; the same renders'
+      first SHADING_CPU_SPP samples against the same function on the CPU,
+      in 12x6 block means and the share of pixels apart (SHADING_CARD_GATE,
+      SHADING_CARD_SHARE), which the card's render under another seed must
+      miss; and `first_gradient_image` at 1920x1080 byte for byte.
 
 Then it prints nvidia-smi's line, a JSON line of per-kernel results, and
 last `{"ok": true, "device": {...}}`. It imports no JAX.
@@ -302,16 +325,16 @@ def reverse_ms(table, cam_vec, replay, g, tile, reps=3):
     return sum(start.elapsed_time(end) for start, end in marks) / reps, buf
 
 
-def backward_bounds(n_events, n_slots, n_lanes):
+def backward_bounds(n_events, n_slots, n_active, n_lanes):
     """The least times of the replay and the reverse for this run's
-    bounces: the replay's sweep (15 operations per sphere test, one sweep
-    per bounce) against its inputs and 64-byte records; the reverse's
-    record reads and event writes (its operations are not counted: it runs
-    no sweep, and the bytes bound it, see PERF.md)."""
+    bounces: the replay's sweep (15 operations per test of an active
+    sphere, one sweep per bounce) against its inputs and 64-byte records;
+    the reverse's record reads and event writes (its operations are not
+    counted: it runs no sweep, and the bytes bound it, see PERF.md)."""
     from ray_tracing_in_one_weekend_tpu_torch.probes import kernel_parts as kp
 
     table = 4.0 * (16 * n_slots + 24)
-    replay = kp.bound_ms(float(n_events) * n_slots * kp.OPS_PER_SPHERE_TEST,
+    replay = kp.bound_ms(float(n_events) * n_active * kp.OPS_PER_SPHERE_TEST,
                          table + 16.0 * n_lanes + 64.0 * n_events)  # pix, ev_start, ev_count per lane
     reverse = kp.bound_ms(0.0, table + 24.0 * n_lanes + 128.0 * n_events)  # g, ev_start, ev_count per lane
     return replay, reverse
@@ -505,7 +528,8 @@ def phase_train_step(scene, cam, parent=None, warm_reps=3):
     n_events = events.shape[0]
     check(n_events == int(w.double().sum()), "phase 7c: the replay's records differ from the step's bounces")
     reduce_ms, library_ms = reduce_times(events, p_mat.shape[1])
-    bounds = (*backward_bounds(n_events, p_mat.shape[1], pix.numel()), *reduce_bounds(events, p_mat.shape[1]))
+    bounds = (*backward_bounds(n_events, p_mat.shape[1], scene.num_active, pix.numel()),
+              *reduce_bounds(events, p_mat.shape[1]))
     # The reduction at full width: bits, its two kernels apart, and the
     # parent tree's pair on the same events in turns (with --parent).
     from ray_tracing_in_one_weekend_tpu_torch.probes import reduce_parts as rv
@@ -833,7 +857,6 @@ def phase_long_render_kernel_vs_plain(preset, budget=8, n_lanes=65536):
     last pass), through the kernel and through the plain version, on
     `n_lanes` pixels drawn across the image (numpy, seed 0): the kernel
     takes pixel ids as data, so the subset runs the image's own ids."""
-    import numpy as np
     import torch
 
     from ray_tracing_in_one_weekend_tpu_torch.kernels import build
@@ -867,6 +890,25 @@ def phase_long_render_kernel_vs_plain(preset, budget=8, n_lanes=65536):
     started = int(oi_k[cr._SI_STARTED, :n].long().sum())
     del of_k, oi_k, of_p, oi_p
 
+    sub = drawn_lanes_kernel_vs_plain(p_mat, cam_vec, (c.seed, 0, LONG_OFFSET, 0), n, spp, depth, n_lanes,
+                                      label)
+    return dict(n=n, budget=budget, full_plain_s=full_plain_s, full_iters=full_iters, started=started,
+                n_lanes=n_lanes, sub_iters=sub["iters"], sub_s=sub["kernel_s"], sub_plain_s=sub["plain_s"])
+
+
+def drawn_lanes_kernel_vs_plain(p_mat, cam_vec, scalars, n, spp, depth, n_lanes, label):
+    """A render of `n_lanes` pixels drawn across an image of `n` (numpy,
+    seed 0), scheduled as the main path schedules it (`_multipass`: the
+    budgeted pass, the compaction, the last pass), through the kernel and
+    through the plain version, bit for bit: the kernel takes pixel ids as
+    data, so the subset runs the image's own ids and streams. Returns the
+    lane-iterations and both times."""
+    import numpy as np
+    import torch
+
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_render as cr
+
     pix = np.random.default_rng(0).choice(n, size=n_lanes, replace=False)
     sf, si = cr._init_state(0, n_lanes, n, spp, DEVICE)
     si[cr._SI_PIX] = torch.from_numpy(pix).to(DEVICE, torch.int32)
@@ -875,20 +917,18 @@ def phase_long_render_kernel_vs_plain(preset, budget=8, n_lanes=65536):
         before = build.LAUNCHES["render_kernel"]
         torch_sync()
         t0 = time.perf_counter()
-        rad, work = cr._multipass(p_mat, cam_vec, (c.seed, 0, LONG_OFFSET, 0), sf.clone(), si.clone(),
-                                  tile, spp, depth, cr._default_budget(spp), cr.DEFAULT_PASSES, pass_fn)
+        rad, work = cr._multipass(p_mat, cam_vec, scalars, sf.clone(), si.clone(), cr.DEFAULT_TILE, spp,
+                                  depth, cr._default_budget(spp), cr.DEFAULT_PASSES, pass_fn)
         torch_sync()
         runs[name] = (rad, work, time.perf_counter() - t0, build.LAUNCHES["render_kernel"] - before)
-    (rad_k, work_k, sub_s, sub_launches), (rad_p, work_p, sub_plain_s, plain_launches) = runs.values()
-    check(sub_launches == cr.DEFAULT_PASSES and plain_launches == 0,
-          f"{label}: {sub_launches} kernel and {plain_launches} plain launches for a batch of "
+    (rad_k, work_k, kernel_s, launches), (rad_p, work_p, plain_s, plain_launches) = runs.values()
+    check(launches == cr.DEFAULT_PASSES and plain_launches == 0,
+          f"{label}: {launches} kernel and {plain_launches} plain launches for a render of "
           f"{cr.DEFAULT_PASSES} passes")
     check(torch.equal(rad_k, rad_p) and torch.equal(work_k, work_p),
-          f"{label}: the batch on {n_lanes} lanes differs from plain in "
+          f"{label}: the render of {n_lanes} drawn lanes differs from plain in "
           f"{int((rad_k != rad_p).sum())} radiance values (bit-identical required)")
-    return dict(n=n, budget=budget, full_plain_s=full_plain_s, full_iters=full_iters, started=started,
-                n_lanes=n_lanes, sub_iters=float(work_k.double().sum()), sub_s=sub_s,
-                sub_plain_s=sub_plain_s)
+    return dict(iters=float(work_k.double().sum()), kernel_s=kernel_s, plain_s=plain_s)
 
 
 PROBE_REPLACES = {
@@ -1310,6 +1350,183 @@ def phase_sharding_dryrun():
     return out
 
 
+# ---------------------------------------------------------------------------
+# 12. the book milestones (models/milestones.py, probes/closed_form.py)
+# ---------------------------------------------------------------------------
+
+# 12b: pixels drawn across each milestone image for the kernel against the
+# plain version, bit for bit. The plain version on the card runs one bounce
+# of every busy lane a step, so its time follows the longest pixel's
+# bounces more than the number of pixels.
+MILESTONE_LANES = 1024
+# 12d: the card against the CPU on the same integer draws, per shading
+# render: block-mean MAD on the 12x6 grid of tests/test_milestones.py, and
+# the share of pixels more than 1e-3 apart in some channel. Read on an H100
+# 80GB HBM3 at 700 W: MAD 2.6e-10-1.13e-5 and shares 0-0.0078% (the
+# float32 results of a few lanes round apart and their paths part).
+SHADING_CARD_GATE = 1e-4
+SHADING_CARD_SHARE = 1e-3
+# 12d: samples of each shading render held against the CPU. At the JAX
+# defaults the CPU versions take 88 s for the five renders, beside an H100.
+SHADING_CPU_SPP = 2
+
+
+def phase_milestones_full_width():
+    """12a: every milestone the final integrator renders, at the book's own
+    size (400 wide, 100 spp, depth 50), through `render_cuda`: a cold render
+    (it fills the schedule cache), then the timed warm one, which must hit
+    the cache and give the same bits. The launch counts are set to 0 just
+    before and read just after."""
+    import torch
+
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.models import milestones as M
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_render as cr
+    from ray_tracing_in_one_weekend_tpu_torch.probes import kernel_parts as kp
+
+    results = {}
+    build.reset_launches()
+    for name in M.MILESTONE_RENDERS:
+        label = f"phase 12a ({name})"
+        scene, cam = M.milestone_render(name, device=DEVICE)
+        before = build.LAUNCHES["render_kernel"]
+        torch_sync()
+        t0 = time.perf_counter()
+        cold, work = cr.render_cuda(scene, cam, return_work=True)
+        torch_sync()
+        cold_s = time.perf_counter() - t0
+        check(cr.warm_cache_hit(scene, cam), f"{label}: the warm render would miss the schedule cache")
+        t0 = time.perf_counter()
+        warm = cr.render_cuda(scene, cam)
+        torch_sync()
+        warm_s = time.perf_counter() - t0
+        launches = build.LAUNCHES["render_kernel"] - before
+        check(launches > 0, f"{label}: render_kernel was never launched")
+        check(bool(torch.isfinite(warm).all()), f"{label}: non-finite pixels")
+        check(torch.equal(cold, warm), f"{label}: the warm render differs from the cold one")
+        # The sweep's operations over the render's lane-iterations, against
+        # the packed scene, the camera and the lane state read and written once.
+        iters = float(work.double().sum())
+        slots, active = scene.num_slots, scene.num_active
+        lanes = -(-cam.num_pixels // cr.DEFAULT_TILE) * cr.DEFAULT_TILE
+        n_bytes = 4.0 * (cr.P_ROWS * slots + cr.CAM_LEN + 2 * lanes * (cr.SF_ROWS + cr.SI_ROWS))
+        # The function needs the active spheres' tests; the sweep tests all
+        # 128 slots, and that bound is kept beside it.
+        bound = kp.bound_ms(iters * active * kp.OPS_PER_SPHERE_TEST, n_bytes)
+        bound_padded = kp.bound_ms(iters * slots * kp.OPS_PER_SPHERE_TEST, n_bytes)
+        rays = cam.num_pixels * cam.samples_per_pixel
+        results[name] = dict(
+            shape=f"{cam.image_width}x{cam.image_height}", spp=cam.samples_per_pixel, depth=cam.max_depth,
+            slots=slots, active=active, launches=launches, cold_s=cold_s, warm_s=warm_s,
+            mrays_per_s=rays / warm_s / 1e6, iters=iters, bound_ms=bound[0], bound_by=bound[1],
+            bound_padded_ms=bound_padded[0], mean=float(warm.mean()))
+    total = build.LAUNCHES["render_kernel"]
+    check(total == sum(r["launches"] for r in results.values()), "phase 12a: launches outside the renders")
+    return results, total
+
+
+def phase_milestones_kernel_vs_plain(n_lanes=MILESTONE_LANES):
+    """12b: every milestone render on `n_lanes` pixels drawn across its
+    image, through the kernel and the plain version, bit for bit."""
+    from ray_tracing_in_one_weekend_tpu_torch.models import milestones as M
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_render as cr
+
+    results = {}
+    for name in M.MILESTONE_RENDERS:
+        scene, cam = M.milestone_render(name, device=DEVICE)
+        results[name] = drawn_lanes_kernel_vs_plain(
+            cr.pack_scene(scene), cr.pack_camera(cam), (0, 0, 0, 0), cam.num_pixels, cam.samples_per_pixel,
+            cam.max_depth, n_lanes, f"phase 12b ({name})")
+    return results
+
+
+def phase_closed_form_probes():
+    """12c: the five closed-form probes of tests/test_pallas.py through the
+    kernel, each held to its closed form and limit (`probes/closed_form.py`),
+    and each image bit-identical to the plain version's."""
+    import torch
+
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_render as cr
+    from ray_tracing_in_one_weekend_tpu_torch.probes import closed_form as cf
+
+    readings = {}
+    for name in cf.PROBES:
+        before = build.LAUNCHES["render_kernel"]
+        reading, images = cf.evaluate(name, lambda s, c: cr.render_cuda(s, c, warm=False), DEVICE)
+        check(build.LAUNCHES["render_kernel"] > before, f"phase 12c ({name}): render_kernel was never launched")
+        check(reading.holds, f"phase 12c: {reading.line()}")
+        scene, cams = cf.probe_setup(name, DEVICE)
+        for role, cam in cams.items():
+            check(torch.equal(images[role], cr.render_with(cr._render_pass_plain, scene, cam, warm=False)),
+                  f"phase 12c ({name}, {role}): the kernel's image differs from the plain version's")
+        readings[name] = reading
+    return readings
+
+
+def phase_shading_renders():
+    """12d: the four shading renders (both v2 modes) at full width on the
+    card, with the JAX package's default spp and depth (the close-up at
+    200x100): seconds, shape, finite. Then each render's first
+    SHADING_CPU_SPP samples (sample s's stream does not depend on spp) on
+    the card against the same function on the CPU: block means on the 12x6
+    grid within SHADING_CARD_GATE and at most SHADING_CARD_SHARE of the
+    pixels more than 1e-3 apart; the card's render under seed 1 must fail
+    that check. Then `first_gradient_image` at 1920x1080, byte for byte."""
+    import torch
+
+    from ray_tracing_in_one_weekend_tpu_torch.models import milestones as M
+    from ray_tracing_in_one_weekend_tpu_torch.utils import compare
+
+    def renders(device, **kw):
+        book = M.book_camera(device=device)
+        return {
+            "hit_flag": lambda: M.render_hit_flag(M.single_sphere_sky_scene(device=device), book, **kw),
+            "normals": lambda: M.render_normals(M.sphere_ground_scene(device=device), book, **kw),
+            "hemisphere": lambda: M.render_hemisphere_diffuse(M.sphere_ground_scene(device=device), book, **kw),
+            "always_refract": lambda: M.render_v2_dielectric(M.refract_trio_scene(device=device), book, **kw),
+            "tir_reflect": lambda: M.render_v2_dielectric(
+                M.refract_trio_scene(device=device), M.book_camera(200, aspect_ratio=2.0, device=device),
+                mode="tir_reflect", **kw),
+        }
+
+    def apart(a, b):
+        """(block MAD, share of pixels more than 1e-3 apart) of two images."""
+        return compare.grid_mad(a, b), float(((a.cpu() - b).abs().amax(dim=2) > 1e-3).double().mean())
+
+    full = renders(DEVICE)
+    card, cpu = renders(DEVICE, spp=SHADING_CPU_SPP), renders("cpu", spp=SHADING_CPU_SPP)
+    planted = renders(DEVICE, spp=SHADING_CPU_SPP, seed=1)
+    results = {}
+    for name in full:
+        torch_sync()
+        t0 = time.perf_counter()
+        img = full[name]()
+        torch_sync()
+        card_s = time.perf_counter() - t0
+        check(img.device.type == "cuda" and img.dtype == torch.float32, f"phase 12d ({name}): dtype or device")
+        check(bool(torch.isfinite(img).all()), f"phase 12d ({name}): non-finite pixels")
+        few = card[name]()
+        t0 = time.perf_counter()
+        ref = cpu[name]()
+        cpu_s = time.perf_counter() - t0
+        check(img.shape == few.shape == ref.shape, f"phase 12d ({name}): shapes {img.shape}, {ref.shape}")
+        mad, differ = apart(few, ref)
+        check(mad < SHADING_CARD_GATE and differ <= SHADING_CARD_SHARE,
+              f"phase 12d ({name}): card vs CPU block MAD {mad:.3e} (gate {SHADING_CARD_GATE}), "
+              f"{differ:.4%} of pixels apart (at most {SHADING_CARD_SHARE:.2%})")
+        fault = apart(planted[name](), ref)
+        check(fault[0] >= SHADING_CARD_GATE or fault[1] > SHADING_CARD_SHARE,
+              f"phase 12d ({name}): the card's render under seed 1 passes the gate against the CPU's "
+              f"under seed 0: block MAD {fault[0]:.3e}, {fault[1]:.4%} of pixels apart")
+        results[name] = dict(shape=f"{img.shape[1]}x{img.shape[0]}", card_s=card_s, cpu_s=cpu_s, mad=mad,
+                             differ=differ, fault=fault)
+    grad = M.first_gradient_image(1920, 1080, device=DEVICE)
+    check(torch.equal(grad.cpu(), M.first_gradient_image(1920, 1080, device="cpu")),
+          "phase 12d: first_gradient_image on the card differs from the CPU's")
+    return results
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1445,10 +1662,11 @@ def main(argv=None) -> int:
     torch_sync()
     plain_ms = (time.perf_counter() - t0) * 1e3
     full = compare.lane_states(of_k, oi_k, of_p, oi_p, n, spp)
-    # The forward pass's bound: the sweep's operations over this pass's
-    # lane-iterations, against its lane state read and written once.
+    # The forward pass's bound: the active spheres' tests over this pass's
+    # lane-iterations (the sweep also tests the padding slots, which the
+    # function does not need), against its lane state read and written once.
     render_bound = kp.bound_ms(
-        float(of_k[cr._SF_WORK].double().sum()) * p_mat.shape[1] * kp.OPS_PER_SPHERE_TEST,
+        float(of_k[cr._SF_WORK].double().sum()) * scene.num_active * kp.OPS_PER_SPHERE_TEST,
         4.0 * (table.numel() + cam_vec.numel() + 2 * (sf.numel() + si.numel())))
     # Built without FMA contraction, the kernel rounds every operation as the
     # plain version does, so at the main path's shapes the two are identical.
@@ -1648,6 +1866,37 @@ def main(argv=None) -> int:
     sharded_launches = {name: {label: r["launches"][name] for label, r in shard.items()}
                         for name in PATH_KERNELS}
 
+    # 12. the book milestones
+    torch.cuda.empty_cache()
+    t12 = time.perf_counter()
+    miles, miles_launches = phase_milestones_full_width()
+    for name, r in miles.items():
+        say(f"phase 12a {name} ({r['shape']}, spp {r['spp']}, depth {r['depth']}; {r['active']} of "
+            f"{r['slots']} slots active): render_kernel launches {r['launches']}; warm render "
+            f"{r['warm_s']:.4f}s = {r['mrays_per_s']:.2f} Mrays/s (cold {r['cold_s']:.4f}s, the same bits); "
+            f"{r['iters']:.0f} lane-iterations; bound {r['bound_ms']:.3f} ms by {r['bound_by']} over the "
+            f"{r['active']} active slots ({r['bound_ms'] / (r['warm_s'] * 1e3):.2%} of the warm render), "
+            f"{r['bound_padded_ms']:.3f} ms over all {r['slots']} the sweep tests "
+            f"({r['bound_padded_ms'] / (r['warm_s'] * 1e3):.1%}); finite, mean {r['mean']:.4f} [{smi}]")
+    lanes = phase_milestones_kernel_vs_plain()
+    say(f"phase 12b kernel vs plain, {MILESTONE_LANES} pixels drawn across each image at the book's "
+        f"size ({cr.DEFAULT_PASSES} passes with compaction): bit-identical radiance and work on all "
+        f"{len(lanes)}; " + "; ".join(f"{n} {r['iters']:.0f} lane-iterations, kernel {r['kernel_s']:.4f}s, "
+                                      f"plain {r['plain_s']:.2f}s" for n, r in lanes.items()) + f" [{smi}]")
+    probes_cf = phase_closed_form_probes()
+    say("phase 12c closed-form probes through the kernel (images bit-identical to the plain version's): "
+        + "; ".join(r.line() for r in probes_cf.values()))
+    shading = phase_shading_renders()
+    say("phase 12d shading renders at full width on the card (JAX defaults: seconds), and their first "
+        f"{SHADING_CPU_SPP} samples against the CPU (block MAD on the 12x6 grid, gate {SHADING_CARD_GATE:g}; "
+        f"pixels > 1e-3 apart, at most {SHADING_CARD_SHARE:.2%}; CPU seconds; the card under seed 1 against "
+        "the CPU under seed 0, which must miss): " + "; ".join(
+            f"{n} {r['shape']} card {r['card_s']:.3f}s, {r['mad']:.2e}, {r['differ']:.4%}, CPU "
+            f"{r['cpu_s']:.2f}s, card under seed 1 {r['fault'][0]:.2e}, {r['fault'][1]:.4%}"
+            for n, r in shading.items())
+        + f"; first_gradient_image 1920x1080 byte-equal [{smi}]")
+    say(f"phase 12 took {time.perf_counter() - t12:.1f}s")
+
     check("jax" not in sys.modules and "flax" not in sys.modules, "JAX was imported")
     say(smi)
     grad_tol = (f"the gradient after the reduction: per field rel L2 <= {GRAD_GATE} against the plain "
@@ -1681,6 +1930,11 @@ def main(argv=None) -> int:
         "render_warm_hit": run.warm_hit,
         "mrays_per_s": run.mrays_per_s,
         "pass_times_s": times,
+        "launches_milestones": miles_launches,
+        "milestones": {n: {k: r[k] for k in ("shape", "launches", "warm_s", "mrays_per_s", "bound_ms",
+                                              "bound_by", "bound_padded_ms")} for n, r in miles.items()},
+        "milestone_lanes_bit_identical": {n: MILESTONE_LANES for n in lanes},
+        "closed_form": {n: {"value": r.value, "limit": r.limit} for n, r in probes_cf.items()},
     }, {
         "name": "grad_replay_kernel",
         "route": "cuda",

@@ -15,7 +15,8 @@ long render: progressive accumulation with checkpoints
 NaN guards (`utils/debug.py`) and PNG output (`utils/png.py`); and the
 pixel x sample sharding of the render and the train step over
 torch.distributed, one process a rank (`parallel/`), with the entry
-points' multi-rank dry run (`entry.py`).
+points' multi-rank dry run (`entry.py`); and the book's milestone scenes,
+cameras and shading renders (`models/milestones.py`).
 
 Scenes and cameras are built on the card unless the caller passes
 `device="cpu"`; without a GPU the default raises.

@@ -82,11 +82,12 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def launch(jobs: list, n_ranks: int, out_dir, device: str = "cpu", backend: str | None = None,
+def launch(jobs: list, n_ranks: int, out_dir, *, device: str, backend: str | None = None,
            timeout: float = 120.0, threads: int = 2) -> list:
     """Run `jobs` on `n_ranks` local ranks -> each rank's list of results,
     in rank order. `device` "cpu" or "cuda" (every rank on
-    LOCAL_RANK % device_count); `backend` None lets `init_distributed`
+    LOCAL_RANK % device_count), required: no entry point picks the CPU
+    unless asked; `backend` None lets `init_distributed`
     choose. Each rank runs with at most `threads` torch threads. Raises
     `WorkerError` if a rank exits non-zero or the launch outlives
     `timeout` seconds; either way no rank is left running."""

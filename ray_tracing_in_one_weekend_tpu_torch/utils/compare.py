@@ -92,3 +92,18 @@ def images(img_a, img_b, block=10, atol=1e-3) -> Agreement:
         block_max_err=float(block_err.max()),
         mean_diff=float((a.mean() - b.mean()).abs()),
     )
+
+
+def grid_mad(img_a, img_b, grid=(12, 6)) -> float:
+    """Mean |difference| of two [H, W, 3] images' block means on a `grid`
+    of (blocks across, blocks down), per channel: the statistic of the
+    JAX package's milestone tests (tests/test_milestones.py), where
+    Monte-Carlo noise averages out and a shading fault shifts blocks."""
+    gw, gh = grid
+
+    def blocks(x):
+        x = torch.as_tensor(x).detach().cpu().double()
+        bh, bw = x.shape[0] // gh, x.shape[1] // gw
+        return x[: gh * bh, : gw * bw].reshape(gh, bh, gw, bw, 3).mean(dim=(1, 3))
+
+    return float((blocks(img_a) - blocks(img_b)).abs().mean())

@@ -3,7 +3,7 @@
 These tests need an NVIDIA GPU with nvcc (they build csrc/ on first use)
 and skip without one. They repeat phases 3-5, 7a, 8 and 9 of
 chip_smoke.py (7a: the replay kernel's records and the reverse kernel's
-events against their plain versions), check that the wrappers refuse
+events against their plain versions; 12b: the milestone scenes), check that the wrappers refuse
 what the kernels do not take, and read the sweep kernels' occupancy.
 On the card:
 
@@ -15,6 +15,7 @@ import dataclasses
 import pytest
 import torch
 
+from ray_tracing_in_one_weekend_tpu_torch.models import milestones
 from ray_tracing_in_one_weekend_tpu_torch.models import scene as scene_lib
 from ray_tracing_in_one_weekend_tpu_torch.models.camera import make_camera
 from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_render as cr
@@ -512,3 +513,20 @@ def test_dryrun_multichip_on_the_card(dev):
 
     res = entry.dryrun_multichip(2, device="cuda", timeout=300.0)
     assert res["mesh"] == (2, 1) and res["losses"][0] > 0.0
+
+
+@pytest.mark.parametrize("name", milestones.MILESTONE_RENDERS)
+def test_milestone_kernel_equals_plain(dev, name):
+    """Each milestone scene and camera of the final integrator (a negative
+    radius, the 90-degree pinhole, the aperture lens, 1-5 active spheres in
+    128 slots, the sky alone) through the kernel, bit-identical to the
+    plain version at 64 wide, spp 4, depth 8."""
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+
+    scene, cam = milestones.milestone_render(name, image_width=64, spp=4, max_depth=8, device=dev)
+    before = build.LAUNCHES["render_kernel"]
+    img_k = cr.render_cuda(scene, cam, warm=False)
+    assert build.LAUNCHES["render_kernel"] > before
+    img_p = cr.render_with(cr._render_pass_plain, scene, cam, warm=False)
+    assert bool(torch.isfinite(img_k).all())
+    assert torch.equal(img_k, img_p)

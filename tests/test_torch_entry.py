@@ -63,3 +63,16 @@ def test_sharding_modules_never_import_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "clean"
+
+
+def test_worker_launch_asks_for_its_device():
+    """`parallel/worker.launch` takes `device` as a required keyword: no
+    launch runs its ranks on the CPU unless the caller asks."""
+    import inspect
+
+    from ray_tracing_in_one_weekend_tpu_torch.parallel import worker
+
+    param = inspect.signature(worker.launch).parameters["device"]
+    assert param.kind is inspect.Parameter.KEYWORD_ONLY and param.default is inspect.Parameter.empty
+    with pytest.raises(TypeError, match="device"):
+        worker.launch([], 1, REPO)

@@ -14,6 +14,7 @@ import torch
 from ray_tracing_in_one_weekend_tpu.models import scene as jax_scene
 from ray_tracing_in_one_weekend_tpu.models.camera import make_camera as jax_make_camera
 from ray_tracing_in_one_weekend_tpu.ops import pallas_render as pr
+from ray_tracing_in_one_weekend_tpu_torch.models import milestones
 from ray_tracing_in_one_weekend_tpu_torch.models import scene as scene_lib
 from ray_tracing_in_one_weekend_tpu_torch.models.camera import (
     camera_from_numpy,
@@ -153,9 +154,20 @@ def test_cover_scene_statistics():
                 "defocus_disk_u", "defocus_disk_v", "defocus_angle")}, 32, 21, 10, 50),
         lambda: make_scene_from_config(RenderConfig()),
         lambda: make_camera_from_config(RenderConfig()),
+        lambda: milestones.book_camera(),
+        lambda: milestones.positioned_camera(),
+        lambda: milestones.sphere_ground_scene(),
+        lambda: milestones.metal_trio_scene(),
+        lambda: milestones.glass_trio_scene(hollow=True),
+        lambda: milestones.two_sphere_wide_scene(),
+        lambda: milestones.refract_trio_scene(),
+        lambda: milestones.single_sphere_sky_scene(),
+        lambda: milestones.first_gradient_image(4, 2),
     ],
     ids=["scene_from_numpy", "from_spheres", "single", "three", "cover_reference", "cover",
-         "make_camera", "camera_from_numpy", "scene_from_config", "camera_from_config"],
+         "make_camera", "camera_from_numpy", "scene_from_config", "camera_from_config",
+         "book_camera", "positioned_camera", "sphere_ground", "metal_trio", "glass_trio",
+         "two_sphere_wide", "refract_trio", "single_sphere_sky", "first_gradient_image"],
 )
 def test_builders_default_to_the_card_and_never_fall_back(build, monkeypatch):
     """Called without `device`, every builder builds on the card; without a
