@@ -12,7 +12,9 @@ occupancy and roofline probes; at the gpu and cpu-mt presets (500 spp)
 the long render, checkpointed, resumed and retried; in local ranks at
 the bench preset, the sharded render, train step, CLI and dry run; and
 the book's milestone scenes and cameras at the book's size, the
-closed-form render probes and the milestone shading renders.
+closed-form render probes and the milestone shading renders; the four
+reference presets at 500 spp, held to the reference's image and to the
+TPU's renders, and the scheduling sweep.
 
 Phases, one line each; any failure raises and the script exits non-zero
 without the result lines:
@@ -152,6 +154,30 @@ without the result lines:
       in 12x6 block means and the share of pixels apart (SHADING_CARD_GATE,
       SHADING_CARD_SHARE), which the card's render under another seed must
       miss; and `first_gradient_image` at 1920x1080 byte for byte.
+13. the gallery and the scheduling sweep (`scripts/render_artifact.py`,
+   `scripts/render_gallery.py`, `utils/manifest.py`, `utils/png.py`,
+   `probes/sweep_sched.py`):
+   a. the cpu preset (1200x800, aperture 0.1) at 500 spp in 5 batches of
+      100 through `render_preset` on the reference's exact scene:
+      render_kernel launched in every batch, the PNG read back byte-equal
+      to the quantized image, and within the gates of
+      tests/test_golden_fullres.py against the reference's own render
+      (MAD < 2.5, p99 <= 25, max <= 220 8-bit levels);
+   b. each of the four presets (cpu, gpu, gpu-old, cpu-mt) at 500 spp on
+      the scene of the TPU's render in gallery/, under render seeds 0 and
+      1: noise = MAD(seed 0, seed 1); MAD(seed 0, the TPU's render) must
+      lie below TPU_GATE x noise, MAD(seed 1, the TPU's render) must not
+      (the wrong pairing); render_kernel launched in every batch;
+   c. the manifest beside the renders: one entry a render with the sources
+      digest, the git commit and the card; the digest moves with one byte
+      of a copied render_device.cuh, not with a docstring;
+   d. the scheduling sweep's default grid at the bench preset, cold, 1
+      untimed + 3 timed renders a configuration, every image equal to the
+      default schedule's, one launch a pass; best ms and Mrays/s each;
+   e. the kernel against the plain version at the gallery's last batch
+      (100 spp at sample_offset 400) on GALLERY_LANES pixels drawn across
+      the cpu preset's image (the reference scene, the aperture lens) and
+      the gpu preset's (the JAX scene), bit for bit.
 
 Then it prints nvidia-smi's line, a JSON line of per-kernel results, and
 last `{"ok": true, "device": {...}}`. It imports no JAX.
@@ -162,8 +188,10 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import shutil
 import statistics
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1527,6 +1555,135 @@ def phase_shading_renders():
     return results
 
 
+# ---------------------------------------------------------------------------
+# 13. the gallery and the scheduling sweep (scripts/render_artifact.py,
+#     scripts/render_gallery.py, utils/manifest.py, utils/png.py,
+#     probes/sweep_sched.py)
+# ---------------------------------------------------------------------------
+
+GALLERY_SPP, GALLERY_BATCH = 500, 100
+# 13e: pixels drawn across the image for the gallery's last batch, kernel
+# against the plain version.
+GALLERY_LANES = 16384
+
+
+def phase_gallery(out_dir):
+    """13a-13b: the four presets at 500 spp in batches of 100 through
+    `render_artifact.render_preset` on the scenes of the TPU's renders, under
+    render seeds 0 and 1 (`render_gallery.check_preset`): render_kernel
+    launched in every batch; the cpu preset's PNG read back byte-equal and
+    within the golden's gates; each preset's seed-0 render within
+    TPU_GATE x noise of the TPU's render, and its seed-1 render not. The
+    launch counts are set to 0 just before and read just after."""
+    import numpy as np
+    import torch
+
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.scripts import render_artifact as ra
+    from ray_tracing_in_one_weekend_tpu_torch.scripts import render_gallery as rg
+    from ray_tracing_in_one_weekend_tpu_torch.utils.png import read_png
+
+    build.reset_launches()
+    cpu = ra.render_preset("cpu", GALLERY_SPP, GALLERY_BATCH, out_dir=str(out_dir), seed=0, device=DEVICE,
+                           jax_scene=True)
+    check(np.array_equal(read_png(cpu.path), cpu.u8), "phase 13a: the PNG read back is not the quantized image")
+    checks = {"cpu": rg.check_preset("cpu", out_dir=str(out_dir), device=DEVICE, seed0=cpu)}
+    for preset in rg.GALLERY_PRESETS[1:]:
+        checks[preset] = rg.check_preset(preset, GALLERY_SPP, str(out_dir), DEVICE)
+    for preset, c in checks.items():
+        for art in (c.seed0, c.seed1):
+            label = f"phase 13 ({art.name})"
+            check(art.entry["spp"] == GALLERY_SPP and len(art.batch_s) == GALLERY_SPP // GALLERY_BATCH,
+                  f"{label}: {art.entry['spp']} spp in {len(art.batch_s)} batches")
+            check(min(art.launches) >= 1, f"{label}: render_kernel launches a batch {art.launches}, "
+                                          f"one or more each required")
+            check(bool(torch.isfinite(art.image).all()), f"{label}: non-finite pixels")
+        check(c.tpu_path is not None, f"phase 13b ({preset}): no TPU render of the preset in gallery/")
+        check(not c.failures, f"phase 13 ({preset}): " + "; ".join(c.failures))
+    check(checks["cpu"].vs_golden is not None, "phase 13a: the cpu preset was not held against the golden")
+    return checks, build.LAUNCHES["render_kernel"]
+
+
+def phase_manifest(out_dir, checks, smi):
+    """13c: the manifest beside the renders holds one entry a render, each
+    with this checkout's sources digest, a git commit and the card; the
+    digest moves when one byte of a copied render_device.cuh does, and not
+    when only a docstring of a copied cuda_render.py does."""
+    from ray_tracing_in_one_weekend_tpu_torch.utils import manifest
+
+    m = manifest.load(str(out_dir))
+    names = sorted(a.name for c in checks.values() for a in (c.seed0, c.seed1))
+    check(sorted(m) == names, f"phase 13c: manifest entries {sorted(m)}, the renders {names}")
+    digest = manifest.render_sources_digest()
+    for name, e in m.items():
+        check(e["render_sources_digest"] == digest, f"phase 13c ({name}): digest {e['render_sources_digest']}")
+        check(bool(e["git_commit"]), f"phase 13c ({name}): no git commit")
+        check(e["card"] == smi and e["backend"] == "cuda", f"phase 13c ({name}): card {e['card']!r}, "
+                                                          f"backend {e['backend']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        for rel in manifest.RENDER_SOURCES:
+            (Path(tmp) / rel).parent.mkdir(parents=True, exist_ok=True)
+            shutil.copy(REPO / rel, Path(tmp) / rel)
+        check(manifest.render_sources_digest(tmp) == digest, "phase 13c: the copied sources' digest differs")
+        cuh = Path(tmp) / PKG / "csrc" / "render_device.cuh"
+        data = bytearray(cuh.read_bytes())
+        data[len(data) // 2] ^= 1
+        cuh.write_bytes(bytes(data))
+        check(manifest.render_sources_digest(tmp) != digest, "phase 13c: a byte of render_device.cuh changed "
+                                                             "and the digest did not")
+        shutil.copy(REPO / PKG / "csrc" / "render_device.cuh", cuh)
+        py = Path(tmp) / PKG / "ops" / "cuda_render.py"
+        src = py.read_text()
+        check(src.count('"""The forward render:') == 1, "phase 13c: cuda_render.py's docstring moved")
+        py.write_text(src.replace('"""The forward render:', '"""The render forward:'))
+        check(manifest.render_sources_digest(tmp) == digest, "phase 13c: a docstring changed the digest")
+    return {"entries": len(m), "digest": digest, "git_commit": sorted({e["git_commit"] for e in m.values()})}
+
+
+def phase_gallery_kernel_vs_plain(presets=("cpu", "gpu")):
+    """13e: render_kernel against `_render_pass_plain` at the gallery's
+    shapes: its last batch (GALLERY_BATCH samples at sample_offset
+    GALLERY_SPP - GALLERY_BATCH) on GALLERY_LANES pixels drawn across the
+    image, scheduled as the main path schedules it, bit for bit. The cpu
+    preset runs the reference's scene and the aperture lens, the gpu
+    preset the JAX package's cover_scene(0) and the defocus angle."""
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_render as cr
+    from ray_tracing_in_one_weekend_tpu_torch.scripts import render_artifact as ra
+    from ray_tracing_in_one_weekend_tpu_torch.utils.config import PRESETS, make_camera_from_config
+
+    results = {}
+    for preset in presets:
+        config = PRESETS[preset]
+        scene, _ = ra.preset_scene(preset, config, DEVICE, jax_scene=True)
+        cam = make_camera_from_config(config, DEVICE)
+        results[preset] = drawn_lanes_kernel_vs_plain(
+            cr.pack_scene(scene), cr.pack_camera(cam), (0, 0, GALLERY_SPP - GALLERY_BATCH, 0), cam.num_pixels,
+            GALLERY_BATCH, cam.max_depth, GALLERY_LANES, f"phase 13e ({preset})")
+    return results
+
+
+def phase_sweep():
+    """13d: `probes/sweep_sched.py`'s default grid at the bench preset, cold,
+    1 untimed and 3 timed renders a configuration; every image equal to the
+    default schedule's (the sweep raises otherwise). The launch counts are
+    set to 0 just before and read just after."""
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.probes import sweep_sched
+    from ray_tracing_in_one_weekend_tpu_torch.utils.config import (
+        PRESETS,
+        make_camera_from_config,
+        make_scene_from_config,
+    )
+
+    config = PRESETS["bench"]
+    scene, cam = make_scene_from_config(config, DEVICE), make_camera_from_config(config, DEVICE)
+    build.reset_launches()
+    results = sweep_sched.sweep(scene, cam)
+    for r in results:
+        check(r.launches == r.passes, f"phase 13d: {r.line()}: not one launch a pass")
+    return results, build.LAUNCHES["render_kernel"]
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1897,6 +2054,45 @@ def main(argv=None) -> int:
         + f"; first_gradient_image 1920x1080 byte-equal [{smi}]")
     say(f"phase 12 took {time.perf_counter() - t12:.1f}s")
 
+    # 13. the gallery and the scheduling sweep
+    from ray_tracing_in_one_weekend_tpu_torch.scripts import render_gallery as rg
+
+    torch.cuda.empty_cache()
+    t13 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as gallery_dir:
+        gallery, gallery_launches = phase_gallery(gallery_dir)
+        manifest_info = phase_manifest(gallery_dir, gallery, smi)
+    for preset, c in gallery.items():
+        e0, e1 = c.seed0.entry, c.seed1.entry
+        say(f"phase 13{'a' if preset == 'cpu' else 'b'} gallery {preset} ({e0['width']}x{e0['height']}, "
+            f"{e0['spp']} spp in batches of {GALLERY_BATCH}, {e0['scene']}): render_kernel launches a batch "
+            f"{list(c.seed0.launches)}, seed 1 {list(c.seed1.launches)}; seconds a batch "
+            + ", ".join(f"{t:.4f}" for t in c.seed0.batch_s) + f" = {e0['render_seconds']:.3f}s, "
+            f"{e0['mrays_per_s']:.2f} Mrays/s steady, {e0['mrays_per_s_incl_first']:.2f} incl the first "
+            f"(seed 1 {e1['render_seconds']:.3f}s)"
+            + (f"; vs reference golden: {c.vs_golden.line()} (gates MAD < {rg.GOLDEN_GATES['mad']:g}, p99 <= "
+               f"{rg.GOLDEN_GATES['p99']:g}, max <= {rg.GOLDEN_GATES['max']:g}); PNG read back byte-equal"
+               if c.vs_golden is not None else "")
+            + f"; vs TPU {Path(c.tpu_path).name}: {c.vs_tpu.line()}; noise (seed 0 vs seed 1) MAD "
+            f"{c.noise:.4f}; seed 1 vs TPU: {c.seed1_vs_tpu.line()} (gate: seed 0 below {rg.TPU_GATE} x noise "
+            f"= {rg.TPU_GATE * c.noise:.4f}, seed 1 not) [{smi}]")
+    say(f"phase 13c manifest: {manifest_info['entries']} entries, one a render, each with digest "
+        f"{manifest_info['digest'][:16]}..., git commit {manifest_info['git_commit']} and the card; the digest "
+        f"moves with a byte of a copied render_device.cuh and not with a docstring of a copied cuda_render.py")
+    sweep, sweep_launches = phase_sweep()
+    best = min(sweep, key=lambda r: r.best_s)
+    say("phase 13d scheduling sweep (bench preset, cold, 1 untimed + 3 timed renders a configuration, every "
+        "image equal to the default schedule's): " + "; ".join(r.line() for r in sweep)
+        + f"; best tile={best.tile} budget={best.budget} passes={best.passes} {best.best_s * 1e3:.3f} ms "
+        f"[{smi}]")
+    lanes13 = phase_gallery_kernel_vs_plain()
+    say(f"phase 13e kernel vs plain at the gallery's last batch ({GALLERY_BATCH} spp at sample_offset "
+        f"{GALLERY_SPP - GALLERY_BATCH}, {cr.DEFAULT_PASSES} passes with compaction) on {GALLERY_LANES} pixels "
+        f"drawn across each image: bit-identical radiance and work; " + "; ".join(
+            f"{p} {r['iters']:.0f} lane-iterations, kernel {r['kernel_s']:.4f}s, plain {r['plain_s']:.2f}s"
+            for p, r in lanes13.items()) + f" [{smi}]")
+    say(f"phase 13 took {time.perf_counter() - t13:.1f}s")
+
     check("jax" not in sys.modules and "flax" not in sys.modules, "JAX was imported")
     say(smi)
     grad_tol = (f"the gradient after the reduction: per field rel L2 <= {GRAD_GATE} against the plain "
@@ -1935,6 +2131,15 @@ def main(argv=None) -> int:
                                               "bound_by", "bound_padded_ms")} for n, r in miles.items()},
         "milestone_lanes_bit_identical": {n: MILESTONE_LANES for n in lanes},
         "closed_form": {n: {"value": r.value, "limit": r.limit} for n, r in probes_cf.items()},
+        "launches_gallery": gallery_launches,
+        "gallery": {p: {"seconds": c.seed0.entry["render_seconds"], "steady_mrays_per_s": c.seed0.entry["mrays_per_s"],
+                        "vs_tpu_mad": c.vs_tpu.mad, "vs_tpu_p99": c.vs_tpu.p99, "vs_tpu_max": c.vs_tpu.max,
+                        "vs_tpu_equal_pixels": c.vs_tpu.equal, "vs_tpu_bias": c.vs_tpu.bias, "noise_mad": c.noise,
+                        "seed1_vs_tpu_mad": c.seed1_vs_tpu.mad} for p, c in gallery.items()},
+        "gallery_vs_golden": dataclasses.asdict(gallery["cpu"].vs_golden),
+        "gallery_lanes_bit_identical": {p: GALLERY_LANES for p in lanes13},
+        "launches_sweep": sweep_launches,
+        "sweep_best_ms": {f"{r.tile}:{r.budget}:{r.passes}": r.best_s * 1e3 for r in sweep},
     }, {
         "name": "grad_replay_kernel",
         "route": "cuda",

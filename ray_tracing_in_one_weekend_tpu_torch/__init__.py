@@ -16,7 +16,9 @@ NaN guards (`utils/debug.py`) and PNG output (`utils/png.py`); and the
 pixel x sample sharding of the render and the train step over
 torch.distributed, one process a rank (`parallel/`), with the entry
 points' multi-rank dry run (`entry.py`); and the book's milestone scenes,
-cameras and shading renders (`models/milestones.py`).
+cameras and shading renders (`models/milestones.py`); and the gallery:
+the reference presets written as PNG with a manifest, held against the
+reference's image and the TPU's renders (`scripts/`, `utils/manifest.py`).
 
 Scenes and cameras are built on the card unless the caller passes
 `device="cpu"`; without a GPU the default raises.

@@ -10,6 +10,7 @@ needs one CUDA GPU with nvcc:
     python -m ray_tracing_in_one_weekend_tpu_torch.probes.sweep_variants [--parent DIR]
     python -m ray_tracing_in_one_weekend_tpu_torch.probes.reduce_parts [--parent DIR]
     python -m ray_tracing_in_one_weekend_tpu_torch.probes.cold_step [--parent DIR]
+    python -m ray_tracing_in_one_weekend_tpu_torch.probes.sweep_sched [tile:budget:passes ...]
 
 Nothing on the render path imports them.
 """

@@ -228,7 +228,9 @@ def test_port_never_imports_jax(tmp_path):
         "from ray_tracing_in_one_weekend_tpu_torch.probes import device_idle, fma_contraction\n"
         "from ray_tracing_in_one_weekend_tpu_torch.probes import kernel_parts, perf_probe\n"
         "from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import _compact\n"
-        "from ray_tracing_in_one_weekend_tpu_torch.utils import checkpoint, debug, png, resilient\n"
+        "from ray_tracing_in_one_weekend_tpu_torch.utils import checkpoint, debug, manifest, png, resilient\n"
+        "from ray_tracing_in_one_weekend_tpu_torch.scripts import render_artifact, render_gallery\n"
+        "from ray_tracing_in_one_weekend_tpu_torch.probes import sweep_sched\n"
         "img = rt.render_cuda(rt.single_sphere_scene(pad_to=128, device='cpu'), rt.make_camera("
         "image_width=16, aspect_ratio=2.0, samples_per_pixel=1, max_depth=2, device='cpu'))\n"
         "assert img.shape == (8, 16, 3)\n"
