@@ -14,7 +14,8 @@ the bench preset, the sharded render, train step, CLI and dry run; and
 the book's milestone scenes and cameras at the book's size, the
 closed-form render probes and the milestone shading renders; the four
 reference presets at 500 spp, held to the reference's image and to the
-TPU's renders, and the scheduling sweep.
+TPU's renders, and the scheduling sweep; and, with no kernel, the
+differentiable render under torch.autograd, held to the kernels.
 
 Phases, one line each; any failure raises and the script exits non-zero
 without the result lines:
@@ -178,6 +179,24 @@ without the result lines:
       (100 spp at sample_offset 400) on GALLERY_LANES pixels drawn across
       the cpu preset's image (the reference scene, the aperture lens) and
       the gpu preset's (the JAX scene), bit for bit.
+14. the differentiable render under torch.autograd (`ops/integrator.py`,
+   `ops/render.py`, `parallel.dist.render_grads`), plain PyTorch on the
+   card that must launch no kernel (launch counts from 0 in each part):
+   a. at 64x32, spp 4, depth 8: `render(differentiable=True)` bit-identical
+      to `render_cuda` (the kernel), and `render_grads`' loss and
+      gradients against `render_grads_cuda`'s (the loss within 1e-6
+      relative, each field within GRAD_GATE relative L2);
+   b. at the bench preset, on phase 7b's 16384 drawn pixels: `render_pixels`
+      bit-identical to those pixels of `render_cuda`, and the autograd
+      gradient for the image cotangent that 7b's per-sample cotangent `g`
+      stands for (g · spp) against `build.grad_pass` on the same lanes,
+      each field within GRAD_GATE;
+   c. the slice at full width: `render_grads` once at the bench preset
+      with a zero target at the default chunk (seconds, step Mrays/s, peak
+      memory), the loss within 1e-6 relative of `render_grads_cuda`'s and
+      each field within GRAD_GATE; then the forward alone (`render`, no
+      tape), timed and bit-identical to `render_cuda` at full width;
+   d. `inverse_render --grad autograd` on the card: exit 0.
 
 Then it prints nvidia-smi's line, a JSON line of per-kernel results, and
 last `{"ok": true, "device": {...}}`. It imports no JAX.
@@ -1684,6 +1703,161 @@ def phase_sweep():
     return results, build.LAUNCHES["render_kernel"]
 
 
+# ---------------------------------------------------------------------------
+# 14. the differentiable render under torch.autograd (ops/integrator.py,
+#     ops/render.py, parallel.dist.render_grads)
+# ---------------------------------------------------------------------------
+
+# 14a-c's gate on the loss against the kernels', relative: the image is
+# the same bits, so the loss is too; the gate allows float32 summation
+# order (tests/test_pallas_grad.py:171-181).
+AUTOGRAD_LOSS_GATE = 1e-6
+
+
+def leaf_params(scene):
+    """The scene's differentiable fields as fresh leaves that require grad."""
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_grad as cg
+
+    return {k: v.detach().requires_grad_() for k, v in cg.scene_params(scene).items()}
+
+
+def check_no_launch(label):
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+
+    launched = {k: v for k, v in build.LAUNCHES.items() if v}
+    check(not launched, f"{label}: the autograd path launched kernels {launched}")
+
+
+def check_grads(label, grads, want):
+    """Per field, the relative L2 of `grads` against `want` (dicts of
+    fields), each within GRAD_GATE."""
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_grad as cg
+    from ray_tracing_in_one_weekend_tpu_torch.probes import rel_l2
+
+    errs = {k: rel_l2(grads[k], want[k]) for k in cg.DIFF_FIELDS}
+    for k, e in errs.items():
+        check(e <= GRAD_GATE, f"{label}: {k} gradient, autograd vs kernels rel L2 {e:.2e} > {GRAD_GATE}")
+    return errs
+
+
+def check_loss(label, loss, want):
+    err = abs(float(loss) - float(want)) / float(want)
+    check(err <= AUTOGRAD_LOSS_GATE, f"{label}: loss {float(loss)!r} vs the kernels' {float(want)!r}")
+    return err
+
+
+def phase_autograd_small(scene, cam):
+    """14a: the value and the gradient at 64x32 against the kernels'."""
+    import torch
+
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_grad as cg
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_render as cr
+    from ray_tracing_in_one_weekend_tpu_torch.ops import render as rr
+    from ray_tracing_in_one_weekend_tpu_torch.parallel import dist as pdist
+
+    target = torch.zeros(cam.image_height, cam.image_width, 3, device=DEVICE)
+    want = cr.render_cuda(scene, cam)
+    loss_k, grads_k = cg.render_grads_cuda(cg.scene_params(scene), scene, cam, target)
+    torch_sync()
+    build.reset_launches()
+    img = rr.render(cg.scene_with_params(scene, leaf_params(scene)), cam, differentiable=True)
+    check(img.grad_fn is not None, "phase 14a: render(differentiable=True) recorded no tape")
+    loss, grads = pdist.render_grads(cg.scene_params(scene), scene, cam, target)
+    torch_sync()
+    check_no_launch("phase 14a")
+    check(torch.equal(img.detach(), want), "phase 14a: render(differentiable=True) differs from render_cuda")
+    return check_loss("phase 14a", loss, loss_k), check_grads("phase 14a", grads, grads_k)
+
+
+def phase_autograd_subset(scene, cam, n_lanes=16384):
+    """14b: at the bench preset on phase 7b's drawn pixels and cotangent:
+    `render_pixels` against `render_cuda` bit for bit, and the autograd
+    gradient against `build.grad_pass` on the same lanes."""
+    import numpy as np
+    import torch
+
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_grad as cg
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_render as cr
+    from ray_tracing_in_one_weekend_tpu_torch.ops import render as rr
+    from ray_tracing_in_one_weekend_tpu_torch.probes import random_cotangent
+
+    spp, depth, n = cam.samples_per_pixel, cam.max_depth, cam.num_pixels
+    p_mat, cam_vec = cr.pack_scene(scene), cr.pack_camera(cam)
+    img, work = cr.render_cuda(scene, cam, return_work=True)
+    work = work.reshape(-1)
+    pix = torch.from_numpy(np.random.default_rng(0).choice(n, size=n_lanes, replace=False)).to(DEVICE)
+    pix = pix[cr._cost_perm(work[pix])].to(torch.int32)
+    g = random_cotangent((3, n_lanes), 2, DEVICE) / spp
+    pk = build.grad_pass(p_mat.T.contiguous(), cam_vec, (0, 0, 0, n), pix, g, work, cg.DEFAULT_BWD_TILE,
+                         spp, depth)
+    torch_sync()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    leaves = leaf_params(scene)
+    colors = rr.render_pixels(cg.scene_with_params(scene, leaves), cam, pix, differentiable=True)
+    grads = dict(zip(leaves, torch.autograd.grad(colors, list(leaves.values()),
+                                                 grad_outputs=(g * spp).T.contiguous())))
+    torch_sync()
+    seconds = time.perf_counter() - t0
+    check_no_launch("phase 14b")
+    check(torch.equal(colors.detach(), img.reshape(-1, 3)[pix.long()]),
+          "phase 14b: render_pixels differs from render_cuda on the drawn pixels")
+    return check_grads("phase 14b", grads, cg.params_vjp(scene, pk)), seconds
+
+
+def phase_autograd_step(scene, cam):
+    """14c: `parallel.dist.render_grads` once at the bench preset, zero
+    target, default chunk: seconds, peak memory, and its loss and gradients
+    against `render_grads_cuda`'s; then the forward alone (`render`, no
+    tape), timed and held to `render_cuda` bit for bit at full width."""
+    import torch
+
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_grad as cg
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_render as cr
+    from ray_tracing_in_one_weekend_tpu_torch.ops import render as rr
+    from ray_tracing_in_one_weekend_tpu_torch.parallel import dist as pdist
+
+    target = torch.zeros(cam.image_height, cam.image_width, 3, device=DEVICE)
+    loss_k, grads_k = cg.render_grads_cuda(cg.scene_params(scene), scene, cam, target)
+    want = cr.render_cuda(scene, cam)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch_sync()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    loss, grads = pdist.render_grads(cg.scene_params(scene), scene, cam, target)
+    torch_sync()
+    seconds = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    img = rr.render(scene, cam)
+    torch_sync()
+    forward_s = time.perf_counter() - t0
+    check_no_launch("phase 14c")
+    check(torch.equal(img, want), "phase 14c: the autograd render's forward differs from render_cuda")
+    for k, v in grads.items():
+        check(bool(torch.isfinite(v).all()), f"phase 14c: non-finite {k} gradient")
+    return dict(seconds=seconds, mrays=cam.num_pixels * cam.samples_per_pixel / seconds / 1e6,
+                peak_gb=peak_gb, chunk=rr.DEFAULT_CHUNK, forward_s=forward_s,
+                loss_err=check_loss("phase 14c", loss, loss_k), errs=check_grads("phase 14c", grads, grads_k))
+
+
+def phase_autograd_demo():
+    """14d: the inverse-render example with `--grad autograd` on the card."""
+    from ray_tracing_in_one_weekend_tpu_torch.examples import inverse_render
+
+    demo_dir = REPO / "build" / "inverse_render_autograd"
+    t0 = time.perf_counter()
+    rc = inverse_render.main(["--device", DEVICE, "--grad", "autograd", "--outdir", str(demo_dir)])
+    check(rc == 0, f"phase 14d: inverse_render --grad autograd exited {rc}")
+    check((demo_dir / "inverse_recovered.ppm").read_bytes().startswith(b"P3\n64 32\n255\n"),
+          "phase 14d: bad recovered PPM")
+    return time.perf_counter() - t0
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2092,6 +2266,28 @@ def main(argv=None) -> int:
             f"{p} {r['iters']:.0f} lane-iterations, kernel {r['kernel_s']:.4f}s, plain {r['plain_s']:.2f}s"
             for p, r in lanes13.items()) + f" [{smi}]")
     say(f"phase 13 took {time.perf_counter() - t13:.1f}s")
+
+    # 14. the differentiable render under torch.autograd
+    torch.cuda.empty_cache()
+    t14 = time.perf_counter()
+    ag_loss, ag_small = phase_autograd_small(ref, cam_small)
+    say(f"phase 14a autograd render (64x32, spp 4, depth 8): no kernel launched; render(differentiable=True) "
+        f"bit-identical to render_cuda; render_grads vs render_grads_cuda: loss {ag_loss:.2e} relative, "
+        "gradients rel L2 " + ", ".join(f"{k} {e:.2e}" for k, e in ag_small.items()) + f" (gate {GRAD_GATE})")
+    ag_sub, ag_sub_s = phase_autograd_subset(scene, cam)
+    say(f"phase 14b autograd at the bench preset, phase 7b's 16384 drawn pixels: no kernel launched; "
+        f"render_pixels bit-identical to render_cuda there; fwd+bwd {ag_sub_s:.2f}s; gradient vs "
+        f"build.grad_pass on the same lanes rel L2 " + ", ".join(f"{k} {e:.2e}" for k, e in ag_sub.items())
+        + f" (gate {GRAD_GATE}) [{smi}]")
+    ag = phase_autograd_step(scene, cam)
+    say(f"phase 14c autograd step (parallel.dist.render_grads, bench preset, zero target, chunk {ag['chunk']} "
+        f"pixels): no kernel launched; {ag['seconds']:.2f}s = {ag['mrays']:.4f} Mrays/s; peak memory "
+        f"{ag['peak_gb']:.3f} GB; the forward alone (render, no tape) {ag['forward_s']:.2f}s, bit-identical "
+        f"to render_cuda; vs render_grads_cuda: loss {ag['loss_err']:.2e} relative, gradients rel L2 "
+        + ", ".join(f"{k} {e:.2e}" for k, e in ag["errs"].items()) + f" (gate {GRAD_GATE}) [{smi}]")
+    demo_s = phase_autograd_demo()
+    say(f"phase 14d inverse_render --grad autograd: exit 0 (albedo error at least halved) in {demo_s:.1f}s")
+    say(f"phase 14 took {time.perf_counter() - t14:.1f}s")
 
     check("jax" not in sys.modules and "flax" not in sys.modules, "JAX was imported")
     say(smi)

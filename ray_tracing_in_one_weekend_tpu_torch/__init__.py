@@ -18,7 +18,11 @@ torch.distributed, one process a rank (`parallel/`), with the entry
 points' multi-rank dry run (`entry.py`); and the book's milestone scenes,
 cameras and shading renders (`models/milestones.py`); and the gallery:
 the reference presets written as PNG with a manifest, held against the
-reference's image and the TPU's renders (`scripts/`, `utils/manifest.py`).
+reference's image and the TPU's renders (`scripts/`, `utils/manifest.py`);
+and the differentiable render in plain PyTorch under torch.autograd, on
+the same streams, with its loss, gradients and train step over a mesh
+(`ops/integrator.py`, `ops/render.py`, `parallel/dist.py`): a gradient
+independent of the backward kernels.
 
 Scenes and cameras are built on the card unless the caller passes
 `device="cpu"`; without a GPU the default raises.
@@ -45,6 +49,9 @@ from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import (
     render_cuda,
     render_cuda_distributed,
 )
+from ray_tracing_in_one_weekend_tpu_torch.ops.integrator import trace_rays
+from ray_tracing_in_one_weekend_tpu_torch.ops.render import render
+from ray_tracing_in_one_weekend_tpu_torch.parallel.dist import render_grads, render_loss, train_step
 from ray_tracing_in_one_weekend_tpu_torch.utils.checkpoint import (
     RenderState,
     accumulate,
@@ -78,6 +85,11 @@ __all__ = [
     "render_loss_cuda",
     "render_grads_cuda",
     "train_step_cuda",
+    "trace_rays",
+    "render",
+    "render_loss",
+    "render_grads",
+    "train_step",
     "RenderConfig",
     "RenderState",
     "new_state",

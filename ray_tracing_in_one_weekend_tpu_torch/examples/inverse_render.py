@@ -2,15 +2,20 @@
 
     python -m ray_tracing_in_one_weekend_tpu_torch.examples.inverse_render [--steps 40]
 
-The port of `examples/inverse_render.py --backend pallas`, with its
-defaults: the three-sphere scene padded to 128 slots, 64 pixels wide,
-4 spp, depth 8. It renders the target, damages sphere 1's albedo to
-(0.6, 0.6, 0.6) and sphere 3's to (0.3, 0.3, 0.8), and runs albedo-only
-SGD (lr 30, clipped to [0, 1]) on the mean squared pixel error, with the
+The port of `examples/inverse_render.py`, with its defaults: the
+three-sphere scene padded to 128 slots, 64 pixels wide, 4 spp, depth 8.
+It renders the target, damages sphere 1's albedo to (0.6, 0.6, 0.6) and
+sphere 3's to (0.3, 0.3, 0.8), and runs albedo-only SGD (lr 30, clipped
+to [0, 1]) on the mean squared pixel error. `--grad kernel` (the default;
+the JAX example's `--backend pallas`) takes each step's gradient from the
 forward render and the gradient replay as the hand-written CUDA kernels
-(`ops/cuda_grad.py`) and the warm-start carry between steps. It logs the
-loss to stderr, writes the target and recovered images as PPM to
-`--outdir`, and exits 0 only if sphere 1's albedo L1 error fell below
+(`ops/cuda_grad.py`), with the warm-start carry between steps; `--grad
+autograd` (its `--backend jnp`, the autodiff oracle) from torch.autograd
+through the plain render (`parallel.dist.render_grads`), which launches
+no kernel. The target and the recovered image are rendered by
+`render_cuda` either way (the autograd render's value is its bits). It
+logs the loss to stderr, writes the target and recovered images as PPM
+to `--outdir`, and exits 0 only if sphere 1's albedo L1 error fell below
 half its start.
 
 `--device cuda` (the default) needs a GPU and never moves to the CPU on
@@ -39,6 +44,7 @@ from ray_tracing_in_one_weekend_tpu_torch.models.camera import make_camera
 from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_grad as cg
 from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import render_cuda, render_cuda_distributed
 from ray_tracing_in_one_weekend_tpu_torch.ops.image import to_uint8
+from ray_tracing_in_one_weekend_tpu_torch.parallel.dist import render_grads
 from ray_tracing_in_one_weekend_tpu_torch.utils import ppm
 
 _DEFAULT_OUTDIR = Path(__file__).resolve().parents[2] / "build" / "inverse_render"
@@ -51,6 +57,9 @@ def main(argv=None) -> int:
     ap.add_argument("--width", type=int, default=64)
     ap.add_argument("--spp", type=int, default=4)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--grad", choices=("kernel", "autograd"), default="kernel",
+                    help="the steps' gradient: the backward kernels (default) or torch.autograd "
+                         "through the plain render")
     ap.add_argument("--mesh", default=None, metavar="P[,S]",
                     help="rank mesh: pixel shards, optional sample shards (under torchrun)")
     ap.add_argument("--outdir", default=str(_DEFAULT_OUTDIR))
@@ -101,11 +110,14 @@ def main(argv=None) -> int:
     params["albedo"] = damaged
     before_err = float((params["albedo"][1] - true_albedo[1]).abs().sum())
 
-    work = None  # the warm-start carry: the previous step's cost map
+    work = None  # the warm-start carry of the kernels: the previous step's cost map
     for step in range(args.steps):
-        (loss, work), grads = cg.render_grads_cuda(
-            params, scene, cam, target, mesh=mesh, seed=0, work_hint=work, return_work=True
-        )
+        if args.grad == "autograd":
+            loss, grads = render_grads(params, scene, cam, target, seed=0, mesh=mesh)
+        else:
+            (loss, work), grads = cg.render_grads_cuda(
+                params, scene, cam, target, mesh=mesh, seed=0, work_hint=work, return_work=True
+            )
         # albedo-only SGD: the geometry is already right in this demo
         params["albedo"] = torch.clamp(params["albedo"] - args.lr * grads["albedo"], 0.0, 1.0)
         if step % 5 == 0 or step == args.steps - 1:

@@ -104,20 +104,18 @@ def scene_with_params(scene: Scene, params: dict) -> Scene:
 # ---------------------------------------------------------------------------
 
 
-def _bounce_f(o, d, att, pcols, cont, miss, stream, ctr, t_min):
-    """One bounce as a pure function of its continuous inputs -> (o', d',
-    att', radiance term), the `F` of the JAX kernel. `pcols` [16, L] is
-    the winner's parameter column; `cont` and `miss` [1, L] are the
-    replayed event; front_face, the material branch, the lambertian
-    fallback, metal's `ok` and the dielectric choice are recomputed from
-    the same values as in the forward, so they are the replay's. Guards:
-    lanes that do not continue see a safe column (radius 1, ior 1) and
-    disc = 1, and the sqrt argument is floored at 1e-12, so no
-    reciprocal or sqrt derivative is infinite."""
+def _winner_t(o, d, pcols, mask, t_min):
+    """The winning sphere's t recomputed from its parameter column `pcols`
+    [16, L], with the gradient guards -> (pc, t): lanes outside `mask`
+    [1, L] see a safe column (radius 1, ior 1) and disc = 1, and the sqrt
+    argument is floored at 1e-12, so no reciprocal or sqrt derivative is
+    infinite. The operations are the sweep's (`_sweep_ts`), in its order,
+    so on a masked lane t is the sweep's value wherever the floor does not
+    bind."""
     safe = torch.zeros(P_ROWS, 1, dtype=pcols.dtype, device=pcols.device)
     safe[_R] = 1.0
     safe[_IOR] = 1.0
-    pc = torch.where(cont, pcols, safe)
+    pc = torch.where(mask, pcols, safe)
     o_dot_d = _dot3(o, d)
     o_sq = _dot3(o, o)
     d_dot_c = pc[_CX : _CX + 1] * d[0:1] + pc[_CY : _CY + 1] * d[1:2] + pc[_CZ : _CZ + 1] * d[2:3]
@@ -129,11 +127,22 @@ def _bounce_f(o, d, att, pcols, cont, miss, stream, ctr, t_min):
     )
     half_b = o_dot_d - d_dot_c
     cc = o_sq + cc_part
-    disc = torch.where(cont, half_b * half_b - cc, 1.0)
+    disc = torch.where(mask, half_b * half_b - cc, 1.0)
     sqrt_d = _sqrt(torch.clamp(disc, min=1e-12))
     root_near = -half_b - sqrt_d
     root_far = -half_b + sqrt_d
-    t = torch.where(root_near > t_min, root_near, root_far)
+    return pc, torch.where(root_near > t_min, root_near, root_far)
+
+
+def _bounce_f(o, d, att, pcols, cont, miss, stream, ctr, t_min):
+    """One bounce as a pure function of its continuous inputs -> (o', d',
+    att', radiance term), the `F` of the JAX kernel. `pcols` [16, L] is
+    the winner's parameter column; `cont` and `miss` [1, L] are the
+    replayed event; front_face, the material branch, the lambertian
+    fallback, metal's `ok` and the dielectric choice are recomputed from
+    the same values as in the forward, so they are the replay's. Lanes
+    that do not continue get `_winner_t`'s guards."""
+    pc, t = _winner_t(o, d, pcols, cont, t_min)
     p, n_vec, front_face = _surface(o, d, torch.where(cont, t, 1.0), pc)
     new_dir, mat_atten, _ = _scatter_block(d, n_vec, front_face, pc, stream, ctr)
     o2 = torch.where(cont, p, o)

@@ -1,0 +1,92 @@
+"""Iterative path tracing in plain PyTorch, differentiable by torch.autograd.
+
+The port's counterpart of ray_tracing_in_one_weekend_tpu/ops/integrator.py
+(`trace_rays`, :50-120), on the port's own PCG streams: each bounce runs
+the forward render's device functions (`ops/cuda_render.py`) with the
+draw counter 8 + 16·depth, so a ray's radiance is the bits `render_cuda`
+gives it. No kernel is launched: every operation is a PyTorch one, on
+the device of the tensors it is given.
+
+Per bounce of the rays still on their path:
+
+* the sphere sweep (`_sweep_ts`, [N, L]) and its minimum run without the
+  tape and on detached inputs, so autograd records no [N, L] tensor and
+  forward-mode AD carries no tangent through them;
+* the winner's t is recomputed from its parameter column with gradient,
+  under the backward's guards (`cuda_grad._winner_t`: a safe column on
+  misses, disc floored at 1e-12). The value is the sweep's and only the
+  derivative is the recompute's (t_best + (t_rec - t_rec.detach())), so
+  neither the floor nor an operation order can move a bit of the value;
+* then the hit point and normal (`_surface`), the scatter
+  (`_scatter_block`) and, on a miss, the sky (`_sky`).
+
+The live rays are compacted by index each bounce, and the radiance is
+written out of place (`index_copy`), so autograd sees no in-place write.
+The loop stops when no ray is live: autograd records the bounces that
+ran. (The JAX package runs a fixed trip count on its differentiable path
+because JAX's reverse mode needs one.)
+
+The gradient is the Monte-Carlo-discrete one of tests/test_grad.py:1-15:
+the sampled paths' discrete decisions are constants. There is no ±1e6
+clip (the JAX jnp path has none): the clip is a guard of the backward
+kernels (`ops/cuda_grad.py`).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_grad import _winner_t
+from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import (
+    T_MISS,
+    _scatter_block,
+    _sky,
+    _surface,
+    _sweep_ts,
+)
+
+
+def trace_rays(p_mat, o, d, stream, t_min, max_depth, differentiable=False):
+    """Trace a flat block of rays to radiance -> [3, L] float32.
+
+    `p_mat` [16, N] is the packed scene (`pack_scene`), `o` and unit `d`
+    [3, L] the rays, `stream` the (lo, hi) [1, L] uint32 words of each
+    ray's PCG stream (as `_camera_ray_block` gives them), `t_min` the
+    shadow-acne epsilon and `max_depth` the bounce limit. Miss: the sky,
+    weighted by the attenuation so far, and the ray retires; absorbed or
+    out of depth: it retires dark. `differentiable=False` runs under
+    `torch.no_grad()`; with True autograd records the bounces, and
+    gradients reach `p_mat` (and `o`, `d` if they require them)."""
+    if not differentiable:
+        with torch.no_grad():
+            return _trace(p_mat, o, d, stream, t_min, max_depth)
+    return _trace(p_mat, o, d, stream, t_min, max_depth)
+
+
+def _trace(p_mat, o, d, stream, t_min, max_depth):
+    lo, hi = stream
+    n = o.shape[1]
+    rad = torch.zeros(3, n, dtype=torch.float32, device=o.device)
+    att = torch.ones(3, n, dtype=torch.float32, device=o.device)
+    live = torch.arange(n, device=o.device)
+    for depth in range(max_depth):
+        with torch.no_grad():
+            t_best, best = torch.min(
+                _sweep_ts(o.detach(), d.detach(), p_mat.detach(), t_min), dim=0, keepdim=True
+            )
+        hit = t_best < T_MISS * 0.5
+        pc, t_rec = _winner_t(o, d, p_mat[:, best[0]], hit, t_min)
+        t = torch.where(hit, t_best + (t_rec - t_rec.detach()), 1.0)
+        p, n_vec, front_face = _surface(o, d, t, pc)
+        new_dir, mat_atten, ok = _scatter_block(
+            d, n_vec, front_face, pc, (lo[:, live], hi[:, live]), 8 + 16 * depth
+        )
+        rad = rad.index_copy(1, live, rad[:, live] + torch.where(hit, 0.0, att * _sky(d)))
+        if depth + 1 == max_depth:
+            break
+        keep = (hit & ok)[0].nonzero()[:, 0]
+        if keep.numel() == 0:
+            break
+        live = live[keep]
+        o, d, att = p[:, keep], new_dir[:, keep], (att * mat_atten)[:, keep]
+    return rad

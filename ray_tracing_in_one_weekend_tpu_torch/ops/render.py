@@ -1,0 +1,128 @@
+"""Full-image render through `trace_rays`: plain PyTorch, differentiable.
+
+The port's counterpart of ray_tracing_in_one_weekend_tpu/ops/render.py
+(:39-138), the JAX package's jnp render with `differentiable=True`, on
+the port's PCG streams instead of threefry keys. Every (pixel, sample)
+ray takes its stream from the GLOBAL pixel and sample index, as
+`_camera_ray_block` keys it, so any subset of pixels, any chunking and
+any `sample_offset` window render the same rays. A chunk's samples are
+traced side by side (one ray a lane) and then added in sample order and
+scaled by 1 / spp, as the render's lanes add them (`_multipass`), so the
+value is `render_cuda`'s bits, on the CPU and on the card.
+
+This path is not a fallback and no kernel path routes to it: it launches
+no kernel, and runs on the scene's device. Under autograd, gradients
+reach the scene's center, radius, albedo, fuzz and ior through
+`pack_scene`; the camera gets none. `parallel/dist.py` holds its loss,
+gradients and train step (`render_loss`, `render_grads`, `train_step`),
+whose backward re-renders one chunk at a time.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ray_tracing_in_one_weekend_tpu_torch.models.camera import Camera
+from ray_tracing_in_one_weekend_tpu_torch.models.scene import Scene
+from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_grad import _lanes
+from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import (
+    _camera_ray_block,
+    _unpack_cam,
+    pack_camera,
+    pack_scene,
+)
+from ray_tracing_in_one_weekend_tpu_torch.ops.integrator import trace_rays
+
+# Default pixels per chunk (the JAX package's). A chunk traces
+# chunk · spp rays at once: at the bench preset (10 spp, 512 slots) each
+# [N, rays] temporary of its sweep is 335 MB on the card.
+DEFAULT_CHUNK = 16384
+
+
+def render_lanes(p_mat, cam_vec, pix, seed, spp, sample_offset, max_depth, chunk_size,
+                 differentiable=False):
+    """The sample-mean radiance [3, R] of global pixel ids `pix` [R] from
+    the packed scene and camera, `chunk_size` pixels at a time: the core of
+    `render_pixels` and `render_flat`, and of `parallel/dist.py`'s loss."""
+    camc = _unpack_cam(cam_vec)
+    t_min = float(cam_vec[20])
+    pix = pix.to(torch.int64)
+    parts = [
+        _render_chunk(p_mat, camc, t_min, seed, pix[a : a + chunk_size], spp, sample_offset,
+                      max_depth, differentiable)
+        for a in range(0, pix.numel(), chunk_size)
+    ]
+    if not parts:
+        return torch.zeros(3, 0, dtype=torch.float32, device=p_mat.device)
+    return torch.cat(parts, dim=1)
+
+
+def _render_chunk(p_mat, camc, t_min, seed, pix, spp, sample_offset, max_depth, differentiable):
+    r = pix.numel()
+    # Lane s·R + i traces sample s of pixel i.
+    px, py, h0 = _lanes(camc, seed, pix.repeat(spp)[None])
+    samples = torch.arange(sample_offset, sample_offset + spp, device=pix.device)
+    o, d, lo, hi = _camera_ray_block(camc, h0, px, py, samples.repeat_interleave(r)[None])
+    color = trace_rays(p_mat, o, d, (lo, hi), t_min, max_depth, differentiable).view(3, spp, r)
+    acc = torch.zeros(3, r, dtype=torch.float32, device=pix.device)
+    for s in range(spp):
+        acc = acc + color[:, s]
+    return acc * (1.0 / spp)
+
+
+def render_pixels(
+    scene: Scene,
+    cam: Camera,
+    pixel_indices,
+    seed: int = 0,
+    spp: int | None = None,
+    sample_offset: int = 0,
+    differentiable: bool = False,
+) -> torch.Tensor:
+    """Render a flat batch of global pixel indices -> linear sample-mean
+    color [R, 3] on the scene's device, in one chunk. `sample_offset`
+    shifts the global sample indices drawn (samples [offset, offset +
+    spp)); any subset of pixels renders the same colors whichever call
+    renders it."""
+    return render_flat(scene, cam, pixel_indices, seed, chunk_size=None, spp=spp,
+                       sample_offset=sample_offset, differentiable=differentiable)
+
+
+def render_flat(
+    scene: Scene,
+    cam: Camera,
+    pixel_indices,
+    seed: int = 0,
+    chunk_size: int | None = DEFAULT_CHUNK,
+    spp: int | None = None,
+    sample_offset: int = 0,
+    differentiable: bool = False,
+) -> torch.Tensor:
+    """Render a flat batch of global pixel indices `chunk_size` pixels at a
+    time (None: one chunk) -> [R, 3]. Without autograd, memory is one
+    chunk's; under it, autograd keeps every chunk's tape until the
+    backward (`parallel.dist.render_grads` keeps one)."""
+    spp = cam.samples_per_pixel if spp is None else spp
+    pix = torch.as_tensor(pixel_indices, device=scene.device).reshape(-1)
+    chunk = max(pix.numel(), 1) if chunk_size is None else chunk_size
+    if chunk < 1:
+        raise ValueError(f"chunk_size ({chunk_size}) must be positive")
+    rad = render_lanes(pack_scene(scene), pack_camera(cam).to(scene.device), pix, seed, spp,
+                       sample_offset, cam.max_depth, chunk, differentiable)
+    return rad.T
+
+
+def render(
+    scene: Scene,
+    cam: Camera,
+    seed: int = 0,
+    chunk_size: int = DEFAULT_CHUNK,
+    spp: int | None = None,
+    differentiable: bool = False,
+) -> torch.Tensor:
+    """Render the full image -> linear framebuffer [H, W, 3] on the scene's
+    device: `render_cuda`'s value, by plain PyTorch."""
+    n = cam.num_pixels
+    colors = render_flat(scene, cam, torch.arange(n, device=scene.device), seed,
+                         chunk_size=chunk_size, spp=spp, differentiable=differentiable)
+    return colors.reshape(cam.image_height, cam.image_width, 3)

@@ -10,9 +10,12 @@ from ray_tracing_in_one_weekend_tpu_torch.parallel.dist import (
     gather_in_order,
     init_distributed,
     make_mesh,
+    render_grads,
+    render_loss,
     scene_params,
     scene_with_params,
     sum_in_order,
+    train_step,
 )
 
 __all__ = [
@@ -24,7 +27,10 @@ __all__ = [
     "gather_in_order",
     "init_distributed",
     "make_mesh",
+    "render_grads",
+    "render_loss",
     "scene_params",
     "scene_with_params",
     "sum_in_order",
+    "train_step",
 ]

@@ -42,11 +42,15 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ray_tracing_in_one_weekend_tpu_torch.models.camera import Camera
+from ray_tracing_in_one_weekend_tpu_torch.models.scene import Scene
 from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_grad import (
     DIFF_FIELDS,
     scene_params,
     scene_with_params,
 )
+from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import _rank_share, pack_camera, pack_scene
+from ray_tracing_in_one_weekend_tpu_torch.ops.render import DEFAULT_CHUNK, render_lanes
 
 PIXEL_AXIS = "pixels"
 SAMPLE_AXIS = "samples"
@@ -54,6 +58,7 @@ SAMPLE_AXIS = "samples"
 __all__ = [
     "PIXEL_AXIS", "SAMPLE_AXIS", "DIFF_FIELDS", "Mesh", "make_mesh", "init_distributed",
     "fetch_image", "sum_in_order", "gather_in_order", "scene_params", "scene_with_params",
+    "render_loss", "render_grads", "train_step",
 ]
 
 
@@ -258,3 +263,122 @@ def fetch_image(img: torch.Tensor) -> np.ndarray:
     """The whole image as a numpy array. The sharded renders return the
     gathered image on every rank, so this is a copy to the host."""
     return img.detach().cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# Differentiable rendering through torch.autograd (inverse rendering).
+#
+# The counterpart of the JAX package's jnp `render_loss`, `render_grads` and
+# `train_step` (parallel/dist.py:225-282): the plain render of
+# `ops/render.py` under torch.autograd on the port's PCG streams, a gradient
+# independent of the backward kernels (`ops/cuda_grad.py`). It launches no
+# kernel. Pixel slabs split the flat pixel space into P equal contiguous
+# parts of ceil(n / P) pixels (parallel/dist.py:90-93 there), and the
+# sample axis splits spp into S windows.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class _Share:
+    start: int  # this rank's first global pixel
+    stop: int  # one past its last pixel inside the image
+    slab: int  # pixels a slab, ceil(n / P)
+    n_pixels: int
+    seed: int
+    spp: int  # this rank's samples, spp / S
+    samples: int  # S
+    sample_offset: int  # this rank's window starts here
+    max_depth: int
+    chunk_size: int
+
+
+class _AutogradRender(torch.autograd.Function):
+    """(p_mat, cam_vec) -> the image's radiance [3, n] on every rank, whose
+    vector-Jacobian product re-renders the rank's pixels under autograd one
+    chunk at a time.
+
+    Forward: the rank's slab and sample window without the tape, then the
+    windows' rank-order mean and the slabs' gather, as `render_with` does.
+    Backward: every rank holds the whole image's cotangent; it takes its
+    slab's part (each window enters the image with weight 1 / S),
+    re-renders each chunk with gradient and backpropagates it, so memory
+    is one chunk's tape, and sums the [16, N] cotangent over the mesh in
+    rank order (`Mesh.sum_all`), so every rank gets the same bits and the
+    chain rule through `pack_scene` runs once, on the sum."""
+
+    @staticmethod
+    def forward(ctx, p_mat, cam_vec, share: _Share, mesh):
+        pix = torch.arange(share.start, share.stop, device=p_mat.device)
+        rad = render_lanes(p_mat, cam_vec, pix, share.seed, share.spp, share.sample_offset,
+                           share.max_depth, share.chunk_size)
+        if mesh is not None:
+            slab = torch.zeros(3, share.slab, dtype=rad.dtype, device=rad.device)
+            slab[:, : rad.shape[1]] = rad
+            rad = mesh.gather_pixels(mesh.sample_mean(slab))[:, : share.n_pixels].contiguous()
+        ctx.save_for_backward(p_mat, cam_vec)
+        ctx.share, ctx.mesh = share, mesh
+        return rad
+
+    @staticmethod
+    def backward(ctx, grad_rad):
+        p_mat, cam_vec = ctx.saved_tensors
+        share, mesh = ctx.share, ctx.mesh
+        grads = torch.zeros_like(p_mat)
+        g = grad_rad[:, share.start : share.stop] / share.samples
+        pix = torch.arange(share.start, share.stop, device=p_mat.device)
+        with torch.enable_grad():
+            leaf = p_mat.detach().requires_grad_()
+            for a in range(0, pix.numel(), share.chunk_size):
+                rad = render_lanes(leaf, cam_vec, pix[a : a + share.chunk_size], share.seed,
+                                   share.spp, share.sample_offset, share.max_depth,
+                                   share.chunk_size, differentiable=True)
+                if rad.grad_fn is None:  # every ray of the chunk went to the sky at once
+                    continue
+                (part,) = torch.autograd.grad(rad, leaf, grad_outputs=g[:, a : a + share.chunk_size])
+                grads = grads + part
+        if mesh is not None:
+            grads = mesh.sum_all(grads)
+        return grads, None, None, None
+
+
+def render_loss(params: dict, scene: Scene, cam: Camera, target: torch.Tensor, seed: int = 0,
+                mesh: Mesh | None = None, chunk_size: int = DEFAULT_CHUNK,
+                spp: int | None = None) -> torch.Tensor:
+    """Mean squared pixel error of the render of `scene` with `params`
+    against `target` [H, W, 3], differentiable in `params` by
+    torch.autograd; on `mesh` the render is sharded over it and the loss is
+    the whole image's, on every rank (mesh=None: one process). The image is
+    `render_cuda`'s bits (on a sample mesh, its windows' rank-order mean),
+    so the loss is `render_loss_cuda`'s."""
+    spp = cam.samples_per_pixel if spp is None else spp
+    n = cam.num_pixels
+    start, slab, spp_local, window = _rank_share(n, 1, spp, 0, mesh)
+    share = _Share(start=min(start, n), stop=min(start + slab, n), slab=slab, n_pixels=n,
+                   seed=seed, spp=spp_local, samples=spp // spp_local, sample_offset=window,
+                   max_depth=cam.max_depth, chunk_size=chunk_size)
+    scene = scene_with_params(scene, params)
+    rad = _AutogradRender.apply(pack_scene(scene), pack_camera(cam).to(scene.device), share, mesh)
+    img = rad.T.reshape(cam.image_height, cam.image_width, 3)
+    return torch.mean((img - target) ** 2)
+
+
+def render_grads(params: dict, scene: Scene, cam: Camera, target: torch.Tensor, seed: int = 0,
+                 mesh: Mesh | None = None, chunk_size: int = DEFAULT_CHUNK,
+                 spp: int | None = None):
+    """(loss, grads) of `render_loss` with respect to `params`, one gradient
+    per field, by torch.autograd through the plain render; on a mesh the
+    same bits on every rank."""
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    loss = render_loss(leaves, scene, cam, target, seed, mesh, chunk_size, spp)
+    grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    return loss.detach(), grads
+
+
+def train_step(params: dict, scene: Scene, cam: Camera, target: torch.Tensor, seed: int = 0,
+               mesh: Mesh | None = None, chunk_size: int = DEFAULT_CHUNK,
+               spp: int | None = None, lr: float = 1e-2):
+    """One SGD step of inverse rendering -> (loss, new_params): the
+    autograd render's forward, its chunked backward, the cross-rank sum of
+    the gradient, and the update."""
+    loss, grads = render_grads(params, scene, cam, target, seed, mesh, chunk_size, spp)
+    return loss, {k: (params[k] - lr * grads[k]).detach() for k in params}

@@ -22,6 +22,9 @@ A job is a dict: `job` (a name of `JOBS`), `mesh` ((P,) or (P, S)),
   scene's own parameters and `target` (None: zeros); the first call's
   loss, gradients and cost map, whether each later call gave the same
   bits, and each call's seconds and collectives' seconds.
+* "autograd_step": `dist.render_grads` (torch.autograd through the plain
+  render) on the mesh, as "step" with the same layout; it has no cost
+  map, so `work` is None.
 * "accumulate": `checkpoint.accumulate` on the mesh, one batch of each
   size in `batches`; the state after each.
 * "dryrun": `entry.dryrun_rank` on the mesh.
@@ -188,7 +191,20 @@ def _job_render(job, mesh, device):
     return res
 
 
-def _job_step(job, mesh, device):
+def _kernel_grads(params, scene, cam, target, mesh, **kw):
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_grad as cg
+
+    return cg.render_grads_cuda(params, scene, cam, target, mesh=mesh, return_work=True, **kw)
+
+
+def _autograd_grads(params, scene, cam, target, mesh, **kw):
+    from ray_tracing_in_one_weekend_tpu_torch.parallel import dist as pdist
+
+    loss, grads = pdist.render_grads(params, scene, cam, target, mesh=mesh, **kw)
+    return (loss, None), grads
+
+
+def _job_step(job, mesh, device, grads_fn=_kernel_grads):
     from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_grad as cg
 
     scene, cam = _scene(job["scene"], device), _camera(job["camera"], device)
@@ -200,14 +216,13 @@ def _job_step(job, mesh, device):
     for i in range(job.get("repeat", 1)):
         _sync(device, mesh)
         c0, t0 = mesh.seconds["collectives"], time.perf_counter()
-        (loss, work), grads = cg.render_grads_cuda(params, scene, cam, target, mesh=mesh,
-                                                   return_work=True, **job.get("kw", {}))
+        (loss, work), grads = grads_fn(params, scene, cam, target, mesh, **job.get("kw", {}))
         _sync(device, mesh)
         res["seconds"].append(time.perf_counter() - t0)
         res["collective_s"].append(mesh.seconds["collectives"] - c0)
         if i == 0:
             first = (loss, grads)
-            res["loss"], res["work"] = loss.cpu(), work.cpu()
+            res["loss"], res["work"] = loss.cpu(), None if work is None else work.cpu()
             res["grads"] = {k: v.cpu() for k, v in grads.items()}
         else:
             res["same"].append(torch.equal(loss, first[0])
@@ -235,8 +250,12 @@ def _job_dryrun(job, mesh, device):
     return entry.dryrun_rank(mesh, device)
 
 
-JOBS = {"render": _job_render, "step": _job_step, "accumulate": _job_accumulate,
-        "dryrun": _job_dryrun}
+def _job_autograd_step(job, mesh, device):
+    return _job_step(job, mesh, device, _autograd_grads)
+
+
+JOBS = {"render": _job_render, "step": _job_step, "autograd_step": _job_autograd_step,
+        "accumulate": _job_accumulate, "dryrun": _job_dryrun}
 
 
 def main(argv=None) -> int:

@@ -13,13 +13,16 @@ JAX call).
   on (4, 1) are 128 pixels each, so slab 3 starts at pixel 384, past the
   image (on (2, 1) slab 1 is half past it);
 * gradients: tests/test_torch_grad.py's scene and camera at spp 4 (seed
-  3), and the same at 24x16.
+  3), and the same at 24x16, by the backward kernels' plain versions
+  ("step") and by torch.autograd through the plain render
+  ("autograd_step").
 
 Pixel meshes must give one device's image bit for bit, sample meshes the
 sample windows rendered on one device and averaged in rank order (and
 within 1e-6 of one render, tests/test_pallas_dist.py:43); gradients within
 rtol 2e-5, atol 1e-6 of one device's and the loss within 1e-6 relative
-(tests/test_pallas_grad.py:171-181).
+(tests/test_pallas_grad.py:171-181); the autograd gradients within rtol
+1e-4, atol 1e-6 of one process's (tests/test_dist.py:108-125).
 """
 
 import jax.numpy as jnp
@@ -112,6 +115,8 @@ def _jobs(world, meshes, accumulate=()):
         jobs.append({"job": "step", "mesh": mesh, "scene": worker.scene_spec(grad),
                      "camera": worker.camera_spec(gcam), "kw": {"seed": GRAD_SEED},
                      "repeat": 2 if mesh[0] * mesh[1] == 2 else 1})
+        jobs.append({"job": "autograd_step", "mesh": mesh, "scene": worker.scene_spec(grad),
+                     "camera": worker.camera_spec(gcam), "kw": {"seed": GRAD_SEED}})
     for mesh in accumulate:
         jobs.append({"job": "accumulate", "mesh": mesh, "scene": worker.scene_spec(cover),
                      "camera": worker.camera_spec(world["render", "32"][1]), "batches": BATCHES})
@@ -214,6 +219,29 @@ def test_gradients_match_one_device(sharded, world, mesh, width):
         np.testing.assert_allclose(ranks[0]["grads"][k].numpy(), grads[k].numpy(), rtol=2e-5,
                                    atol=1e-6, err_msg=k)
     assert all(all(r["same"]) for r in ranks)
+
+
+@pytest.mark.parametrize("mesh,width", CASES, ids=IDS)
+def test_autograd_gradients_match_one_process(sharded, world, mesh, width):
+    """`dist.render_grads` (torch.autograd through the plain render) on the
+    mesh against the same on one process (tests/test_dist.py:108-125):
+    gradients within rtol 1e-4, atol 1e-6, the same bits on every rank,
+    and the loss within 1e-6 relative (bit for bit on pixel meshes, whose
+    image is one process's)."""
+    scene, cam = world["grad"][1], world["grad_cam", width][1]
+    target = torch.zeros(cam.image_height, cam.image_width, 3)
+    loss, grads = dist.render_grads(cg.scene_params(scene), scene, cam, target, seed=GRAD_SEED)
+    ranks = sharded["autograd_step", mesh, width]
+    losses = [r["loss"] for r in ranks]
+    assert _same_on_every_rank(losses)
+    if mesh[1] == 1:
+        assert torch.equal(losses[0], loss)
+    assert abs(float(losses[0]) - float(loss)) <= 1e-6 * float(loss)
+    for k in cg.DIFF_FIELDS:
+        assert _same_on_every_rank([r["grads"][k] for r in ranks]), k
+        np.testing.assert_allclose(ranks[0]["grads"][k].numpy(), grads[k].numpy(), rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
+    assert all(sum(r["launches"].values()) == 0 for r in ranks)
 
 
 @pytest.fixture(scope="module")
