@@ -194,9 +194,29 @@ without the result lines:
    c. the slice at full width: `render_grads` once at the bench preset
       with a zero target at the default chunk (seconds, step Mrays/s, peak
       memory), the loss within 1e-6 relative of `render_grads_cuda`'s and
-      each field within GRAD_GATE; then the forward alone (`render`, no
-      tape), timed and bit-identical to `render_cuda` at full width;
+      each field but ior within GRAD_GATE; ior (on the JAX cover_scene(0)
+      a sum whose terms cancel to a seventh of their magnitude) held as
+      phase 11b holds a mesh, to the exact float64 sum of the kernels'
+      events: the kernels within GRAD_GATE of it, the autograd step within
+      EXACT_GRAD_FACTOR times the larger of GRAD_GATE and the kernels' own
+      distance; then the forward alone (`render`, no tape), timed and
+      bit-identical to `render_cuda` at full width;
    d. `inverse_render --grad autograd` on the card: exit 0.
+15. the jnp backend on threefry keys (`ops/threefry.py`,
+   `ops/cuda_threefry.py`, `csrc/threefry_render_kernel.cu`):
+   a. `cover_scene(0)` equals the committed table of the JAX scene, and
+      the bench preset's scene is it (485 active, 396/72/17);
+   b. the main path: the CLI at the bench preset with `--backend jnp`
+      (threefry_render_kernel launched, render_kernel not; the first and
+      the timed render's seconds and Mrays/s);
+   c. the kernel against its plain version on 16384 bench pixels drawn
+      across the image, phase 3's gate and then bit for bit;
+   d. the kernel's registers, spills, blocks an SM and SASS per sphere
+      test, its time on the whole bench image and its bound from the
+      sweeps it counted;
+   e. the gallery's jnp image at full size (cpu preset, 500 spp) under
+      render seeds 0 and 1 against the TPU's in `gallery/`: seed 0 within
+      TPU_GATE x noise, seed 1 not.
 
 Then it prints nvidia-smi's line, a JSON line of per-kernel results, and
 last `{"ok": true, "device": {...}}`. It imports no JAX.
@@ -1728,16 +1748,45 @@ def check_no_launch(label):
     check(not launched, f"{label}: the autograd path launched kernels {launched}")
 
 
-def check_grads(label, grads, want):
-    """Per field, the relative L2 of `grads` against `want` (dicts of
-    fields), each within GRAD_GATE."""
+def check_grads(label, grads, want, fields=None):
+    """Per field (`fields`, default all), the relative L2 of `grads`
+    against `want` (dicts of fields), each within GRAD_GATE."""
     from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_grad as cg
     from ray_tracing_in_one_weekend_tpu_torch.probes import rel_l2
 
-    errs = {k: rel_l2(grads[k], want[k]) for k in cg.DIFF_FIELDS}
+    errs = {k: rel_l2(grads[k], want[k]) for k in (cg.DIFF_FIELDS if fields is None else fields)}
     for k, e in errs.items():
         check(e <= GRAD_GATE, f"{label}: {k} gradient, autograd vs kernels rel L2 {e:.2e} > {GRAD_GATE}")
     return errs
+
+
+# Phase 14c's ior field. On the JAX cover_scene(0) it is the glass hero's
+# (99.9% of it), a sum of 1.25 M events of both signs whose magnitudes add
+# to 7.37 times the total, and the autograd step's float32 total sits
+# 2.57e-4 (rel L2) from the kernels', above GRAD_GATE (PERF.md §6, PR 14).
+# As phase 11b holds a mesh's gradient, 14c holds that field to the exact
+# float64 sum of the kernels' events (`probes/shard_error.exact_grads`): the
+# kernels within GRAD_GATE of it, the autograd step within
+# EXACT_GRAD_FACTOR times the larger of GRAD_GATE and the kernels' own
+# distance. Every other field keeps GRAD_GATE against the kernels, and 14a
+# and 14b keep it on every field.
+EXACT_GRAD_FIELDS = ("ior",)
+EXACT_GRAD_FACTOR = SHARD_EXACT_FACTOR
+
+
+def check_exact_grads(label, grads, want, exact):
+    """EXACT_GRAD_FIELDS against `exact` (float64 by field) -> {field:
+    (the kernels' rel L2 from it, the autograd gradient's, its bound)}."""
+    from ray_tracing_in_one_weekend_tpu_torch.probes import rel_l2
+
+    out = {}
+    for k in EXACT_GRAD_FIELDS:
+        e_k, e_a = rel_l2(want[k], exact[k]), rel_l2(grads[k], exact[k])
+        most = EXACT_GRAD_FACTOR * max(GRAD_GATE, e_k)
+        check(e_k <= GRAD_GATE, f"{label}: {k} gradient, kernels vs the exact sum rel L2 {e_k:.2e} > {GRAD_GATE}")
+        check(e_a <= most, f"{label}: {k} gradient, autograd vs the exact sum rel L2 {e_a:.2e} > {most:.2e}")
+        out[k] = (e_k, e_a, most)
+    return out
 
 
 def check_loss(label, loss, want):
@@ -1819,9 +1868,12 @@ def phase_autograd_step(scene, cam):
     from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_render as cr
     from ray_tracing_in_one_weekend_tpu_torch.ops import render as rr
     from ray_tracing_in_one_weekend_tpu_torch.parallel import dist as pdist
+    from ray_tracing_in_one_weekend_tpu_torch.probes import rel_l2
+    from ray_tracing_in_one_weekend_tpu_torch.probes.shard_error import exact_grads
 
     target = torch.zeros(cam.image_height, cam.image_width, 3, device=DEVICE)
     loss_k, grads_k = cg.render_grads_cuda(cg.scene_params(scene), scene, cam, target)
+    exact = exact_grads(scene, cam, target)
     want = cr.render_cuda(scene, cam)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1840,9 +1892,12 @@ def phase_autograd_step(scene, cam):
     check(torch.equal(img, want), "phase 14c: the autograd render's forward differs from render_cuda")
     for k, v in grads.items():
         check(bool(torch.isfinite(v).all()), f"phase 14c: non-finite {k} gradient")
+    errs = check_grads("phase 14c", grads, grads_k, [k for k in cg.DIFF_FIELDS if k not in EXACT_GRAD_FIELDS])
+    errs.update({k: rel_l2(grads[k], grads_k[k]) for k in EXACT_GRAD_FIELDS})
     return dict(seconds=seconds, mrays=cam.num_pixels * cam.samples_per_pixel / seconds / 1e6,
                 peak_gb=peak_gb, chunk=rr.DEFAULT_CHUNK, forward_s=forward_s,
-                loss_err=check_loss("phase 14c", loss, loss_k), errs=check_grads("phase 14c", grads, grads_k))
+                loss_err=check_loss("phase 14c", loss, loss_k), errs=errs,
+                exact=check_exact_grads("phase 14c", grads, grads_k, exact))
 
 
 def phase_autograd_demo():
@@ -1856,6 +1911,155 @@ def phase_autograd_demo():
     check((demo_dir / "inverse_recovered.ppm").read_bytes().startswith(b"P3\n64 32\n255\n"),
           "phase 14d: bad recovered PPM")
     return time.perf_counter() - t0
+
+
+# ---------------------------------------------------------------------------
+# 15. the jnp backend on threefry keys (ops/threefry.py, ops/cuda_threefry.py,
+#     csrc/threefry_render_kernel.cu)
+# ---------------------------------------------------------------------------
+
+# 15c: bench pixels drawn across the image, kernel against the plain version.
+JNP_LANES = 16384
+# Float32 operations of one sphere test of the keyed sweep, a fused
+# multiply-add counting two, as the 67 TFLOP/s peak does: d.c 5, o.c 5,
+# half_b 1, c 3, a c 1, disc 2 (csrc/threefry_render_kernel.cu).
+JNP_OPS_PER_SPHERE_TEST = 17
+JNP_GALLERY = "cover_1200x800_500spp_jnp.png"
+
+
+def phase_jnp_scene():
+    """15a: cover_scene(0) equals the committed table of the JAX scene, and
+    the bench preset's scene is it: 485 active spheres, 396 / 72 / 17."""
+    import numpy as np
+
+    from ray_tracing_in_one_weekend_tpu_torch.models import scene as scene_lib
+    from ray_tracing_in_one_weekend_tpu_torch.scripts import render_artifact as ra
+    from ray_tracing_in_one_weekend_tpu_torch.utils.config import PRESETS, make_scene_from_config
+
+    ours = scene_lib.cover_scene(0, device=DEVICE)
+    with np.load(ra.JAX_COVER_SCENE_0) as z:
+        for f in z.files:
+            check(np.array_equal(getattr(ours, f).cpu().numpy(), z[f]),
+                  f"phase 15a: cover_scene(0).{f} is not the JAX scene's")
+    bench = make_scene_from_config(PRESETS["bench"], DEVICE)
+    mix = np.bincount(bench.mat_type[bench.active].cpu().numpy(), minlength=3).tolist()
+    check(bench.num_active == 485 and mix == [396, 72, 17],
+          f"phase 15a: the bench scene has {bench.num_active} active spheres, mix {mix}")
+    return bench.num_active, mix
+
+
+def phase_jnp_cli():
+    """15b: the main path, `--preset bench --backend jnp` through the CLI:
+    threefry_render_kernel launched, render_kernel not; the first render
+    (first use included) and the timed second one."""
+    import torch
+
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.utils import cli
+
+    out = REPO / "build" / "smoke_jnp.ppm"
+    build.reset_launches()
+    run = cli.run(["--preset", "bench", "--backend", "jnp", "--out", str(out)])
+    launches = dict(build.LAUNCHES)
+    check(run.backend == "jnp", f"phase 15b: CLI ran backend {run.backend}")
+    check(launches["threefry_render_kernel"] > 0, "phase 15b: the CLI never launched threefry_render_kernel")
+    check(launches["render_kernel"] == 0, "phase 15b: --backend jnp launched the PCG render kernel")
+    check(out.read_bytes().startswith(b"P3\n1200 800\n255\n"), "phase 15b: bad PPM header")
+    check(bool(torch.isfinite(run.image).all()) and run.image.shape == (800, 1200, 3),
+          "phase 15b: bad image")
+    return run, launches["threefry_render_kernel"]
+
+
+def phase_jnp_kernel_vs_plain(n_lanes=JNP_LANES):
+    """15c-d: the kernel against `render_flat_threefry` on `n_lanes` pixels
+    drawn across the bench image (10 spp, depth 50): at most 2% of pixels
+    flipped and block means agreeing (phase 3's gate), and bit-identical
+    (the -fmad=false build and the plain version's exact fused
+    multiply-adds). Then the kernel at the main path's shapes, every pixel
+    of the bench preset: its time and its bound from the sweeps it ran."""
+    import torch
+
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_threefry as ct
+    from ray_tracing_in_one_weekend_tpu_torch.ops import render as pr
+    from ray_tracing_in_one_weekend_tpu_torch.probes import cuda_ms
+    from ray_tracing_in_one_weekend_tpu_torch.probes import kernel_parts as kp
+    from ray_tracing_in_one_weekend_tpu_torch.utils import compare
+    from ray_tracing_in_one_weekend_tpu_torch.utils.config import (
+        PRESETS,
+        make_camera_from_config,
+        make_scene_from_config,
+    )
+
+    config = PRESETS["bench"]
+    scene, cam = make_scene_from_config(config, DEVICE), make_camera_from_config(config, DEVICE)
+    gen = torch.Generator().manual_seed(15)
+    pix = torch.randperm(cam.num_pixels, generator=gen)[:n_lanes].to(DEVICE)
+    kernel = ct.render_kernel_pixels(scene, cam, pix, 0)
+    torch_sync()
+    t0 = time.perf_counter()
+    plain = pr.render_flat_threefry(scene, cam, pix, 0)
+    torch_sync()
+    plain_s = time.perf_counter() - t0
+    side = int(n_lanes ** 0.5)
+    agree = compare.images(kernel.reshape(side, side, 3), plain.reshape(side, side, 3), block=8, atol=1e-4)
+    check(agree.flipped_frac <= 0.02 and agree.blocks_agree, f"phase 15c: kernel vs plain: {agree}")
+    check(torch.equal(kernel, plain), f"phase 15c: kernel vs plain not bit-identical: {agree}")
+
+    full = torch.arange(cam.num_pixels, device=DEVICE)
+    _, work = ct.render_kernel_pixels(scene, cam, full, 0, return_work=True)
+    ms = cuda_ms(lambda: ct.render_kernel_pixels(scene, cam, full, 0), reps=5)
+    sweeps = float(work.double().sum())
+    n_bytes = 4.0 * (16 * scene.num_slots + 24 + full.numel() * (1 + 3))
+    bound = kp.bound_ms(sweeps * scene.num_active * JNP_OPS_PER_SPHERE_TEST, n_bytes)
+    return {"agree": agree, "plain_s": plain_s, "ms": ms, "sweeps": sweeps, "bound": bound,
+            "n_pixels": cam.num_pixels, "spp": cam.samples_per_pixel,
+            "mrays": cam.num_pixels * cam.samples_per_pixel / ms / 1e3}
+
+
+def phase_jnp_gallery():
+    """15e: the gallery's jnp image at full size (preset cpu: 1200x800,
+    aperture 0.1, the reference's scene, 500 spp in batches of 100, depth
+    50) through `accumulate(backend="jnp")` under render seeds 0 and 1,
+    against the TPU's `gallery/cover_1200x800_500spp_jnp.png` (read by
+    `read_png`): phase 13b's criterion, MAD(seed 0, TPU) below TPU_GATE x
+    MAD(seed 0, seed 1), MAD(seed 1, TPU) not."""
+    import torch
+
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.models import scene as scene_lib
+    from ray_tracing_in_one_weekend_tpu_torch.ops.image import to_uint8
+    from ray_tracing_in_one_weekend_tpu_torch.scripts import render_gallery as rg
+    from ray_tracing_in_one_weekend_tpu_torch.utils import checkpoint as ckpt
+    from ray_tracing_in_one_weekend_tpu_torch.utils.config import PRESETS, make_camera_from_config
+    from ray_tracing_in_one_weekend_tpu_torch.utils.png import read_png
+
+    tpu = read_png(str(REPO / "gallery" / JNP_GALLERY))
+    scene = scene_lib.cover_scene_reference(device=DEVICE)
+    cam = make_camera_from_config(PRESETS["cpu"], DEVICE)
+    images, seconds, launches = {}, {}, {}
+    for seed in (0, 1):
+        build.reset_launches()
+        torch_sync()
+        t0 = time.perf_counter()
+        state = ckpt.new_state(cam, DEVICE)
+        while state.spp_done < GALLERY_SPP:
+            state = ckpt.accumulate(state, scene, cam, seed, GALLERY_BATCH, backend="jnp")
+        torch_sync()
+        seconds[seed] = time.perf_counter() - t0
+        launches[seed] = build.LAUNCHES["threefry_render_kernel"]
+        check(launches[seed] == GALLERY_SPP // GALLERY_BATCH,
+              f"phase 15e: {launches[seed]} kernel launches for {GALLERY_SPP // GALLERY_BATCH} batches")
+        check(bool(torch.isfinite(state.image).all()), f"phase 15e: non-finite pixels (seed {seed})")
+        images[seed] = to_uint8(state.image).cpu().numpy()
+    noise = rg.image_stats(images[0], images[1]).mad
+    vs_tpu, seed1_vs_tpu = rg.image_stats(images[0], tpu), rg.image_stats(images[1], tpu)
+    check(vs_tpu.mad < rg.TPU_GATE * noise,
+          f"phase 15e: seed 0 vs the TPU's jnp image MAD {vs_tpu.mad:.4f} >= {rg.TPU_GATE} x noise {noise:.4f}")
+    check(not seed1_vs_tpu.mad < rg.TPU_GATE * noise,
+          f"phase 15e: seed 1 vs the TPU's jnp image MAD {seed1_vs_tpu.mad:.4f} < {rg.TPU_GATE} x noise")
+    rays = cam.num_pixels * GALLERY_SPP
+    return {"vs_tpu": vs_tpu, "seed1_vs_tpu": seed1_vs_tpu, "noise": noise, "seconds": seconds,
+            "mrays": {s: rays / t / 1e6 for s, t in seconds.items()}, "launches": launches}
 
 
 def main(argv=None) -> int:
@@ -2284,10 +2488,43 @@ def main(argv=None) -> int:
         f"pixels): no kernel launched; {ag['seconds']:.2f}s = {ag['mrays']:.4f} Mrays/s; peak memory "
         f"{ag['peak_gb']:.3f} GB; the forward alone (render, no tape) {ag['forward_s']:.2f}s, bit-identical "
         f"to render_cuda; vs render_grads_cuda: loss {ag['loss_err']:.2e} relative, gradients rel L2 "
-        + ", ".join(f"{k} {e:.2e}" for k, e in ag["errs"].items()) + f" (gate {GRAD_GATE}) [{smi}]")
+        + ", ".join(f"{k} {e:.2e}" for k, e in ag["errs"].items())
+        + f" (gate {GRAD_GATE} but on " + ", ".join(EXACT_GRAD_FIELDS) + "); against the exact float64 sum "
+        "of the kernels' events: " + ", ".join(f"{k} kernels {e_k:.2e} (gate {GRAD_GATE}), autograd {e_a:.2e} "
+                                                f"(bound {most:.2e})" for k, (e_k, e_a, most) in ag["exact"].items())
+        + f" [{smi}]")
     demo_s = phase_autograd_demo()
     say(f"phase 14d inverse_render --grad autograd: exit 0 (albedo error at least halved) in {demo_s:.1f}s")
     say(f"phase 14 took {time.perf_counter() - t14:.1f}s")
+
+    # 15. the jnp backend on threefry keys
+    torch.cuda.empty_cache()
+    t15 = time.perf_counter()
+    jnp_active, jnp_mix = phase_jnp_scene()
+    say(f"phase 15a scene: cover_scene(0) equals the committed JAX table in every field; the bench "
+        f"preset's scene has {jnp_active} active spheres, lambertian/metal/dielectric {jnp_mix}")
+    jnp_run, jnp_launches = phase_jnp_cli()
+    say(f"phase 15b main path: CLI --preset bench --backend jnp, {jnp_launches} threefry_render_kernel "
+        f"launch(es), no render_kernel; first render {jnp_run.first_s:.4f}s (first use included) = "
+        f"{jnp_run.config.image_width * jnp_run.config.image_height * jnp_run.config.samples_per_pixel / jnp_run.first_s / 1e6:.2f} "
+        f"Mrays/s, timed render {jnp_run.render_s:.4f}s = {jnp_run.mrays_per_s:.2f} Mrays/s [{smi}]")
+    jk = phase_jnp_kernel_vs_plain()
+    say(f"phase 15c kernel vs plain, {JNP_LANES} bench pixels drawn across the image (10 spp, depth 50): "
+        f"bit-identical (flipped {jk['agree'].flipped_frac:.4%}, max {jk['agree'].max_abs_err:.2e}); plain "
+        f"{jk['plain_s']:.2f}s [{smi}]")
+    jnp_reading = sweep_readings.threefry_reading(
+        res.log, res.path, lambda k: build.blocks_per_sm(k, sweep_readings.TILE, sweep_readings.N_SLOTS))
+    say(f"phase 15d {jnp_reading.line()}; full bench image ({jk['n_pixels']} pixels, {jk['spp']} spp): "
+        f"{jk['ms']:.3f} ms = {jk['mrays']:.2f} Mrays/s, {jk['sweeps']:.0f} sweeps over {jnp_active} active "
+        f"spheres, bound {jk['bound'][0]:.3f} ms by {jk['bound'][1]} ({jk['bound'][0] / jk['ms']:.1%} of "
+        f"bound) [{smi}]")
+    jg = phase_jnp_gallery()
+    say(f"phase 15e gallery jnp image (cpu preset 1200x800, cover_scene_reference, 500 spp in batches of "
+        f"{GALLERY_BATCH}, depth 50): seed 0 {jg['seconds'][0]:.3f}s = {jg['mrays'][0]:.2f} Mrays/s, seed 1 "
+        f"{jg['seconds'][1]:.3f}s; launches {jg['launches']}; vs TPU {JNP_GALLERY}: {jg['vs_tpu'].line()}; "
+        f"noise (seed 0 vs seed 1) MAD {jg['noise']:.4f}; seed 1 vs TPU MAD {jg['seed1_vs_tpu'].mad:.4f} "
+        f"(gate: seed 0 below {rg.TPU_GATE} x noise = {rg.TPU_GATE * jg['noise']:.4f}, seed 1 not) [{smi}]")
+    say(f"phase 15 took {time.perf_counter() - t15:.1f}s")
 
     check("jax" not in sys.modules and "flax" not in sys.modules, "JAX was imported")
     say(smi)
@@ -2419,7 +2656,35 @@ def main(argv=None) -> int:
         "heaviest_sphere_chunk_median": stats["heaviest_median"],
         "heaviest_sphere_chunk_max": stats["heaviest_max"],
         "rel_l2": sub["reduce_err"],
-    }, *(probe_entry(name, v, readings.get(name)) for name, v in probes.items())]}))
+    }, *(probe_entry(name, v, readings.get(name)) for name, v in probes.items()), {
+        "name": "threefry_render_kernel",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/threefry_render_kernel.cu (+ threefry.cuh)",
+        "replaces": "ray_tracing_in_one_weekend_tpu/ops/render.py:141 (render_image -> ops/integrator.py:50 "
+                    "trace_rays; no Pallas kernel: the jnp path)",
+        "launches": jnp_launches,
+        "max_abs_err": jk["agree"].max_abs_err,
+        "ms": jk["ms"],
+        "plain_ms": jk["plain_s"] * 1e3,
+        "tolerance": "bit-identical to the plain version (render_flat_threefry) on 16384 drawn bench pixels; "
+                     "phase 3's gate (<= 2% flipped, block means) checked first",
+        "bound_ms": jk["bound"][0],
+        "bound_by": jk["bound"][1],
+        "library_ms": None,
+        "shapes": "ms and bound_ms: the whole bench image (1200x800, 10 spp, depth 50); plain_ms on the 16384 "
+                  "drawn pixels; launches from the CLI's main path (phase 15b)",
+        **jnp_reading.fields(),
+        "sweeps": jk["sweeps"],
+        "cli_first_s": jnp_run.first_s,
+        "cli_render_s": jnp_run.render_s,
+        "cli_mrays_per_s": jnp_run.mrays_per_s,
+        "gallery_seconds": jg["seconds"][0],
+        "gallery_mrays_per_s": jg["mrays"][0],
+        "gallery_vs_tpu_mad": jg["vs_tpu"].mad,
+        "gallery_noise_mad": jg["noise"],
+        "gallery_seed1_vs_tpu_mad": jg["seed1_vs_tpu"].mad,
+        "launches_gallery": jg["launches"],
+    }]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -22,7 +22,14 @@ reference's image and the TPU's renders (`scripts/`, `utils/manifest.py`);
 and the differentiable render in plain PyTorch under torch.autograd, on
 the same streams, with its loss, gradients and train step over a mesh
 (`ops/integrator.py`, `ops/render.py`, `parallel/dist.py`): a gradient
-independent of the backward kernels.
+independent of the backward kernels; and the JAX package's jnp backend on
+its own threefry keys, carried bit for bit (`ops/threefry.py`,
+`ops/sampling.py`, `ops/intersect.py`, `ops/materials.py`,
+`render_image`), with the hand-written `threefry_render_kernel` on the
+card (`ops/cuda_threefry.py`, `csrc/threefry_render_kernel.cu`), sharded
+by `parallel.dist.render_image_distributed` and accumulated by
+`checkpoint.accumulate(backend="jnp")`; the cover scene draws from the
+same keys as the JAX package's.
 
 Scenes and cameras are built on the card unless the caller passes
 `device="cpu"`; without a GPU the default raises.
@@ -49,9 +56,14 @@ from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import (
     render_cuda,
     render_cuda_distributed,
 )
-from ray_tracing_in_one_weekend_tpu_torch.ops.integrator import trace_rays
-from ray_tracing_in_one_weekend_tpu_torch.ops.render import render
-from ray_tracing_in_one_weekend_tpu_torch.parallel.dist import render_grads, render_loss, train_step
+from ray_tracing_in_one_weekend_tpu_torch.ops.integrator import trace_rays, trace_rays_threefry
+from ray_tracing_in_one_weekend_tpu_torch.ops.render import render, render_image
+from ray_tracing_in_one_weekend_tpu_torch.parallel.dist import (
+    render_grads,
+    render_image_distributed,
+    render_loss,
+    train_step,
+)
 from ray_tracing_in_one_weekend_tpu_torch.utils.checkpoint import (
     RenderState,
     accumulate,
@@ -86,7 +98,10 @@ __all__ = [
     "render_grads_cuda",
     "train_step_cuda",
     "trace_rays",
+    "trace_rays_threefry",
     "render",
+    "render_image",
+    "render_image_distributed",
     "render_loss",
     "render_grads",
     "train_step",

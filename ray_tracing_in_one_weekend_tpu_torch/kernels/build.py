@@ -7,7 +7,9 @@ the library). Each `.cu` file is compiled by its own nvcc, all started
 together, and the objects are linked into the library. No PyTorch header
 is compiled, so a build takes seconds.
 
-`render_pass` is the wrapper of `csrc/render_kernel.cu`; `grad_replay`,
+`render_pass` is the wrapper of `csrc/render_kernel.cu`;
+`threefry_render` that of `csrc/threefry_render_kernel.cu` (the jnp
+backend's forward on threefry keys); `grad_replay`,
 `grad_reverse` and `grad_reduce` (chained in `grad_pass`) are those of the
 three kernels of `csrc/grad_kernel.cu`, the backward's replay, its reverse
 walk and its reduction; `chain_fma`,
@@ -52,7 +54,7 @@ NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 # Launches per kernel since the last `reset_launches()`: what a run reads
 # to show that its main path went through the kernels.
 LAUNCHES = {
-    "render_kernel": 0, "grad_replay": 0, "grad_reverse": 0, "grad_reduce": 0, "bounce_adjoint": 0,
+    "render_kernel": 0, "threefry_render_kernel": 0, "grad_replay": 0, "grad_reverse": 0, "grad_reduce": 0, "bounce_adjoint": 0,
     "chain_fma": 0, "fma_peak": 0, "sweep_probe": 0, "gather_probe": 0, "skinny_probe": 0,
     "skinny_probe_default": 0,
 }
@@ -164,6 +166,17 @@ def load() -> ctypes.CDLL:
                            ("rt_sweep_probe_blocks_per_sm", [i32]), ("rt_reduce_blocks_per_sm", [i32])):
             getattr(lib, name).restype = i32
             getattr(lib, name).argtypes = args
+        lib.rt_threefry_render.restype = i32
+        lib.rt_threefry_render.argtypes = [
+            ptr, i32, ptr, ptr, i32,  # table, n_spheres, cam, pix, n
+            ctypes.c_uint, ctypes.c_uint, i32, i32, i32,  # key0, key1, sample_offset, spp, max_depth
+            ptr, ptr, ptr,  # out, work, stream
+        ]
+        for name in ("rt_threefry_max_spheres", "rt_threefry_block"):
+            getattr(lib, name).restype = i32
+            getattr(lib, name).argtypes = []
+        lib.rt_threefry_blocks_per_sm.restype = i32
+        lib.rt_threefry_blocks_per_sm.argtypes = [i32]
         lib.rt_grad_replay.restype = i32
         lib.rt_grad_replay.argtypes = [
             ptr, i32, ptr, ptr,  # table, n_spheres, cam, pix
@@ -228,13 +241,16 @@ def _check_spheres(n_spheres, most):
 
 def blocks_per_sm(kernel: str, tile: int, n_spheres: int) -> int:
     """Resident blocks an SM holds of `kernel` ("render_kernel",
-    "grad_replay", "sweep_probe", whose block is always 128 threads, or
+    "grad_replay", "sweep_probe" or "threefry_render_kernel", whose block
+    is always 128 threads, or
     "grad_reduce_chunks", always 256) at `tile` threads a block for a scene
     of `n_spheres`: the CUDA runtime's occupancy from the kernel's
     registers and shared memory."""
     lib = load()
     if kernel == "sweep_probe":
         n = lib.rt_sweep_probe_blocks_per_sm(n_spheres)
+    elif kernel == "threefry_render_kernel":
+        n = lib.rt_threefry_blocks_per_sm(n_spheres)
     elif kernel == "grad_reduce_chunks":
         n = lib.rt_reduce_blocks_per_sm(n_spheres)
     else:
@@ -286,6 +302,49 @@ def render_pass(table, cam_vec, scalars, sf, si, tile, spp, max_depth):
     _raise_on(lib, err, "render_kernel")
     LAUNCHES["render_kernel"] += 1
     return of, oi
+
+
+def threefry_render(table, cam_vec, pix, key, sample_offset, spp, max_depth, work=False):
+    """`csrc/threefry_render_kernel.cu` on CUDA tensors -> [n, 3] float32
+    radiance means (and, with `work`, the [n] int32 sweeps a pixel).
+
+    table [N, 16] f32 (the transposed packed scene), cam_vec [24] f32, pix
+    [n] i32 global pixel ids, all contiguous on one CUDA device; `key` the
+    base key's two uint32 words; samples [sample_offset, sample_offset +
+    spp) of each pixel, up to `max_depth` bounces each."""
+    device = pix.device
+    if device.type != "cuda":
+        raise ValueError(f"threefry_render runs on CUDA tensors, got {device}")
+    n = pix.shape[0] if pix.dim() == 1 else -1
+    n_spheres = table.shape[0] if table.dim() == 2 else -1
+    _check_tensor("table", table, torch.float32, (n_spheres, 16), device)
+    _check_tensor("cam_vec", cam_vec, torch.float32, (24,), device)
+    _check_tensor("pix", pix, torch.int32, (n,), device)
+    lib = load()
+    _check_spheres(n_spheres, lib.rt_threefry_max_spheres())
+    k0, k1 = (int(w) for w in key)
+    for name, v in (("key[0]", k0), ("key[1]", k1)):
+        if not 0 <= v < 1 << 32:
+            raise ValueError(f"{name} ({v}) is not a uint32 word")
+    if spp < 1 or max_depth < 1:
+        raise ValueError(f"spp ({spp}) and max_depth ({max_depth}) must be >= 1")
+    for name, v in (("sample_offset", sample_offset), ("spp", spp), ("max_depth", max_depth),
+                    ("sample_offset + spp", sample_offset + spp)):
+        _check_int32(name, int(v))
+    out = torch.empty((n, 3), dtype=torch.float32, device=device)
+    counts = torch.empty((n,), dtype=torch.int32, device=device) if work else None
+    if n == 0:
+        return (out, counts) if work else out
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.rt_threefry_render(
+            table.data_ptr(), n_spheres, cam_vec.data_ptr(), pix.data_ptr(), n, k0, k1,
+            int(sample_offset), int(spp), int(max_depth), out.data_ptr(),
+            counts.data_ptr() if work else None, stream,
+        )
+    _raise_on(lib, err, "threefry_render_kernel")
+    LAUNCHES["threefry_render_kernel"] += 1
+    return (out, counts) if work else out
 
 
 @dataclasses.dataclass

@@ -2,8 +2,10 @@
 
 The PyTorch counterpart of ray_tracing_in_one_weekend_tpu/models/camera.py
 (reference: src/gpu/camera.h:11-110). The derivation runs once on the
-host in float32, in the JAX version's operation order; ray generation
-itself lives in the render kernel (`ops/cuda_render._camera_ray_block`).
+host in float32, in the JAX version's operation order. Ray generation on
+the PCG streams lives in the render kernel
+(`ops/cuda_render._camera_ray_block`); on threefry keys it is `get_rays`,
+the JAX version's (and `csrc/threefry_render_kernel.cu`'s on the card).
 
 Axis convention follows the reference GPU tree: x = column (left to
 right), y = row (top to bottom), pixel (0,0) at the top-left.
@@ -19,7 +21,12 @@ import numpy as np
 import torch
 
 from ray_tracing_in_one_weekend_tpu_torch.models.scene import resolve_device
+from ray_tracing_in_one_weekend_tpu_torch.ops import sampling
 from ray_tracing_in_one_weekend_tpu_torch.ops import vecmath as vm
+
+# Camera draws use this fold_in domain, disjoint from the integrator's
+# per-bounce domains 0..max_depth.
+CAMERA_DOMAIN = 1 << 20
 
 _VECTORS = (
     "center",
@@ -147,3 +154,30 @@ def camera_from_numpy(
         max_depth=max_depth,
         **tensors,
     )
+
+
+def get_rays(cam: Camera, px: torch.Tensor, py: torch.Tensor, keys):
+    """Jittered camera rays for integer pixel coordinates (px = column, py =
+    row) from per-ray threefry keys -> (origins [R, 3], directions [R, 3]).
+
+    The JAX package's `get_rays` (models/camera.py:130-173), the array form
+    of the reference's `get_ray` (reference: src/gpu/camera.h:140-167):
+    four uniforms a ray from `fold_in(key, 1 << 20)`, a +-0.5-pixel jitter
+    (u0, u1) around the pixel center, and the origin on the defocus disk at
+    radius sqrt(u2), angle 2 pi u3 when `defocus_angle > 0`. Directions are
+    NOT normalized (direction = sample - origin). The position sums are
+    fused multiply-add chains, as XLA compiles them on the CPU."""
+    u4 = sampling.uniforms_b(keys, 4, domain=CAMERA_DOMAIN)
+    jitter = u4[..., 0:2] - 0.5
+    fx = (px.to(torch.float32) + jitter[..., 0])[..., None]
+    fy = (py.to(torch.float32) + jitter[..., 1])[..., None]
+    pixel_sample = vm.fma(fy, cam.pixel_delta_v, vm.fma(fx, cam.pixel_delta_u, cam.pixel00_loc))
+    if float(cam.defocus_angle) > 0.0:
+        disk_r = vm.sqrt(u4[..., 2])
+        disk_theta = sampling._TWO_PI * u4[..., 3]
+        origin = vm.fma((disk_r * torch.sin(disk_theta))[..., None], cam.defocus_disk_v,
+                        vm.fma((disk_r * torch.cos(disk_theta))[..., None], cam.defocus_disk_u,
+                               cam.center))
+    else:
+        origin = cam.center.expand_as(pixel_sample)
+    return origin, pixel_sample - origin

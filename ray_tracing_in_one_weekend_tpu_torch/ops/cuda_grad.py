@@ -398,9 +398,12 @@ def _path_positions(records):
     return ends, path, ends[path] - slots
 
 
-def _reverse_records_plain(p_mat, cam_vec, replay, g):
+def _reverse_records_plain(p_mat, cam_vec, replay, g, dtype=torch.float32):
     """The reverse half in plain PyTorch: records -> events [E, 16] f32,
     the layout of `build.grad_reverse` (a new tensor; the records stay).
+    With `dtype=torch.float64` the walk runs in float64 at the records'
+    float32 points (`probes/grad_exact.py`'s reference): the events are
+    float64 and word 0 holds the winner as a value.
 
     Paths are independent once the adjoints restart at each path's last
     bounce, so this walks all paths at once, step r taking the bounce r
@@ -412,8 +415,9 @@ def _reverse_records_plain(p_mat, cam_vec, replay, g):
     dev = records.device
     n = records.shape[0]
     words = records.view(torch.int32)
-    events = torch.zeros_like(records)
-    events.view(torch.int32)[:, 0] = -1
+    events = torch.zeros(n, 16, dtype=dtype, device=dev)
+    winners = events[:, 0] if dtype != torch.float32 else events.view(torch.int32)[:, 0]
+    winners.fill_(-1)
     if n == 0:
         return events
     # Each slot's lane, then its path and its distance from the path's end.
@@ -424,10 +428,10 @@ def _reverse_records_plain(p_mat, cam_vec, replay, g):
     slot_lane[ev_start[lane_of] + torch.arange(n, device=dev) - first] = lane_of
     ends, path, back = _path_positions(records)
     lit = words[ends[path], _REC_END] == _END_SKY  # the slot's path reached the sky
-    bars = torch.zeros(3, 3, ends.numel(), dtype=torch.float32, device=dev)  # o, d, att adjoints per path
+    bars = torch.zeros(3, 3, ends.numel(), dtype=dtype, device=dev)  # o, d, att adjoints per path
 
     def vjp(sel, pcols, cont, cot):
-        rec = records[sel]
+        rec = records[sel, 0:9].to(dtype)
         stream = (_u32(words[sel, _REC_LO])[None], _u32(words[sel, _REC_HI])[None])
         ctr = 8 + 16 * words[sel, _REC_DEPTH].to(torch.int64)[None]
         miss = ~cont
@@ -437,10 +441,10 @@ def _reverse_records_plain(p_mat, cam_vec, replay, g):
 
     # The last bounce of a path that reached the sky: the sky's adjoint.
     sel = ((back == 0) & lit).nonzero()[:, 0]
-    zeros = torch.zeros(3, sel.numel(), dtype=torch.float32, device=dev)
+    zeros = torch.zeros(3, sel.numel(), dtype=dtype, device=dev)
     no = torch.zeros(1, sel.numel(), dtype=torch.bool, device=dev)
-    ob, db, ab, _ = vjp(sel, torch.zeros(P_ROWS, sel.numel(), device=dev), no,
-                        (zeros, zeros, zeros, g[:, slot_lane[sel]]))
+    ob, db, ab, _ = vjp(sel, torch.zeros(P_ROWS, sel.numel(), dtype=dtype, device=dev), no,
+                        (zeros, zeros, zeros, g[:, slot_lane[sel]].to(dtype)))
     bars[:, :, path[sel]] = torch.stack([ob, db, ab])
     # Each earlier bounce of such a path, last first.
     for r in range(1, int(back.max()) + 1):
@@ -450,9 +454,9 @@ def _reverse_records_plain(p_mat, cam_vec, replay, g):
         winner = words[sel, _REC_WINNER].to(torch.int64)
         yes = torch.ones(1, sel.numel(), dtype=torch.bool, device=dev)
         cot = bars[:, :, path[sel]]
-        ob, db, ab, pb = vjp(sel, p_mat[:, winner], yes, (*cot, torch.zeros_like(cot[0])))
+        ob, db, ab, pb = vjp(sel, p_mat[:, winner].to(dtype), yes, (*cot, torch.zeros_like(cot[0])))
         bars[:, :, path[sel]] = torch.stack([ob, db, ab])
-        events.view(torch.int32)[sel, 0] = winner.to(torch.int32)
+        winners[sel] = winner.to(winners.dtype)
         events[sel, 1:14] = pb[list(_EVENT_ROWS)].T
     return events
 

@@ -210,8 +210,9 @@ def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _sqrt(x: torch.Tensor) -> torch.Tensor:
     """IEEE float32 sqrt (correctly rounded, as sqrtf and jnp.sqrt are):
-    torch's vectorized CPU sqrt is off by an ulp on ~0.7% of inputs."""
-    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+    torch's vectorized CPU sqrt is off by an ulp on ~0.7% of inputs. A
+    float64 `x` keeps its precision."""
+    return torch.sqrt(x.to(torch.float64)).to(x.dtype)
 
 
 def _normalize3(v: torch.Tensor) -> torch.Tensor:

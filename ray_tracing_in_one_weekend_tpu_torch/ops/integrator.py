@@ -1,7 +1,9 @@
 """Iterative path tracing in plain PyTorch, differentiable by torch.autograd.
 
 The port's counterpart of ray_tracing_in_one_weekend_tpu/ops/integrator.py
-(`trace_rays`, :50-120), on the port's own PCG streams: each bounce runs
+(`trace_rays`, :50-120), twice: `trace_rays_threefry` on the JAX package's
+threefry keys (the jnp backend: see its docstring), and `trace_rays` on
+the port's own PCG streams, described here: each bounce runs
 the forward render's device functions (`ops/cuda_render.py`) with the
 draw counter 8 + 16·depth, so a ray's radiance is the bits `render_cuda`
 gives it. No kernel is launched: every operation is a PyTorch one, on
@@ -34,8 +36,13 @@ kernels (`ops/cuda_grad.py`).
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
+from ray_tracing_in_one_weekend_tpu_torch.models.scene import Scene
+from ray_tracing_in_one_weekend_tpu_torch.ops import sampling
+from ray_tracing_in_one_weekend_tpu_torch.ops import vecmath as vm
 from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_grad import _winner_t
 from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import (
     T_MISS,
@@ -44,6 +51,12 @@ from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import (
     _surface,
     _sweep_ts,
 )
+from ray_tracing_in_one_weekend_tpu_torch.ops.intersect import hit_scene
+from ray_tracing_in_one_weekend_tpu_torch.ops.materials import scatter_sampled
+
+# Sky gradient endpoints (reference: src/gpu/camera.h:120-122).
+SKY_WHITE = (1.0, 1.0, 1.0)
+SKY_BLUE = (0.5, 0.7, 1.0)
 
 
 def trace_rays(p_mat, o, d, stream, t_min, max_depth, differentiable=False):
@@ -90,3 +103,69 @@ def _trace(p_mat, o, d, stream, t_min, max_depth):
         live = live[keep]
         o, d, att = p[:, keep], new_dir[:, keep], (att * mat_atten)[:, keep]
     return rad
+
+
+# ---------------------------------------------------------------------------
+# The keyed path: the JAX package's jnp integrator on threefry keys.
+# ---------------------------------------------------------------------------
+
+
+def sky_color(direction: torch.Tensor) -> torch.Tensor:
+    """Background gradient lerp(white, blue, 0.5 (unit_dir.y + 1)) for any
+    (not necessarily unit) direction [..., 3] (reference:
+    src/gpu/camera.h:119-123)."""
+    a = 0.5 * (vm.unit_vector_fma(direction)[..., 1] + 1.0)
+    blue = torch.tensor(SKY_BLUE, dtype=direction.dtype, device=direction.device)
+    return vm.fma(a[..., None], blue, (1.0 - a)[..., None])
+
+
+def trace_rays_threefry(
+    scene: Scene,
+    origin: torch.Tensor,
+    direction: torch.Tensor,
+    keys,
+    max_depth: int,
+    differentiable: bool = False,
+) -> torch.Tensor:
+    """Trace a flat batch of rays to radiance [R, 3] on threefry keys: the
+    JAX package's jnp `trace_rays` (integrator.py:50-120).
+
+    `origin`, `direction` [R, 3] (directions need not be unit), `keys` the
+    rays' [R] keys (already folded with pixel and sample index). Bounce i
+    draws `uniforms_b(keys, 5, domain=i)`: four for the Box-Muller unit
+    sample, one for the dielectric's choice. A miss adds the sky times the
+    attenuation so far and retires the ray; an absorbed ray retires dark,
+    as does one still bouncing after `max_depth` bounces. The loop stops
+    once no ray is live (the JAX function's `while_loop`; its fixed-trip
+    `fori_loop` under differentiation gives the same values).
+
+    The live rays are compacted by index each bounce and the radiance is
+    written out of place, so with `differentiable=True` torch.autograd
+    records the bounces that ran, and gradients reach the scene's center,
+    radius, albedo, fuzz and ior (and `origin`, `direction` if they require
+    them). Without it the trace runs under `torch.no_grad()`. No kernel is
+    launched: this is the plain version of `csrc/threefry_render_kernel.cu`,
+    on the device of its inputs."""
+    ctx = contextlib.nullcontext() if differentiable else torch.no_grad()
+    with ctx:
+        n = origin.shape[0]
+        rad = torch.zeros(n, 3, dtype=torch.float32, device=origin.device)
+        att = torch.ones(n, 3, dtype=torch.float32, device=origin.device)
+        live = torch.arange(n, device=origin.device)
+        o, d, k = origin, direction, keys
+        for i in range(max_depth):
+            rec = hit_scene(scene, o, d)
+            miss = ~rec.hit
+            rad = rad.index_copy(0, live, rad[live] + torch.where(miss[:, None], att * sky_color(d), 0.0))
+            if i + 1 == max_depth or not bool(rec.hit.any()):
+                break
+            u = sampling.uniforms_b(k, 5, domain=i)
+            unit_sample = sampling.unit_vector_from_uniforms(u[:, 0:4])
+            new_dir, mat_att, ok = scatter_sampled(rec, d, unit_sample, u[:, 4])
+            keep = (rec.hit & ok).nonzero()[:, 0]
+            if keep.numel() == 0:
+                break
+            live = live[keep]
+            o, d, att = rec.point[keep], new_dir[keep], (att * mat_att)[keep]
+            k = (k[0][keep], k[1][keep])
+        return rad

@@ -1,8 +1,22 @@
-"""Full-image render through `trace_rays`: plain PyTorch, differentiable.
+"""Full-image render through the plain integrators: PyTorch, differentiable.
 
 The port's counterpart of ray_tracing_in_one_weekend_tpu/ops/render.py
-(:39-138), the JAX package's jnp render with `differentiable=True`, on
-the port's PCG streams instead of threefry keys. Every (pixel, sample)
+(:39-138), on two kinds of streams.
+
+On threefry keys, the JAX package's jnp backend: `render_image` (JAX's
+name and signature) and under it `render_pixels_threefry`,
+`render_flat_threefry` and `render_threefry`. Sample s of global pixel p
+draws from key(s) = fold_in(fold_in(base, p), sample_offset + s): the
+camera from fold_in(key(s), 0), the trace from fold_in(key(s), 1). The
+samples add in sample order and the sum is divided by spp, as JAX's
+`fori_loop` does, so any chunk size and any sample window give the same
+bits. `render_keyed`, and `render_image` above it, launch
+`csrc/threefry_render_kernel.cu` on a CUDA scene (`ops/cuda_threefry.py`)
+and run the plain functions on a CPU scene; there is no fallback from one
+to the other.
+
+On the port's PCG streams, the same render with `differentiable=True`
+(`render_pixels`, `render_flat`, `render`) instead of threefry keys. Every (pixel, sample)
 ray takes its stream from the GLOBAL pixel and sample index, as
 `_camera_ray_block` keys it, so any subset of pixels, any chunking and
 any `sample_offset` window render the same rays. A chunk's samples are
@@ -22,8 +36,9 @@ from __future__ import annotations
 
 import torch
 
-from ray_tracing_in_one_weekend_tpu_torch.models.camera import Camera
+from ray_tracing_in_one_weekend_tpu_torch.models.camera import Camera, get_rays
 from ray_tracing_in_one_weekend_tpu_torch.models.scene import Scene
+from ray_tracing_in_one_weekend_tpu_torch.ops import threefry
 from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_grad import _lanes
 from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import (
     _camera_ray_block,
@@ -31,7 +46,8 @@ from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import (
     pack_camera,
     pack_scene,
 )
-from ray_tracing_in_one_weekend_tpu_torch.ops.integrator import trace_rays
+from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_threefry import render_kernel_pixels
+from ray_tracing_in_one_weekend_tpu_torch.ops.integrator import trace_rays, trace_rays_threefry
 
 # Default pixels per chunk (the JAX package's). A chunk traces
 # chunk · spp rays at once: at the bench preset (10 spp, 512 slots) each
@@ -125,4 +141,107 @@ def render(
     n = cam.num_pixels
     colors = render_flat(scene, cam, torch.arange(n, device=scene.device), seed,
                          chunk_size=chunk_size, spp=spp, differentiable=differentiable)
+    return colors.reshape(cam.image_height, cam.image_width, 3)
+
+
+# ---------------------------------------------------------------------------
+# The jnp backend on threefry keys.
+# ---------------------------------------------------------------------------
+
+
+def render_pixels_threefry(
+    scene: Scene,
+    cam: Camera,
+    pixel_indices,
+    base_key=0,
+    spp: int | None = None,
+    sample_offset: int = 0,
+    differentiable: bool = False,
+) -> torch.Tensor:
+    """Render a flat batch of global pixel indices on threefry keys -> the
+    linear sample-mean color [R, 3] on the scene's device, in one piece
+    (JAX render.py:39-82). `sample_offset` shifts the global sample indices
+    drawn; any subset of pixels renders the same colors whichever call
+    renders it."""
+    spp = cam.samples_per_pixel if spp is None else spp
+    pix = torch.as_tensor(pixel_indices, device=scene.device).reshape(-1).to(torch.int64)
+    px, py = pix % cam.image_width, pix // cam.image_width
+    pixel_keys = threefry.fold_in(threefry.as_key(base_key), pix)
+    total = torch.zeros(pix.numel(), 3, dtype=torch.float32, device=scene.device)
+    for s in range(spp):
+        keys = threefry.fold_in(pixel_keys, sample_offset + s)
+        origin, direction = get_rays(cam, px, py, threefry.fold_in(keys, 0))
+        total = total + trace_rays_threefry(scene, origin, direction, threefry.fold_in(keys, 1),
+                                            cam.max_depth, differentiable=differentiable)
+    # A true division on every device (CUDA divides by a Python scalar as a
+    # multiplication by its reciprocal), as the kernel divides.
+    return total / torch.full_like(total, float(spp))
+
+
+def render_flat_threefry(
+    scene: Scene,
+    cam: Camera,
+    pixel_indices,
+    base_key=0,
+    chunk_size: int = DEFAULT_CHUNK,
+    spp: int | None = None,
+    sample_offset: int = 0,
+    differentiable: bool = False,
+) -> torch.Tensor:
+    """`render_pixels_threefry` `chunk_size` pixels at a time -> [R, 3]:
+    memory is one chunk's [chunk, N] sweep (JAX render.py:85-121)."""
+    if chunk_size < 1:
+        raise ValueError(f"chunk_size ({chunk_size}) must be positive")
+    pix = torch.as_tensor(pixel_indices, device=scene.device).reshape(-1)
+    parts = [
+        render_pixels_threefry(scene, cam, pix[a : a + chunk_size], base_key, spp, sample_offset,
+                               differentiable)
+        for a in range(0, pix.numel(), chunk_size)
+    ]
+    if not parts:
+        return torch.zeros(0, 3, dtype=torch.float32, device=scene.device)
+    return torch.cat(parts)
+
+
+def render_threefry(
+    scene: Scene,
+    cam: Camera,
+    base_key=0,
+    chunk_size: int = DEFAULT_CHUNK,
+    spp: int | None = None,
+    differentiable: bool = False,
+) -> torch.Tensor:
+    """Render the full image on threefry keys by the plain functions ->
+    linear framebuffer [H, W, 3] on the scene's device."""
+    colors = render_flat_threefry(scene, cam, torch.arange(cam.num_pixels, device=scene.device),
+                                  base_key, chunk_size=chunk_size, spp=spp,
+                                  differentiable=differentiable)
+    return colors.reshape(cam.image_height, cam.image_width, 3)
+
+
+def render_keyed(scene: Scene, cam: Camera, pixel_indices, base_key=0, spp: int | None = None,
+                 sample_offset: int = 0, chunk_size: int = DEFAULT_CHUNK) -> torch.Tensor:
+    """Samples [sample_offset, sample_offset + spp) of the global pixels
+    `pixel_indices` on threefry keys from `base_key` -> [R, 3] means on the
+    scene's device: the kernel on a CUDA scene (`chunk_size` is then
+    unused, as the kernel holds no [chunk, N] temporary), the plain version
+    `chunk_size` pixels at a time on a CPU scene."""
+    if scene.device.type == "cuda":
+        return render_kernel_pixels(scene, cam, pixel_indices, base_key, spp, sample_offset)
+    return render_flat_threefry(scene, cam, pixel_indices, base_key, chunk_size=chunk_size, spp=spp,
+                                sample_offset=sample_offset)
+
+
+def render_image(
+    scene: Scene,
+    cam: Camera,
+    base_key=0,
+    chunk_size: int = DEFAULT_CHUNK,
+) -> torch.Tensor:
+    """End-user entry of the jnp backend (JAX render.py:124-133): the image
+    [H, W, 3] of `scene` through `cam` on threefry keys from `base_key` (an
+    int seed or a key), by `render_keyed`. The same bits for any
+    `chunk_size`."""
+    colors = render_keyed(scene, cam, torch.arange(cam.num_pixels, device=scene.device), base_key,
+                          chunk_size=chunk_size)
     return colors.reshape(cam.image_height, cam.image_width, 3)

@@ -10,7 +10,9 @@ from ray_tracing_in_one_weekend_tpu_torch.parallel.dist import (
     gather_in_order,
     init_distributed,
     make_mesh,
+    render_distributed,
     render_grads,
+    render_image_distributed,
     render_loss,
     scene_params,
     scene_with_params,
@@ -27,7 +29,9 @@ __all__ = [
     "gather_in_order",
     "init_distributed",
     "make_mesh",
+    "render_distributed",
     "render_grads",
+    "render_image_distributed",
     "render_loss",
     "scene_params",
     "scene_with_params",

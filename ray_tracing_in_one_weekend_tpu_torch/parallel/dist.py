@@ -18,6 +18,12 @@ Every random draw keys on GLOBAL (pixel, sample) ids, so a pixel mesh gives
 one device's image bit for bit, and a sample mesh gives the windows rendered
 on one device and averaged in rank order.
 
+The jnp backend on threefry keys (`render_distributed`,
+`render_image_distributed`, parallel/dist.py:96-179 there) splits pixels as
+the JAX package does: P equal contiguous slabs of ceil(n / P) pixels, the
+padding repeating the last pixel, each rendered by `render_keyed` (the
+kernel on the card, the plain version on the CPU).
+
 The collectives are the two fixed-order ones below, written once: a sum over
 a group that all-gathers the ranks' tensors and adds them in rank order
 (every rank holds the same bits whatever the backend: a backend's own
@@ -50,7 +56,7 @@ from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_grad import (
     scene_with_params,
 )
 from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import _rank_share, pack_camera, pack_scene
-from ray_tracing_in_one_weekend_tpu_torch.ops.render import DEFAULT_CHUNK, render_lanes
+from ray_tracing_in_one_weekend_tpu_torch.ops.render import DEFAULT_CHUNK, render_keyed, render_lanes
 
 PIXEL_AXIS = "pixels"
 SAMPLE_AXIS = "samples"
@@ -58,7 +64,7 @@ SAMPLE_AXIS = "samples"
 __all__ = [
     "PIXEL_AXIS", "SAMPLE_AXIS", "DIFF_FIELDS", "Mesh", "make_mesh", "init_distributed",
     "fetch_image", "sum_in_order", "gather_in_order", "scene_params", "scene_with_params",
-    "render_loss", "render_grads", "train_step",
+    "render_loss", "render_grads", "train_step", "render_distributed", "render_image_distributed",
 ]
 
 
@@ -257,6 +263,50 @@ def init_distributed(backend: str | None = None, coordinator: str | None = None,
           file=sys.stderr, flush=True)
     dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank,
                             timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+
+
+def _padded_pixel_count(n_pixels: int, n_shards: int) -> int:
+    """Pixels padded so every slab gets the same whole number of pixels
+    (JAX parallel/dist.py:90-93)."""
+    return -(-n_pixels // n_shards) * n_shards
+
+
+def render_distributed(scene: Scene, cam: Camera, base_key=0, mesh: Mesh | None = None,
+                       chunk_size: int = DEFAULT_CHUNK, spp: int | None = None,
+                       sample_offset: int = 0) -> torch.Tensor:
+    """The jnp backend's image sharded over `mesh` (default: every rank on
+    the pixel axis) -> linear [H, W, 3], the whole image on every rank, on
+    the scene's device (JAX parallel/dist.py:96-161).
+
+    Rank (p, s) renders pixel slab p, global ids [p·slab, (p+1)·slab) with
+    slab = ceil(n / P) (ids past the image repeat the last pixel and are
+    cut after the gather), and the sample window s: global samples
+    [sample_offset + s·spp/S, sample_offset + (s+1)·spp/S). The windows
+    are averaged over the sample axis in rank order (`sum_in_order`, then
+    / S) and the slabs gathered in rank order. A pixel mesh gives
+    `render_image`'s bits; a sample mesh the windows rendered on one device
+    and averaged in rank order. `spp % S != 0` raises."""
+    mesh = make_mesh() if mesh is None else mesh
+    spp = cam.samples_per_pixel if spp is None else spp
+    if spp % mesh.samples != 0:
+        raise ValueError(f"samples_per_pixel={spp} must divide evenly over the '{SAMPLE_AXIS}' mesh "
+                         f"axis of size {mesh.samples}")
+    spp_local = spp // mesh.samples
+    n = cam.num_pixels
+    slab = _padded_pixel_count(n, mesh.pixels) // mesh.pixels
+    start = mesh.pixel_index * slab
+    idx = torch.clamp(torch.arange(start, start + slab, device=scene.device), max=n - 1)
+    colors = render_keyed(scene, cam, idx, base_key, spp_local,
+                          sample_offset + mesh.sample_index * spp_local, chunk_size)
+    rad = mesh.gather_pixels(mesh.sample_mean(colors.T.contiguous()))
+    return rad[:, :n].T.reshape(cam.image_height, cam.image_width, 3)
+
+
+def render_image_distributed(scene: Scene, cam: Camera, base_key=0, mesh: Mesh | None = None,
+                             chunk_size: int = DEFAULT_CHUNK, spp: int | None = None) -> torch.Tensor:
+    """End-user entry of the sharded jnp backend (JAX parallel/dist.py:164-179):
+    `render_distributed` from sample 0."""
+    return render_distributed(scene, cam, base_key, mesh, chunk_size, spp)
 
 
 def fetch_image(img: torch.Tensor) -> np.ndarray:

@@ -25,6 +25,8 @@ A job is a dict: `job` (a name of `JOBS`), `mesh` ((P,) or (P, S)),
 * "autograd_step": `dist.render_grads` (torch.autograd through the plain
   render) on the mesh, as "step" with the same layout; it has no cost
   map, so `work` is None.
+* "jnp_render": `dist.render_distributed` (the jnp backend on threefry
+  keys) with `kw`; the image and the call's seconds.
 * "accumulate": `checkpoint.accumulate` on the mesh, one batch of each
   size in `batches`; the state after each.
 * "dryrun": `entry.dryrun_rank` on the mesh.
@@ -244,6 +246,17 @@ def _job_accumulate(job, mesh, device):
     return res
 
 
+def _job_jnp_render(job, mesh, device):
+    from ray_tracing_in_one_weekend_tpu_torch.parallel import dist as pdist
+
+    scene, cam = _scene(job["scene"], device), _camera(job["camera"], device)
+    _sync(device, mesh)
+    t0 = time.perf_counter()
+    img = pdist.render_distributed(scene, cam, mesh=mesh, **job.get("kw", {}))
+    _sync(device, mesh)
+    return {"image": img.cpu(), "seconds": [time.perf_counter() - t0]}
+
+
 def _job_dryrun(job, mesh, device):
     from ray_tracing_in_one_weekend_tpu_torch import entry
 
@@ -255,7 +268,7 @@ def _job_autograd_step(job, mesh, device):
 
 
 JOBS = {"render": _job_render, "step": _job_step, "autograd_step": _job_autograd_step,
-        "accumulate": _job_accumulate, "dryrun": _job_dryrun}
+        "jnp_render": _job_jnp_render, "accumulate": _job_accumulate, "dryrun": _job_dryrun}
 
 
 def main(argv=None) -> int:

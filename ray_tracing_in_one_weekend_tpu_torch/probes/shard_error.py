@@ -36,9 +36,10 @@ from ray_tracing_in_one_weekend_tpu_torch.utils.config import (
 RTOL, ATOL = 2e-5, 1e-6
 
 
-def exact_grads(scene, cam, target) -> dict:
-    """The step's gradient with its events summed in float64 -> float64
-    tensors by field."""
+def step_paths(scene, cam, target):
+    """The step's paths as the backward replays them, on the loss's image
+    cotangent -> (p_mat, cam_vec, replay, g): `build.grad_replay` on the
+    card, `cuda_grad._replay_records_plain` on the CPU."""
     from ray_tracing_in_one_weekend_tpu_torch.kernels import build
 
     n, spp, depth = cam.num_pixels, cam.samples_per_pixel, cam.max_depth
@@ -52,21 +53,39 @@ def exact_grads(scene, cam, target) -> dict:
     p_mat, cam_vec = cr.pack_scene(scene), cr.pack_camera(cam).to(scene.device)
     scalars = (0, 0, 0, n)
     if scene.device.type == "cuda":
-        table = p_mat.T.contiguous()
-        replay = build.grad_replay(table, cam_vec, scalars, pix, work, cg.DEFAULT_BWD_TILE, spp, depth)
-        events = build.grad_reverse(table, cam_vec, replay, g, cg.DEFAULT_BWD_TILE)
+        replay = build.grad_replay(p_mat.T.contiguous(), cam_vec, scalars, pix, work, cg.DEFAULT_BWD_TILE,
+                                   spp, depth)
     else:
         replay = cg._replay_records_plain(p_mat, cam_vec, scalars, pix, spp, depth)
+    return p_mat, cam_vec, replay, g
+
+
+def params_f64(scene, p_bar) -> dict:
+    """A float64 cotangent [16, N] of the packed scene -> float64 gradients
+    by field: `pack_scene`'s chain rule on the cotangent split into two
+    float32 halves."""
+    hi = p_bar.float()
+    lo = (p_bar - hi.double()).float()
+    parts = [cg.params_vjp(scene, half) for half in (hi, lo)]
+    return {k: parts[0][k].double() + parts[1][k].double() for k in parts[0]}
+
+
+def exact_grads(scene, cam, target) -> dict:
+    """The step's gradient with its events summed in float64 -> float64
+    tensors by field."""
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+
+    p_mat, cam_vec, replay, g = step_paths(scene, cam, target)
+    if scene.device.type == "cuda":
+        events = build.grad_reverse(p_mat.T.contiguous(), cam_vec, replay, g, cg.DEFAULT_BWD_TILE)
+    else:
         events = cg._reverse_records_plain(p_mat, cam_vec, replay, g)
     idx = events[:, 0].contiguous().view(torch.int32).to(torch.int64)
     keep = (idx >= 0) & (idx < p_mat.shape[1])
     exact = torch.zeros(16, p_mat.shape[1], dtype=torch.float64, device=p_mat.device)
     rows = list(cg._EVENT_ROWS)
     exact[rows] = exact[rows].index_add(1, idx[keep], events[keep, 1:14].double().T)
-    hi = exact.float()
-    lo = (exact - hi.double()).float()
-    parts = [cg.params_vjp(scene, half) for half in (hi, lo)]
-    return {k: parts[0][k].double() + parts[1][k].double() for k in parts[0]}
+    return params_f64(scene, exact)
 
 
 def excess(a, b):

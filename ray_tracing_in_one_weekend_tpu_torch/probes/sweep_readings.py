@@ -10,7 +10,10 @@ the CUDA runtime where the library reports them (`build.blocks_per_sm`),
 and from the occupancy rules of an H100 (`blocks_per_sm`) for any build,
 a parent's too. chip_smoke.py phase 2 prints them for this checkout,
 probes/sweep_variants.py for each variant and for a parent checkout
-(`load_build`).
+(`load_build`). `threefry_reading` gives the same for the jnp backend's
+`threefry_render_kernel`, whose sweep (the JAX formula) has five
+explicit fused multiply-adds a sphere test; chip_smoke.py phase 15
+prints it.
 """
 
 from __future__ import annotations
@@ -35,6 +38,10 @@ N_SLOTS = 512
 TABLE_BYTES = 16
 # Float32 multiplies of one sphere test: d.c 3, c.(-2o) 3, half_b^2 1.
 FMUL_PER_TEST = 7
+# threefry_render_kernel's sweep: d.c 2, o.c 2 and disc 1 explicit FFMAs a
+# test (built with -fmad=false, nothing else is fused).
+THREEFRY_KERNEL = "threefry_render_kernel"
+FFMA_PER_TEST = 5
 
 
 @dataclasses.dataclass
@@ -138,7 +145,7 @@ def _instructions(listing: str):
 @dataclasses.dataclass
 class SweepLoop:
     instructions: int  # issued on one trip through the loop when no test has a real root
-    tests: float  # sphere tests a trip: its float32 multiplies / FMUL_PER_TEST
+    tests: float  # sphere tests a trip: its marker instructions / their count a test
     opcodes: dict
 
     @property
@@ -146,14 +153,15 @@ class SweepLoop:
         return self.instructions / self.tests
 
 
-def sweep_loop(listing: str) -> SweepLoop | None:
+def sweep_loop(listing: str, marker: str = "FMUL", per_test: int = FMUL_PER_TEST) -> SweepLoop | None:
     """The sweep loop of one kernel's SASS and its instructions per sphere
     test. A loop is a backward branch and the span it closes. A trip's
     instructions are the span's, less those a forward branch within the
     span jumps over (the roots, taken only when a test has real roots);
     predicated instructions count, as they take an issue slot. The sweep
-    loop is the loop with the most such FMULs (7 a test) among the loops
-    of at least one test that enclose no other such loop."""
+    loop is the loop with the most `marker` instructions (`per_test` a
+    test: 7 FMULs in the PCG kernels' sweep) among the loops of at least
+    one test that enclose no other such loop."""
     insns = [i for i in _instructions(listing) if i[1] != "NOP"]
     loops = []
     for k, (addr, op, _, _, target) in enumerate(insns):
@@ -165,8 +173,8 @@ def sweep_loop(listing: str) -> SweepLoop | None:
                 if i[1] == "BRA" and i[4] is not None and i[0] < i[4] <= addr:
                     skipped.update(x[0] for x in body[j + 1:] if x[0] < i[4])
             hot = [i for i in body if i[0] not in skipped]
-            fmul = sum(1 for i in hot if i[1] == "FMUL")
-            if fmul >= FMUL_PER_TEST:
+            fmul = sum(1 for i in hot if i[1] == marker)
+            if fmul >= per_test:
                 loops.append((target, addr, hot, fmul))
     inner = [lp for lp in loops
              if not any(o is not lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
@@ -176,7 +184,7 @@ def sweep_loop(listing: str) -> SweepLoop | None:
     opcodes: dict[str, int] = {}
     for i in hot:
         opcodes[i[1]] = opcodes.get(i[1], 0) + 1
-    return SweepLoop(len(hot), fmul / FMUL_PER_TEST, opcodes)
+    return SweepLoop(len(hot), fmul / per_test, opcodes)
 
 
 def _cuobjdump() -> str | None:
@@ -254,6 +262,21 @@ def readings(log: str, lib_path: Path, table_bytes: int, runtime=None) -> list[R
         loop = sweep_loop(funcs[fname]) if fname else None
         out.append(Reading(kernel, r, runtime(kernel) if runtime else None, rules, loop, sass is not None))
     return out
+
+
+def threefry_reading(log: str, lib_path: Path, runtime=None) -> Reading:
+    """The reading of `threefry_render_kernel` (namespace tfr, 128 threads a
+    block, the sweep table one float4 a sphere at 512 slots)."""
+    res = ptxas_resources(log)
+    name = next((n for n in res if THREEFRY_KERNEL in n), None)
+    r = res.get(name) if name else None
+    rules = blocks_per_sm(r.registers, r.smem + TABLE_BYTES * N_SLOTS, TILE) if r is not None else None
+    sass = sass_of(lib_path)
+    funcs = sass_functions(sass) if sass else {}
+    fname = next((n for n in funcs if THREEFRY_KERNEL in n), None)
+    loop = sweep_loop(funcs[fname], "FFMA", FFMA_PER_TEST) if fname else None
+    return Reading(THREEFRY_KERNEL, r, runtime(THREEFRY_KERNEL) if runtime else None, rules, loop,
+                   sass is not None)
 
 
 def load_build(root: Path):

@@ -11,10 +11,11 @@ through `utils/checkpoint.accumulate`, batches of 100 by default as the
 JAX gallery's renders were made, so the float32 fold of the batches is
 theirs. The `cpu` preset renders the reference's exact scene
 (`cover_scene_reference`), as the JAX gallery does; the others the
-preset's `cover_scene(seed)`, or with `--jax-scene` the JAX package's
-`cover_scene(0)`, the scene of the TPU gallery's renders (the port draws
-its scenes from numpy, the JAX package from threefry: the two cover
-scenes of one seed differ sphere by sphere).
+preset's `cover_scene(seed)`, or with `--jax-scene` the committed table
+of the JAX package's `cover_scene(0)`, the scene of the TPU gallery's
+renders. Both packages draw the cover scene from the same threefry keys,
+so the two give the same world; the table is how a machine without JAX
+checks that they do.
 
 It writes `cover_<W>x<H>_<spp>spp_<preset>.png` (`_seed<S>` added for a
 render seed other than the preset's) into `--out` (default
@@ -54,7 +55,8 @@ OUT_DIR = os.path.join(manifest.repo_root(), "build", "gallery")
 # The JAX package's cover_scene(0) (ray_tracing_in_one_weekend_tpu/models/
 # scene.py), all 512 slots: the scene of the TPU gallery's gpu, gpu-old and
 # cpu-mt renders. tests/test_torch_gallery.py holds it equal to the JAX
-# function's arrays.
+# function's arrays, and tests/test_torch_threefry.py and chip_smoke.py to
+# the port's cover_scene(0).
 JAX_COVER_SCENE_0 = os.path.join(os.path.dirname(os.path.abspath(__file__)), "jax_cover_scene_0.npz")
 
 
@@ -86,8 +88,9 @@ def log(msg: str) -> None:
 
 def preset_scene(preset: str, config, device, jax_scene: bool = False):
     """(scene, its label for the manifest) of a preset: the reference's exact
-    scene for `cpu`; else the JAX package's cover_scene(0) with
-    `jax_scene`, or the preset's own scene."""
+    scene for `cpu`; else the committed table of the JAX package's
+    cover_scene(0) with `jax_scene` (the same arrays as the port's
+    cover_scene(0)), or the preset's own scene."""
     if preset == "cpu":
         return scene_lib.cover_scene_reference(device=device), "cover_scene_reference"
     if jax_scene:

@@ -12,6 +12,13 @@ after a checkpoint at k draws the samples one k+n-sample run would have
 drawn. The accumulated mean equals the monolithic mean up to float
 summation order: each batch boundary re-associates the per-sample sum.
 
+Two backends, as the CLI names them. `cuda` (and `torch`, the same on a
+CPU scene) renders the port's PCG streams through `render_cuda`, the
+kernel on the card and its plain version on the CPU. `jnp` renders the
+JAX package's jnp backend on threefry keys (`ops/cuda_threefry.py`:
+`csrc/threefry_render_kernel.cu` on the card, the plain functions of
+`ops/render.py` on the CPU), as the JAX `accumulate` does by default.
+
 Files are `np.savez_compressed` archives with the JAX package's keys
 (`accum`, `spp_done`, `work`), so a checkpoint written by one package
 resumes in the other.
@@ -31,6 +38,7 @@ from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import (
     render_cuda,
     render_cuda_distributed,
 )
+from ray_tracing_in_one_weekend_tpu_torch.ops.render import DEFAULT_CHUNK, render_keyed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +77,8 @@ def accumulate(
     tile: int = DEFAULT_TILE,
     warm: bool = True,
     mesh=None,
+    backend: str = "cuda",
+    chunk_size: int = DEFAULT_CHUNK,
 ) -> RenderState:
     """Render the next `spp_batch` samples and fold them into `state`.
 
@@ -86,10 +96,30 @@ def accumulate(
     (`render_cuda_distributed`), as the JAX package's does over its mesh,
     and every rank folds the same whole image into its state: the batch
     must divide evenly over the sample axis.
+
+    `backend="jnp"` renders the batch on threefry keys from `seed` (the
+    JAX package's jnp `accumulate`, checkpoint.py:68-165): the plain path
+    `chunk_size` pixels at a time on the CPU, the kernel on the card,
+    `parallel.dist.render_distributed` on a mesh; the state keeps its
+    `work` map. `tile` and `warm` belong to the PCG backends.
     """
     if state.accum.device != scene.device:
         raise ValueError(f"the render state is on {state.accum.device} and the scene on "
                          f"{scene.device}; build both on one device")
+    if backend == "jnp":
+        if mesh is not None:
+            from ray_tracing_in_one_weekend_tpu_torch.parallel.dist import render_distributed
+
+            colors = render_distributed(scene, cam, seed, mesh, chunk_size=chunk_size, spp=spp_batch,
+                                        sample_offset=state.spp_done)
+        else:
+            pix = torch.arange(cam.num_pixels, device=scene.device)
+            colors = render_keyed(scene, cam, pix, seed, spp_batch, state.spp_done, chunk_size).reshape(
+                cam.image_height, cam.image_width, 3)
+        return RenderState(accum=state.accum + colors * float(spp_batch),
+                           spp_done=state.spp_done + spp_batch, work=state.work)
+    if backend not in ("cuda", "torch"):
+        raise ValueError(f"unknown backend {backend!r}: cuda, torch or jnp")
     kw = dict(seed=seed, tile=tile, spp=spp_batch, sample_offset=state.spp_done,
               return_work=True, warm=warm)
     if mesh is not None:

@@ -13,7 +13,15 @@ is `./main > out.ppm`, reference: script/windows/rt-utility.psm1:33-47):
 
 Backends: `cuda` (the default) runs the hand-written kernel on the first
 GPU, and raises when there is none; `torch` runs the plain PyTorch
-version on the CPU, and only when asked for.
+version on the CPU, and only when asked for; `jnp` is the JAX package's
+jnp backend on threefry keys: `threefry_render_kernel` on the GPU, or with
+`--platform cpu` its plain version on the CPU, `--chunk` pixels at a time
+(no pixel changes with the chunk). `--platform {auto,cpu,gpu}` is the JAX
+flag with the card in the TPU's place: `cpu` runs `cuda` as `torch` and
+`jnp` on the CPU; `auto` and `gpu` need a GPU for `cuda` and `jnp`.
+
+    python -m ray_tracing_in_one_weekend_tpu_torch --backend jnp --preset cpu --png jnp.png > jnp.ppm
+    python -m ray_tracing_in_one_weekend_tpu_torch --backend jnp --platform cpu --width 120 > jnp.ppm
 
 Two paths, as in the JAX CLI:
 
@@ -63,10 +71,12 @@ from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import (
     warm_cache_hit,
 )
 from ray_tracing_in_one_weekend_tpu_torch.ops.image import to_uint8
+from ray_tracing_in_one_weekend_tpu_torch.ops.render import render_image
 from ray_tracing_in_one_weekend_tpu_torch.utils import checkpoint as ckpt
 from ray_tracing_in_one_weekend_tpu_torch.utils import ppm
 from ray_tracing_in_one_weekend_tpu_torch.utils.config import (
     BACKENDS,
+    PLATFORMS,
     PRESETS,
     RenderConfig,
     make_camera_from_config,
@@ -109,8 +119,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--scene", choices=("cover", "three", "single"), default=None)
     p.add_argument("--tile", type=int, default=DEFAULT_TILE,
                    help=f"lanes per CUDA block, a multiple of 128 (default {DEFAULT_TILE})")
+    p.add_argument("--chunk", type=int, default=None,
+                   help=f"pixels per chunk of the jnp backend's plain path (default {d.chunk_pixels}; "
+                        "no pixel changes with it)")
     p.add_argument("--backend", choices=BACKENDS, default=None,
-                   help="cuda (default): the kernel on the GPU; torch: the plain version on the CPU")
+                   help="cuda (default): the kernel on the GPU; torch: the plain version on the CPU; "
+                        "jnp: the JAX jnp backend on threefry keys (its kernel on the GPU)")
+    p.add_argument("--platform", choices=PLATFORMS, default="auto",
+                   help="cpu: cuda runs as torch, jnp on the CPU; auto/gpu: cuda and jnp need a GPU")
     p.add_argument("--mesh", default=None, metavar="P[,S]",
                    help="rank mesh: pixel shards, optional sample shards (one process a rank: "
                         "run under torchrun, or with --multihost)")
@@ -163,6 +179,7 @@ def config_from_args(args) -> RenderConfig:
         "focus_dist": "focus_dist",
         "seed": "seed",
         "scene": "scene",
+        "chunk": "chunk_pixels",
         "backend": "backend",
     }
     updates = {}
@@ -214,12 +231,27 @@ def _logger(rank: int):
     return _log if rank == 0 else (lambda *a: None)
 
 
-def resolve_backend(backend: str) -> str:
-    """`cuda` without a GPU raises: the CLI never falls back to the CPU."""
-    if backend == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--backend cuda needs a CUDA GPU, and torch sees none "
-                           "(--backend torch runs the plain version on the CPU)")
+def resolve_backend(backend: str, platform: str = "auto") -> str:
+    """The backend that `--backend` runs on `--platform`. `cuda` or `jnp`
+    without a GPU raises unless the platform is `cpu`: the CLI never falls
+    back to the CPU by itself. On `cpu`, `cuda` runs as `torch`."""
+    if platform == "cpu":
+        return "torch" if backend == "cuda" else backend
+    if backend == "torch":
+        if platform == "gpu":
+            raise ValueError("--backend torch runs on the CPU; --platform gpu asks for the GPU")
+        return backend
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"--backend {backend} needs a CUDA GPU, and torch sees none (--platform cpu "
+                           f"runs {'the plain version' if backend == 'cuda' else 'it'} on the CPU)")
     return backend
+
+
+def backend_device(backend: str, platform: str = "auto") -> torch.device:
+    """The render device of a resolved backend: the current GPU for `cuda`,
+    and for `jnp` unless the platform is `cpu`; else the CPU."""
+    on_gpu = backend == "cuda" or (backend == "jnp" and platform != "cpu")
+    return torch.device("cuda") if on_gpu else torch.device("cpu")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -254,15 +286,16 @@ def run(argv=None) -> CliResult:
     `--profile`; in one piece otherwise."""
     args = build_parser().parse_args(argv)
     config = config_from_args(args)
-    backend = resolve_backend(config.backend)
+    # On the GPU the device is the current one: a rank's own, which
+    # init_distributed chose.
+    backend = resolve_backend(config.backend, args.platform)
+    device = backend_device(backend, args.platform)
     mesh, rank = _join_ranks(args, config.mesh_shape)
     log = _logger(rank)
-    # The current GPU: a rank's own, which init_distributed chose.
-    device = torch.device("cuda") if backend == "cuda" else torch.device("cpu")
     log(f"renderer: {config.image_width}x{config.image_height} "
         f"spp={config.samples_per_pixel} depth={config.max_depth} "
         f"scene={config.scene} seed={config.seed}")
-    device_name = torch.cuda.get_device_name(device) if backend == "cuda" else "cpu"
+    device_name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     log(f"backend: {backend} on {device_name} mesh="
         + (f"{mesh.pixels}x{mesh.samples}" if mesh is not None else "1-device"))
     if mesh is not None:
@@ -306,6 +339,15 @@ def _run_monolithic(args, config, backend, scene, cam, device, mesh, log) -> Cli
     """One warm-up render, then the timed one (under --profile, traced)."""
 
     def render():
+        if backend == "jnp":
+            if mesh is not None:
+                from ray_tracing_in_one_weekend_tpu_torch.parallel.dist import render_image_distributed
+
+                img = render_image_distributed(scene, cam, config.seed, mesh, config.chunk_pixels)
+            else:
+                img = render_image(scene, cam, config.seed, config.chunk_pixels)
+            _sync(device, mesh)
+            return img
         kw = dict(seed=config.seed, tile=args.tile, warm=not args.cold)
         if mesh is not None:
             img = render_cuda_distributed(scene, cam, mesh=mesh, **kw)
@@ -338,8 +380,8 @@ def _run_monolithic(args, config, backend, scene, cam, device, mesh, log) -> Cli
     render()
     first_s = time.perf_counter() - t0
     log(f"first render (kernel build included): {first_s:.2f}s")
-    warm_hit = not args.cold and warm_cache_hit(scene, cam, seed=config.seed, tile=args.tile,
-                                                mesh=mesh)
+    warm_hit = backend != "jnp" and not args.cold and warm_cache_hit(
+        scene, cam, seed=config.seed, tile=args.tile, mesh=mesh)
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
 
@@ -356,8 +398,8 @@ def _run_monolithic(args, config, backend, scene, cam, device, mesh, log) -> Cli
     else:
         img, render_s = render_with_retries()
     result = CliResult(config, backend, img, first_s, render_s, warm_hit)
-    log(f"render: {render_s:.3f}s  ({result.mrays_per_s:.2f} Mrays/s, "
-        f"{'warm' if warm_hit else 'cold'} schedule)")
+    schedule = "one thread a pixel" if backend == "jnp" else f"{'warm' if warm_hit else 'cold'} schedule"
+    log(f"render: {render_s:.3f}s  ({result.mrays_per_s:.2f} Mrays/s, {schedule})")
     return result
 
 
@@ -386,12 +428,13 @@ def _run_batched(args, config, backend, scene, cam, device, mesh, log) -> CliRes
     while state.spp_done < target_spp:
         n = min(batch, target_spp - state.spp_done)
         t0 = time.perf_counter()
+        kw = dict(tile=args.tile, warm=not args.cold, mesh=mesh, backend=backend,
+                  chunk_size=config.chunk_pixels)
         if args.retries > 0:
             state = accumulate_resilient(state, scene, cam, config.seed, n, max_retries=args.retries,
-                                         log=log, tile=args.tile, warm=not args.cold, mesh=mesh)
+                                         log=log, **kw)
         else:
-            state = ckpt.accumulate(state, scene, cam, config.seed, n, tile=args.tile,
-                                    warm=not args.cold, mesh=mesh)
+            state = ckpt.accumulate(state, scene, cam, config.seed, n, **kw)
         _sync(device, mesh)  # completion barrier
         if args.checkpoint and (mesh is None or mesh.rank == 0):
             ckpt.save(state, args.checkpoint)

@@ -2,8 +2,11 @@
 
 The PyTorch counterpart of ray_tracing_in_one_weekend_tpu/utils/config.py:
 the same fields, defaults and presets, with the backends of the port:
-`cuda` (the default: the hand-written kernel on the GPU) and `torch`
-(the plain PyTorch version on the CPU, only when asked for). The reference has no config/flag system —
+`cuda` (the default: the hand-written kernel on the GPU), `torch`
+(its plain PyTorch version on the CPU, only when asked for) and `jnp`
+(the JAX package's jnp backend on threefry keys: the hand-written
+`threefry_render_kernel` on the GPU, or its plain version on the CPU
+with `--platform cpu`). The reference has no config/flag system —
 every parameter is a compile-time constant
 (reference: src/cpu/main.cc:82-99, src/gpu/camera.h:58-71,
 src/gpu-old/main.cu:145-152).
@@ -14,7 +17,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
-BACKENDS = ("cuda", "torch")
+from ray_tracing_in_one_weekend_tpu_torch.ops.render import DEFAULT_CHUNK
+
+BACKENDS = ("cuda", "torch", "jnp")
+PLATFORMS = ("auto", "cpu", "gpu")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,7 +44,9 @@ class RenderConfig:
 
     seed: int = 0
     scene: str = "cover"  # cover | three | single
-    backend: str = "cuda"  # cuda | torch
+    # Pixels a chunk of the jnp backend's plain path (its [chunk, N] sweep).
+    chunk_pixels: int = DEFAULT_CHUNK
+    backend: str = "cuda"  # cuda | torch | jnp
     # Ranks of the ('pixels', 'samples') mesh, (P,) or (P, S); () = one
     # device (parallel/dist.py).
     mesh_shape: Tuple[int, ...] = ()

@@ -3,7 +3,8 @@
 These tests need an NVIDIA GPU with nvcc (they build csrc/ on first use)
 and skip without one. They repeat phases 3-5, 7a, 8 and 9 of
 chip_smoke.py (7a: the replay kernel's records and the reverse kernel's
-events against their plain versions; 12b: the milestone scenes), check that the wrappers refuse
+events against their plain versions; 12b: the milestone scenes; 15c: the jnp
+backend's threefry_render_kernel), check that the wrappers refuse
 what the kernels do not take, and read the sweep kernels' occupancy.
 On the card:
 
@@ -530,3 +531,50 @@ def test_milestone_kernel_equals_plain(dev, name):
     img_p = cr.render_with(cr._render_pass_plain, scene, cam, warm=False)
     assert bool(torch.isfinite(img_k).all())
     assert torch.equal(img_k, img_p)
+
+
+def test_threefry_kernel_matches_plain(dev):
+    """threefry_render_kernel against render_flat_threefry on the card: the
+    whole 64x32 image (spp 4, depth 8) and a pixel subset at a sample
+    window, on the JAX cover scene and the reference's, bit for bit; one
+    launch a call; render_image and accumulate(backend="jnp") go through
+    it."""
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_threefry as ct
+    from ray_tracing_in_one_weekend_tpu_torch.ops import render as pr
+    from ray_tracing_in_one_weekend_tpu_torch.utils import checkpoint as ckpt
+
+    cam = _cam(dev)
+    pix = torch.arange(cam.num_pixels, device=dev)
+    for scene in (scene_lib.cover_scene(0, device=dev), scene_lib.cover_scene_reference(device=dev)):
+        before = build.LAUNCHES["threefry_render_kernel"]
+        k = ct.render_kernel_pixels(scene, cam, pix, 3)
+        assert build.LAUNCHES["threefry_render_kernel"] == before + 1
+        assert torch.equal(k, pr.render_flat_threefry(scene, cam, pix, 3))
+        sub = pix[::7]
+        assert torch.equal(ct.render_kernel_pixels(scene, cam, sub, 3, spp=2, sample_offset=5),
+                           pr.render_flat_threefry(scene, cam, sub, 3, spp=2, sample_offset=5))
+        assert torch.equal(pr.render_image(scene, cam, 3).reshape(-1, 3), k)
+        state = ckpt.accumulate(ckpt.new_state(cam, device=dev), scene, cam, 3, 4, backend="jnp")
+        assert torch.equal(state.accum, (k * 4.0).reshape(state.accum.shape))
+
+
+def test_threefry_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+
+    scene = scene_lib.cover_scene(0, device=dev)
+    table, cam_vec = cr.pack_scene(scene).T.contiguous(), cr.pack_camera(_cam(dev))
+    pix = torch.arange(8, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        build.threefry_render(table.cpu(), cam_vec.cpu(), pix.cpu(), (0, 0), 0, 1, 2)
+    with pytest.raises(TypeError, match="dtype"):
+        build.threefry_render(table, cam_vec, pix.long(), (0, 0), 0, 1, 2)
+    with pytest.raises(ValueError, match="uint32"):
+        build.threefry_render(table, cam_vec, pix, (1 << 32, 0), 0, 1, 2)
+    # The kernel's depth cut-off is `depth + 1 == max_depth`: 0 would never end a path.
+    for spp, depth in ((0, 2), (1, 0)):
+        with pytest.raises(ValueError, match="must be >= 1"):
+            build.threefry_render(table, cam_vec, pix, (0, 0), 0, spp, depth)
+    big = torch.zeros(4096, 16, device=dev)
+    with pytest.raises(ValueError, match="do not fit"):
+        build.threefry_render(big, cam_vec, pix, (0, 0), 0, 1, 2)

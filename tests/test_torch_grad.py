@@ -339,6 +339,25 @@ def test_events_equal_for_sorted_and_permuted_lanes(split):
     assert torch.equal(_words(replay.records), _words(split["replay"].records))  # the records stay
 
 
+def test_float64_walk_of_the_same_records(split):
+    """`_reverse_records_plain(..., dtype=torch.float64)`, the reference of
+    `probes/grad_exact.py`, walks the same records: each event has the
+    float32 walk's winner (word 0 as a value), the records stay, and the
+    albedo rows (products of attenuations, no geometry to condition them)
+    agree with the float32 walk to float32 rounding (3.1e-8 here)."""
+    from ray_tracing_in_one_weekend_tpu_torch.probes import rel_l2
+
+    records = split["replay"].records.clone()
+    e64 = cg._reverse_records_plain(split["p_mat"], split["cam_vec"], split["replay"], split["g"],
+                                    dtype=torch.float64)
+    assert e64.dtype == torch.float64
+    assert torch.equal(_words(split["replay"].records), _words(records))
+    assert torch.equal(e64[:, 0].long(), _words(split["events"])[:, 0].long())
+    cols = [1 + cg._EVENT_ROWS.index(r) for r in (cr._AR, cr._AG, cr._AB)]
+    assert bool(torch.isfinite(e64).all())
+    assert rel_l2(split["events"][:, cols], e64[:, cols]) <= 1e-6
+
+
 @pytest.mark.parametrize("reduce", ["index_add", "ordered"])
 @pytest.mark.parametrize("seeds", [(SEED, 5), (0, 0), (1, 1), (7, 2), (11, 9)])
 def test_plain_split_matches_grad_pass_plain(split, seeds, reduce):

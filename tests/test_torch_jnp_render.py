@@ -1,0 +1,407 @@
+"""The jnp backend on threefry keys against the JAX package's jnp path.
+
+Small sizes: the __graft_entry__ camera at width 32 (32x16, spp 2, depth
+8), carried over from the JAX camera so both packages start from the same
+constants, on the JAX cover_scene(0) (equal to the port's) and on the
+reference's exact scene. The keys are JAX's bits, so each function sees
+the same random numbers; what differs is float32 rounding:
+
+* exact where the operations are the same: the sphere sweep
+  (`sphere_hit_ts`, with XLA's fused multiply-adds), the winner and its t,
+  and lambertian scattering;
+* a few ulps where torch's transcendentals or rsqrt meet XLA's (the lens
+  disk, Box-Muller, the unit vectors of metal and glass);
+* a whole trace then agrees ray by ray to rounding, and a bounce off a
+  small sphere now and then amplifies an ulp into another path: such
+  lanes are "flipped" (more than 1e-3 apart), held under 3% with block
+  means agreeing, the gate of tests/test_torch_render.py:80-94 (measured
+  0-0.6% of pixels at seeds 0-2).
+
+JAX runs on one CPU device only (no multi-device JAX call); the 2-rank
+render runs as two gloo processes through `parallel/worker.py`.
+"""
+
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ray_tracing_in_one_weekend_tpu.models import camera as jax_camera
+from ray_tracing_in_one_weekend_tpu.models import scene as jax_scene
+from ray_tracing_in_one_weekend_tpu.ops import integrator as jax_integrator
+from ray_tracing_in_one_weekend_tpu.ops import intersect as jax_intersect
+from ray_tracing_in_one_weekend_tpu.ops import materials as jax_materials
+from ray_tracing_in_one_weekend_tpu.ops import render as jax_render
+from ray_tracing_in_one_weekend_tpu.ops import sampling as jax_sampling
+from ray_tracing_in_one_weekend_tpu.utils import cli as jax_cli
+from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+from ray_tracing_in_one_weekend_tpu_torch.models import scene as scene_lib
+from ray_tracing_in_one_weekend_tpu_torch.models.camera import camera_from_numpy, get_rays
+from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_threefry, intersect, materials, threefry
+from ray_tracing_in_one_weekend_tpu_torch.ops import render as port_render
+from ray_tracing_in_one_weekend_tpu_torch.ops.integrator import trace_rays_threefry
+from ray_tracing_in_one_weekend_tpu_torch.parallel import worker
+from ray_tracing_in_one_weekend_tpu_torch.utils import checkpoint as ckpt
+from ray_tracing_in_one_weekend_tpu_torch.utils import cli, compare, ppm
+from ray_tracing_in_one_weekend_tpu_torch.utils.png import read_png
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CAM = dict(image_width=32, aspect_ratio=2.0, samples_per_pixel=2, max_depth=8)
+CAM_FIELDS = ("center", "pixel00_loc", "pixel_delta_u", "pixel_delta_v", "defocus_disk_u",
+              "defocus_disk_v", "defocus_angle")
+SCENE_FIELDS = ("center", "radius", "albedo", "fuzz", "ior", "mat_type", "active")
+HIT_FIELDS = ("hit", "t", "point", "normal", "front_face", "albedo", "fuzz", "ior", "mat_type")
+FLIP_MAX = 0.03
+
+
+def _carry_cam(jc):
+    return camera_from_numpy({f: np.asarray(getattr(jc, f)) for f in CAM_FIELDS}, jc.image_width,
+                             jc.image_height, jc.samples_per_pixel, jc.max_depth, device="cpu")
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x))
+
+
+def _lanes(keys):
+    data = np.asarray(jax.random.key_data(keys)).astype(np.int64)
+    return torch.from_numpy(data[:, 0].copy()), torch.from_numpy(data[:, 1].copy())
+
+
+@pytest.fixture(scope="module")
+def scenes():
+    return {
+        "cover0": (jax_scene.cover_scene(0), scene_lib.cover_scene(0, device="cpu")),
+        "reference": (jax_scene.cover_scene_reference(), scene_lib.cover_scene_reference(device="cpu")),
+    }
+
+
+@pytest.fixture(scope="module")
+def cams():
+    jc = jax_camera.make_camera(**CAM)
+    return jc, _carry_cam(jc)
+
+
+@pytest.fixture(scope="module")
+def rays(cams):
+    """Sample 0 of every pixel: JAX's camera and trace keys and rays."""
+    jc, _ = cams
+    pix = jnp.arange(jc.num_pixels)
+    keys = jax.vmap(lambda p: jax_sampling.pixel_sample_key(jax.random.key(0), p, 0))(pix)
+    ray_keys = jax.vmap(lambda k: jax.random.fold_in(k, 0))(keys)
+    trace_keys = jax.vmap(lambda k: jax.random.fold_in(k, 1))(keys)
+    o, d = jax.jit(lambda k: jax_camera.get_rays(jc, pix % jc.image_width, pix // jc.image_width, k))(ray_keys)
+    return dict(pix=np.asarray(pix), ray_keys=ray_keys, trace_keys=trace_keys, o=np.asarray(o), d=np.asarray(d))
+
+
+@pytest.fixture(scope="module")
+def images(scenes, cams):
+    """render_image of both packages at seeds 0-2 on both scenes."""
+    jc, tc = cams
+    out = {}
+    for name, (js, ts) in scenes.items():
+        for seed in range(3):
+            out[name, seed] = (np.asarray(jax_render.render_image(js, jc, seed, chunk_size=512)),
+                               port_render.render_image(ts, tc, seed, chunk_size=512))
+    return out
+
+
+def test_get_rays_matches_jax(cams, rays):
+    """Camera rays from the same keys: the jitter and the pixel position are
+    the same operations (fused as XLA fuses them), the lens disk goes
+    through sin and cos. Equal here; in general at most 1% of components
+    may differ, by at most 1e-6 (the aperture lens of the cpu preset
+    measured 0.04% of components, 2.4e-7)."""
+    jc, tc = cams
+    px, py = torch.from_numpy(rays["pix"] % jc.image_width), torch.from_numpy(rays["pix"] // jc.image_width)
+    o, d = get_rays(tc, px, py, _lanes(rays["ray_keys"]))
+    for ours, theirs in ((o.numpy(), rays["o"]), (d.numpy(), rays["d"])):
+        assert ours.shape == theirs.shape == (jc.num_pixels, 3)
+        assert np.mean(ours != theirs) <= 0.01
+        assert np.abs(ours - theirs).max() <= 1e-6
+
+
+def _second_bounce(js, rays):
+    """JAX's first hits and the directions JAX scatters them into."""
+    rec = jax.jit(jax_intersect.hit_scene)(js, rays["o"], rays["d"])
+    us = jax_sampling.unit_vector_b(jax.vmap(lambda k: jax.random.fold_in(k, 3))(rays["trace_keys"]))
+    new_dir, _, _ = jax.jit(jax_materials.scatter_sampled)(rec, rays["d"], us, jax_sampling.uniform_b(rays["trace_keys"]))
+    return np.asarray(rec.point), np.asarray(new_dir)
+
+
+@pytest.mark.parametrize("name", ["cover0", "reference"])
+def test_sphere_sweep_and_winner_are_jax_bits(scenes, rays, name):
+    """sphere_hit_ts bit-equal to the JAX function's [R, N] on camera rays
+    and on second-bounce rays (their unit-less directions included): the
+    dot products, |c|^2 - r^2 and disc are fused multiply-adds in XLA's
+    order. hit_scene: the same hits, winners and t (no ties here)."""
+    js, ts = scenes[name]
+    for o, d in ((rays["o"], rays["d"]), _second_bounce(js, rays)):
+        theirs = np.asarray(jax.jit(jax_intersect.sphere_hit_ts)(js, o, d))
+        ours = intersect.sphere_hit_ts(ts, _t(o), _t(d)).numpy()
+        np.testing.assert_array_equal(ours, theirs)
+        assert (theirs < 1e29).any()
+        jr, tr = jax.jit(jax_intersect.hit_scene)(js, o, d), intersect.hit_scene(ts, _t(o), _t(d))
+        hit = np.asarray(jr.hit)
+        np.testing.assert_array_equal(tr.hit.numpy(), hit)
+        np.testing.assert_array_equal(tr.t.numpy(), np.asarray(jr.t))
+        np.testing.assert_array_equal(tr.sphere_index.numpy()[hit], np.asarray(jr.sphere_index)[hit])
+        for f in ("albedo", "fuzz", "ior", "mat_type", "front_face"):
+            np.testing.assert_array_equal(getattr(tr, f).numpy()[hit], np.asarray(getattr(jr, f))[hit], err_msg=f)
+        # The hit point is a fused t * d + o; XLA fuses two of its three
+        # components, so the point and normal agree to 2e-6 (a few ulps).
+        assert np.abs(tr.point.numpy()[hit] - np.asarray(jr.point)[hit]).max() <= 2e-6
+
+
+def test_scatter_sampled_matches_jax(scenes, rays):
+    """scatter_sampled on JAX's hit record and JAX's samples: lambertian
+    bit-equal (a sum and a select); metal and glass go through the unit
+    incident direction, whose 1/sqrt XLA computes as rsqrt: within 1e-6
+    (measured 2.4e-7); the absorption flags equal."""
+    js, _ = scenes["cover0"]
+    rec = jax.jit(jax_intersect.hit_scene)(js, rays["o"], rays["d"])
+    us = jax_sampling.unit_vector_b(jax.vmap(lambda k: jax.random.fold_in(k, 3))(rays["trace_keys"]))
+    ru = jax_sampling.uniform_b(rays["trace_keys"])
+    theirs = jax.jit(jax_materials.scatter_sampled)(rec, rays["d"], us, ru)
+    port_rec = intersect.HitRecord(**{f: _t(getattr(rec, f)) for f in HIT_FIELDS},
+                                   sphere_index=_t(rec.sphere_index).long())
+    ours = materials.scatter_sampled(port_rec, _t(rays["d"]), _t(us), _t(ru))
+    hit, mat = np.asarray(rec.hit), np.asarray(rec.mat_type)
+    for m in range(3):
+        sel = hit & (mat == m)
+        assert sel.any(), m
+        np.testing.assert_array_equal(ours[2].numpy()[sel], np.asarray(theirs[2])[sel])
+        np.testing.assert_array_equal(ours[1].numpy()[sel], np.asarray(theirs[1])[sel])
+        err = np.abs(ours[0].numpy()[sel] - np.asarray(theirs[0])[sel]).max()
+        assert err == 0.0 if m == scene_lib.LAMBERTIAN else err <= 1e-6, (m, err)
+    # `scatter` draws its own samples from the keys (fold_in 0 and 1): JAX's
+    # uniforms, torch's erfinv, so directions within 1e-5.
+    theirs = jax.jit(jax_materials.scatter)(rec, rays["d"], rays["trace_keys"])
+    ours = materials.scatter(port_rec, _t(rays["d"]), _lanes(rays["trace_keys"]))
+    assert np.abs(ours[0].numpy()[hit] - np.asarray(theirs[0])[hit]).max() <= 1e-5
+    np.testing.assert_array_equal(ours[2].numpy()[hit], np.asarray(theirs[2])[hit])
+
+
+@pytest.mark.parametrize("name", ["cover0", "reference"])
+def test_trace_rays_threefry_matches_jax(scenes, rays, name):
+    """A whole trace (depth 8) of the same rays on the same keys: rays more
+    than 1e-3 apart in any channel under 3%, mean radiance within 1e-3."""
+    js, ts = scenes[name]
+    theirs = np.asarray(jax.jit(lambda o, d, k: jax_integrator.trace_rays(js, o, d, k, 8))(
+        rays["o"], rays["d"], rays["trace_keys"]))
+    ours = trace_rays_threefry(ts, _t(rays["o"]), _t(rays["d"]), _lanes(rays["trace_keys"]), 8).numpy()
+    assert ours.shape == theirs.shape
+    flipped = np.mean(np.abs(ours - theirs).max(axis=1) > 1e-3)
+    assert flipped < FLIP_MAX, flipped
+    assert abs(ours.mean() - theirs.mean()) < 1e-3
+
+
+@pytest.mark.parametrize("name", ["cover0", "reference"])
+@pytest.mark.parametrize("seed", range(3))
+def test_render_image_matches_jax(images, name, seed):
+    """render_image on the CPU against the JAX package's: pixels more than
+    1e-3 apart under 3%, 8x8 block-mean MAD < 0.02 and mean difference <
+    0.01 (compare.images, the gate of tests/test_torch_render.py)."""
+    theirs, ours = images[name, seed]
+    assert ours.shape == (16, 32, 3) and ours.dtype == torch.float32
+    agree = compare.images(ours, torch.from_numpy(theirs.copy()), block=8, atol=1e-3)
+    assert agree.flipped_frac < FLIP_MAX, agree
+    assert agree.blocks_agree, agree
+
+
+def test_chunks_windows_and_subsets_give_the_same_bits(scenes, cams, images):
+    """Any chunk size, pixel subset and sample window renders the same bits:
+    keys come from global pixel and sample ids, and samples add in order."""
+    _, ts = scenes["cover0"]
+    _, tc = cams
+    base = images["cover0", 0][1]
+    for chunk in (64, 100, tc.num_pixels):
+        assert torch.equal(port_render.render_image(ts, tc, 0, chunk_size=chunk), base), chunk
+    sub = torch.tensor([3, 500, 17, 511, 0])
+    assert torch.equal(port_render.render_flat_threefry(ts, tc, sub, 0, chunk_size=2), base.reshape(-1, 3)[sub])
+    assert torch.equal(port_render.render_pixels_threefry(ts, tc, sub, 0), base.reshape(-1, 3)[sub])
+    w0 = port_render.render_flat_threefry(ts, tc, sub, 0, spp=1, sample_offset=0)
+    w1 = port_render.render_flat_threefry(ts, tc, sub, 0, spp=1, sample_offset=1)
+    assert torch.equal((w0 + w1) / 2.0, base.reshape(-1, 3)[sub])
+    assert torch.equal(port_render.render_threefry(ts, tc, threefry.key(0)), base)
+
+
+def test_batched_accumulation_matches_one_render(scenes, cams):
+    """accumulate(backend="jnp") in batches of 1 + 3 and 2 + 2 samples
+    against one 4-sample render: the same samples, summed in another
+    order: within 2e-6."""
+    _, ts = scenes["cover0"]
+    _, tc = cams
+    one = port_render.render_threefry(ts, tc, 0, spp=4)
+    for batches in ((1, 3), (2, 2)):
+        state = ckpt.new_state(tc, device="cpu")
+        for n in batches:
+            state = ckpt.accumulate(state, ts, tc, 0, n, backend="jnp", chunk_size=128)
+        assert state.spp_done == 4 and state.work is None
+        assert float((state.image - one).abs().max()) <= 2e-6, batches
+    with pytest.raises(ValueError, match="unknown backend"):
+        ckpt.accumulate(ckpt.new_state(tc, device="cpu"), ts, tc, 0, 1, backend="pallas")
+
+
+def test_render_image_distributed_on_two_gloo_ranks(scenes, cams, images, tmp_path):
+    """2 local gloo ranks: the pixel mesh (2,) gives one rank's image bit for
+    bit on both ranks; the sample mesh (1, 2) the two windows rendered on
+    one rank and averaged in rank order; accumulate on (2,) one rank's
+    accumulation."""
+    _, ts = scenes["cover0"]
+    _, tc = cams
+    spec = dict(scene=worker.scene_spec(ts), camera=worker.camera_spec(tc))
+    jobs = [dict(job="jnp_render", mesh=(2,), kw={"base_key": 0}, **spec),
+            dict(job="jnp_render", mesh=(1, 2), kw={"base_key": 0}, **spec),
+            dict(job="accumulate", mesh=(2,), batches=[1, 1], kw={"backend": "jnp"}, **spec)]
+    ranks = worker.launch(jobs, 2, tmp_path, device="cpu", timeout=120.0, threads=1)
+    one = images["cover0", 0][1]
+    pix = torch.arange(tc.num_pixels)
+    windows = [port_render.render_flat_threefry(ts, tc, pix, 0, spp=1, sample_offset=s) for s in (0, 1)]
+    composite = ((windows[0].T + windows[1].T) / 2).T.reshape(one.shape)
+    state = ckpt.new_state(tc, device="cpu")
+    for _ in range(2):
+        state = ckpt.accumulate(state, ts, tc, 0, 1, backend="jnp")
+    for r in ranks:
+        assert torch.equal(r[0]["image"], one)
+        assert torch.equal(r[1]["image"], composite)
+        assert torch.equal(r[2]["accums"][-1], state.accum)
+        assert r[0]["launches"]["threefry_render_kernel"] == 0
+
+
+def test_cli_jnp_on_the_cpu_matches_the_jax_cli(tmp_path):
+    """`--backend jnp --platform cpu` at 24x16, spp 2, depth 8 on the cover
+    scene of seed 0 (and its `--png`, the PPM's pixels) against the JAX
+    CLI's `--backend jnp` on the same flags: one world (the scenes are equal), the same keys; 8-bit pixels
+    more than one level apart in any channel under 3%, block means of
+    the 8-bit image (scaled to [0, 1]) within compare's thresholds."""
+    flags = ["--width", "24", "--spp", "2", "--max-depth", "8"]
+    ours = tmp_path / "port.ppm"
+    res = cli.run(["--backend", "jnp", "--platform", "cpu", "--chunk", "100", *flags, "--out", str(ours),
+                   "--png", str(tmp_path / "port.png")])
+    assert res.backend == "jnp" and res.image.shape == (16, 24, 3) and not res.warm_hit
+    theirs = tmp_path / "jax.ppm"
+    assert jax_cli.main(["--backend", "jnp", *flags, "--out", str(theirs)]) == 0
+    a, b = ppm.read_ppm(str(ours)), ppm.read_ppm(str(theirs))
+    assert a.shape == b.shape == (16, 24, 3)
+    np.testing.assert_array_equal(read_png(str(tmp_path / "port.png")), a)
+    apart = np.mean(np.abs(a.astype(int) - b.astype(int)).max(axis=2) > 1)
+    assert apart < FLIP_MAX, apart
+    agree = compare.images(torch.from_numpy(a / 255.0), torch.from_numpy(b / 255.0), block=8, atol=1.5 / 255)
+    assert agree.blocks_agree, agree
+    chunked = cli.run(["--backend", "jnp", "--platform", "cpu", *flags, "--no-output"])
+    assert torch.equal(chunked.image, res.image)
+
+
+def test_jnp_backend_needs_a_gpu_unless_the_platform_is_cpu(monkeypatch, scenes, cams):
+    """Without a GPU `--backend jnp` raises unless `--platform cpu` asks for
+    the CPU; `--backend cuda --platform cpu` runs as torch. The kernel's
+    wrapper launches for CUDA tensors or raises: no fallback."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tiny = ["--width", "16", "--aspect", "2", "--spp", "1", "--max-depth", "2", "--no-output"]
+    for argv in (["--backend", "jnp"], ["--backend", "jnp", "--platform", "gpu"],
+                 ["--backend", "jnp", "--spp", "64"]):
+        with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
+            cli.run([*argv, *tiny])
+    assert cli.resolve_backend("cuda", "cpu") == "torch"
+    assert cli.resolve_backend("jnp", "cpu") == "jnp"
+    assert cli.backend_device("jnp", "cpu").type == "cpu"
+    with pytest.raises(ValueError, match="runs on the CPU"):
+        cli.resolve_backend("torch", "gpu")
+    _, ts = scenes["reference"]
+    _, tc = cams
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_threefry.render_kernel_pixels(ts, tc, torch.arange(4), 0)
+    assert build.LAUNCHES["threefry_render_kernel"] == 0
+
+
+def test_port_alone_imports_no_jax(tmp_path):
+    """A fresh interpreter imports the port's keyed path and renders through
+    it (library and CLI, in one piece and batched) with neither jax nor
+    flax in sys.modules."""
+    code = (
+        "import sys\n"
+        "from ray_tracing_in_one_weekend_tpu_torch.ops import threefry, sampling, intersect, materials\n"
+        "from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_threefry, render\n"
+        "from ray_tracing_in_one_weekend_tpu_torch.parallel import dist\n"
+        "from ray_tracing_in_one_weekend_tpu_torch.models import scene, camera\n"
+        "from ray_tracing_in_one_weekend_tpu_torch.utils import cli\n"
+        "sc = scene.cover_scene(0, device='cpu')\n"
+        "cam = camera.make_camera(image_width=16, aspect_ratio=2.0, samples_per_pixel=1, max_depth=2, device='cpu')\n"
+        "assert render.render_image(sc, cam, 0).shape == (8, 16, 3)\n"
+        "flags = ['--backend', 'jnp', '--platform', 'cpu', '--width', '16', '--aspect', '2', '--max-depth', '2']\n"
+        "cli.run([*flags, '--spp', '1', '--no-output'])\n"
+        "assert cli.run([*flags, '--spp', '2', '--checkpoint', sys.argv[1], '--no-output']).batches == 2\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path / "c.npz")], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("clean")
+
+
+GRAD_CAM = dict(image_width=16, aspect_ratio=2.0, samples_per_pixel=2, max_depth=4)
+GRAD_FIELDS = ("center", "radius", "albedo", "fuzz", "ior")
+# Per field, the bound on the relative L2 of the port's gradient against
+# jax.grad's: just above what the port measures here (center 1.98e-4,
+# radius 1.81e-4, albedo 1.80e-7, fuzz 4.50e-4, ior 4.05e-4, the same at 1
+# and 2 torch threads), so a missing term larger than that margin fails.
+GRAD_BOUNDS = {"center": 2.5e-4, "radius": 2.5e-4, "albedo": 2.5e-7, "fuzz": 5.5e-4, "ior": 5e-4}
+
+
+def test_autograd_through_the_keyed_trace_matches_jax_grad(scenes):
+    """torch.autograd through trace_rays_threefry (`render_threefry(...,
+    differentiable=True)`) against jax.grad of the JAX package's
+    `render(..., differentiable=True)` at 16x8, spp 2, depth 4, on
+    cover_scene(0) and seed 0, for the loss sum(image * w) with fixed
+    random weights w, each field within GRAD_BOUNDS.
+
+    Why not 1e-4 on every field: JAX does not reproduce its own gradient
+    that closely. The same jax.grad run op by op (`jax.disable_jit`, no
+    fusion, hence no fused multiply-adds) differs from the jitted one by
+    2.2e-3 (center), 2.7e-3 (radius), 2.8e-6 (albedo), 1.0e-3 (fuzz) and
+    8.7e-4 (ior) relative L2 here: a grazing hit on a small sphere turns an
+    ulp of the forward into a large share of the gradient. The port, which
+    carries XLA's fused multiply-adds, sits 5-14 times closer to the jitted
+    gradient than that, and each bound sits just above its distance. A
+    float64 jax.grad is no tighter yardstick: the JAX render's sample loop
+    carries float32 and does not trace under x64, and a float64 reverse
+    walk of the same paths sits farther from every float32 gradient than
+    they sit from each other (`probes/grad_exact.py`)."""
+    js, ts = scenes["cover0"]
+    jc = jax_camera.make_camera(**GRAD_CAM)
+    tc = _carry_cam(jc)
+    w = np.random.default_rng(0).random((jc.image_height, jc.image_width, 3)).astype(np.float32)
+    key = jax.random.key(0)
+
+    def loss(params):
+        img = jax_render.render(js.replace(**params), jc, key, chunk_size=128, differentiable=True)
+        return jnp.sum(img * w)
+
+    params = {f: getattr(js, f) for f in GRAD_FIELDS}
+    jit_loss, jit_grads = jax.jit(jax.value_and_grad(loss))(params)
+
+    leaves = {f: getattr(ts, f).clone().requires_grad_() for f in GRAD_FIELDS}
+    img = port_render.render_threefry(ts.replace(**leaves), tc, 0, chunk_size=128, differentiable=True)
+    ours = (img * torch.from_numpy(w)).sum()
+    grads = dict(zip(GRAD_FIELDS, torch.autograd.grad(ours, list(leaves.values()))))
+    assert abs(float(ours.detach()) - float(jit_loss)) <= 1e-5 * abs(float(jit_loss))
+
+    def rel(a, b):
+        b = np.asarray(b)
+        return float(np.linalg.norm(np.asarray(a) - b) / np.linalg.norm(b))
+
+    for f in GRAD_FIELDS:
+        assert np.isfinite(grads[f].numpy()).all(), f
+        err = rel(grads[f].numpy(), jit_grads[f])
+        assert err <= GRAD_BOUNDS[f], (f, err, GRAD_BOUNDS[f])

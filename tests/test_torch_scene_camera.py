@@ -109,9 +109,9 @@ def test_make_and_pack_camera_match_jax(lens):
 
 
 def test_cover_scene_statistics():
-    """The port's own cover_scene(seed) draws with numpy, not threefry, so
-    it is held in law: slot layout, active count, material mix, and the
-    0.9 exclusion radius around (4, 0.2, 0)."""
+    """cover_scene(seed) over seeds 0-7, held in law: slot layout, active
+    count, material mix, and the 0.9 exclusion radius around (4, 0.2, 0).
+    (Its bits equal the JAX package's for seeds 0-3: test_torch_threefry.py.)"""
     mats, n_active = [], []
     for seed in range(8):
         sc = scene_lib.cover_scene(seed, device="cpu")
