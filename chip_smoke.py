@@ -210,10 +210,15 @@ without the result lines:
       (threefry_render_kernel launched, render_kernel not; the first and
       the timed render's seconds and Mrays/s);
    c. the kernel against its plain version on 16384 bench pixels drawn
-      across the image, phase 3's gate and then bit for bit;
-   d. the kernel's registers, spills, blocks an SM and SASS per sphere
-      test, its time on the whole bench image and its bound from the
-      sweeps it counted;
+      across the image, phase 3's gate and then bit for bit, the work map
+      too; fewer pixels than a block, one pixel, one sample and a sample
+      window at offset 5 likewise; the whole bench image in identity,
+      reversed and random pixel order: the same bits and work map;
+   d. the kernel's registers, spills, blocks an SM, persistent grid and
+      SASS per sphere test, its time on the whole bench image, its bound
+      from the sweeps it counted (and at 17 operations a test, -2 (o.c)
+      taken in each),
+      and the queue's ramp and tail (the image once and twice in a launch);
    e. the gallery's jnp image at full size (cpu preset, 500 spp) under
       render seeds 0 and 1 against the TPU's in `gallery/`: seed 0 within
       TPU_GATE x noise, seed 1 not.
@@ -1921,9 +1926,12 @@ def phase_autograd_demo():
 # 15c: bench pixels drawn across the image, kernel against the plain version.
 JNP_LANES = 16384
 # Float32 operations of one sphere test of the keyed sweep, a fused
-# multiply-add counting two, as the 67 TFLOP/s peak does: d.c 5, o.c 5,
-# half_b 1, c 3, a c 1, disc 2 (csrc/threefry_render_kernel.cu).
-JNP_OPS_PER_SPHERE_TEST = 17
+# multiply-add counting two, as the 67 TFLOP/s peak does: d.c 5, (-2o).c 5,
+# half_b 1, c 2, a c 1, disc 2 (csrc/threefry_render_kernel.cu; the ray's
+# -2o is taken once). The formula as written (the plain version's) takes c
+# in 3, a multiply by 2 a test: its share is printed beside.
+JNP_OPS_PER_SPHERE_TEST = 16
+JNP_OPS_PER_SPHERE_TEST_UNSCALED = 17
 JNP_GALLERY = "cover_1200x800_500spp_jnp.png"
 
 
@@ -1973,12 +1981,20 @@ def phase_jnp_cli():
 def phase_jnp_kernel_vs_plain(n_lanes=JNP_LANES):
     """15c-d: the kernel against `render_flat_threefry` on `n_lanes` pixels
     drawn across the bench image (10 spp, depth 50): at most 2% of pixels
-    flipped and block means agreeing (phase 3's gate), and bit-identical
+    flipped and block means agreeing (phase 3's gate), then bit-identical
     (the -fmad=false build and the plain version's exact fused
-    multiply-adds). Then the kernel at the main path's shapes, every pixel
-    of the bench preset: its time and its bound from the sweeps it ran."""
+    multiply-adds), with the same work map. The edge cases against the
+    plain version too: fewer pixels than one block, one pixel, one sample,
+    a sample window at offset 5. Then the kernel at the main path's shapes,
+    every pixel of the bench preset, in identity, reversed and random
+    order: after un-permuting, the same bits and the same work map (the
+    queue hands pixels to threads in another order each run). Its time by
+    CUDA events, its bound from the sweeps it counted, and the time of the
+    image twice over in one launch: the queue's ramp and tail are in both
+    once, so 2 x one - two is what they cost."""
     import torch
 
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
     from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_threefry as ct
     from ray_tracing_in_one_weekend_tpu_torch.ops import render as pr
     from ray_tracing_in_one_weekend_tpu_torch.probes import cuda_ms
@@ -1994,25 +2010,48 @@ def phase_jnp_kernel_vs_plain(n_lanes=JNP_LANES):
     scene, cam = make_scene_from_config(config, DEVICE), make_camera_from_config(config, DEVICE)
     gen = torch.Generator().manual_seed(15)
     pix = torch.randperm(cam.num_pixels, generator=gen)[:n_lanes].to(DEVICE)
-    kernel = ct.render_kernel_pixels(scene, cam, pix, 0)
+    kernel, kernel_work = ct.render_kernel_pixels(scene, cam, pix, 0, return_work=True)
     torch_sync()
     t0 = time.perf_counter()
-    plain = pr.render_flat_threefry(scene, cam, pix, 0)
+    plain, plain_work = pr.render_flat_threefry(scene, cam, pix, 0, return_work=True)
     torch_sync()
     plain_s = time.perf_counter() - t0
     side = int(n_lanes ** 0.5)
     agree = compare.images(kernel.reshape(side, side, 3), plain.reshape(side, side, 3), block=8, atol=1e-4)
     check(agree.flipped_frac <= 0.02 and agree.blocks_agree, f"phase 15c: kernel vs plain: {agree}")
     check(torch.equal(kernel, plain), f"phase 15c: kernel vs plain not bit-identical: {agree}")
+    check(torch.equal(kernel_work, plain_work), "phase 15c: the kernel's work map is not the plain version's")
+    edges = {"77 pixels (under one block)": dict(n=77), "1 pixel": dict(n=1), "spp 1": dict(n=500, spp=1),
+             "samples 5-7": dict(n=300, spp=3, sample_offset=5)}
+    for label, kw in edges.items():
+        sub = pix[: kw.pop("n")]
+        got = ct.render_kernel_pixels(scene, cam, sub, 0, return_work=True, **kw)
+        want = pr.render_flat_threefry(scene, cam, sub, 0, return_work=True, **kw)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"phase 15c: kernel vs plain differ on {label}")
 
     full = torch.arange(cam.num_pixels, device=DEVICE)
-    _, work = ct.render_kernel_pixels(scene, cam, full, 0, return_work=True)
+    image, work = ct.render_kernel_pixels(scene, cam, full, 0, return_work=True)
+    orders = {"reversed": full.flip(0), "random": torch.randperm(cam.num_pixels, generator=gen).to(DEVICE)}
+    for label, order in orders.items():
+        got, got_work = ct.render_kernel_pixels(scene, cam, order, 0, return_work=True)
+        back = torch.empty_like(order)
+        back[order] = torch.arange(order.numel(), device=DEVICE)
+        check(torch.equal(got[back], image) and torch.equal(got_work[back], work),
+              f"phase 15c: the bench image in {label} order is not the identity order's bits and work map")
+    twice = torch.cat([full, full])
     ms = cuda_ms(lambda: ct.render_kernel_pixels(scene, cam, full, 0), reps=5)
+    ms_twice = cuda_ms(lambda: ct.render_kernel_pixels(scene, cam, twice, 0), reps=3)
     sweeps = float(work.double().sum())
     n_bytes = 4.0 * (16 * scene.num_slots + 24 + full.numel() * (1 + 3))
     bound = kp.bound_ms(sweeps * scene.num_active * JNP_OPS_PER_SPHERE_TEST, n_bytes)
-    return {"agree": agree, "plain_s": plain_s, "ms": ms, "sweeps": sweeps, "bound": bound,
-            "n_pixels": cam.num_pixels, "spp": cam.samples_per_pixel,
+    bound_17 = kp.bound_ms(sweeps * scene.num_active * JNP_OPS_PER_SPHERE_TEST_UNSCALED, n_bytes)
+    grid = build.threefry_grid(scene.num_slots, cam.num_pixels)
+    threads = grid * 128
+    return {"agree": agree, "plain_s": plain_s, "ms": ms, "ms_twice": ms_twice, "tail_ms": 2 * ms - ms_twice,
+            "sweeps": sweeps, "bound": bound, "bound_17": bound_17, "grid": grid,
+            "max_pixel_sweeps": int(work.max()), "mean_pixel_sweeps": sweeps / cam.num_pixels,
+            "sweeps_per_thread": sweeps / threads, "n_pixels": cam.num_pixels, "spp": cam.samples_per_pixel,
             "mrays": cam.num_pixels * cam.samples_per_pixel / ms / 1e3}
 
 
@@ -2510,14 +2549,21 @@ def main(argv=None) -> int:
         f"Mrays/s, timed render {jnp_run.render_s:.4f}s = {jnp_run.mrays_per_s:.2f} Mrays/s [{smi}]")
     jk = phase_jnp_kernel_vs_plain()
     say(f"phase 15c kernel vs plain, {JNP_LANES} bench pixels drawn across the image (10 spp, depth 50): "
-        f"bit-identical (flipped {jk['agree'].flipped_frac:.4%}, max {jk['agree'].max_abs_err:.2e}); plain "
-        f"{jk['plain_s']:.2f}s [{smi}]")
+        f"bit-identical, the same work map (flipped {jk['agree'].flipped_frac:.4%}, max "
+        f"{jk['agree'].max_abs_err:.2e}); plain {jk['plain_s']:.2f}s; 77 pixels, 1 pixel, spp 1 and samples 5-7 "
+        f"bit-identical with their work maps; the whole bench image in reversed and random order the identity "
+        f"order's bits and work map [{smi}]")
     jnp_reading = sweep_readings.threefry_reading(
         res.log, res.path, lambda k: build.blocks_per_sm(k, sweep_readings.TILE, sweep_readings.N_SLOTS))
-    say(f"phase 15d {jnp_reading.line()}; full bench image ({jk['n_pixels']} pixels, {jk['spp']} spp): "
-        f"{jk['ms']:.3f} ms = {jk['mrays']:.2f} Mrays/s, {jk['sweeps']:.0f} sweeps over {jnp_active} active "
-        f"spheres, bound {jk['bound'][0]:.3f} ms by {jk['bound'][1]} ({jk['bound'][0] / jk['ms']:.1%} of "
-        f"bound) [{smi}]")
+    say(f"phase 15d {jnp_reading.line()}; persistent grid {jk['grid']} blocks of 128; full bench image "
+        f"({jk['n_pixels']} pixels, {jk['spp']} spp): {jk['ms']:.3f} ms = {jk['mrays']:.2f} Mrays/s, "
+        f"{jk['sweeps']:.0f} sweeps over {jnp_active} active spheres, bound {jk['bound'][0]:.3f} ms by "
+        f"{jk['bound'][1]} at {JNP_OPS_PER_SPHERE_TEST} operations a test ({jk['bound'][0] / jk['ms']:.1%} of "
+        f"bound; at {JNP_OPS_PER_SPHERE_TEST_UNSCALED}, -2 (o.c) a test: {jk['bound_17'][0]:.3f} ms, "
+        f"{jk['bound_17'][0] / jk['ms']:.1%}); the image twice in one launch {jk['ms_twice']:.3f} ms, so the "
+        f"ramp and tail 2 x one - two = {jk['tail_ms']:.3f} ms; work map: largest pixel {jk['max_pixel_sweeps']} "
+        f"sweeps, mean {jk['mean_pixel_sweeps']:.2f} a pixel, {jk['sweeps_per_thread']:.1f} a thread of the grid "
+        f"[{smi}]")
     jg = phase_jnp_gallery()
     say(f"phase 15e gallery jnp image (cpu preset 1200x800, cover_scene_reference, 500 spp in batches of "
         f"{GALLERY_BATCH}, depth 50): seed 0 {jg['seconds'][0]:.3f}s = {jg['mrays'][0]:.2f} Mrays/s, seed 1 "
@@ -2666,8 +2712,9 @@ def main(argv=None) -> int:
         "max_abs_err": jk["agree"].max_abs_err,
         "ms": jk["ms"],
         "plain_ms": jk["plain_s"] * 1e3,
-        "tolerance": "bit-identical to the plain version (render_flat_threefry) on 16384 drawn bench pixels; "
-                     "phase 3's gate (<= 2% flipped, block means) checked first",
+        "tolerance": "bit-identical to the plain version (render_flat_threefry), work map too, on 16384 drawn "
+                     "bench pixels and the edge cases; phase 3's gate (<= 2% flipped, block means) checked first; "
+                     "the whole image in any pixel order the same bits",
         "bound_ms": jk["bound"][0],
         "bound_by": jk["bound"][1],
         "library_ms": None,
@@ -2675,6 +2722,14 @@ def main(argv=None) -> int:
                   "drawn pixels; launches from the CLI's main path (phase 15b)",
         **jnp_reading.fields(),
         "sweeps": jk["sweeps"],
+        "design": "persistent grid (SMs x resident blocks of 128) fed by a pixel queue with warp-aggregated "
+                  "atomics; the keyed sweep in groups of 8 tests with one sign test a group and a loop over its "
+                  "roots; __maxnreg__ 72",
+        "grid_blocks": jk["grid"],
+        "ms_twice": jk["ms_twice"],
+        "tail_ms": jk["tail_ms"],
+        "max_pixel_sweeps": jk["max_pixel_sweeps"],
+        "bound_ms_17_ops": jk["bound_17"][0],
         "cli_first_s": jnp_run.first_s,
         "cli_render_s": jnp_run.render_s,
         "cli_mrays_per_s": jnp_run.mrays_per_s,

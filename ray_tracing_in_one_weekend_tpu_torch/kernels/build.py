@@ -18,8 +18,9 @@ walk and its reduction; `chain_fma`,
 `csrc/probe_kernels.cu`. Each checks its
 tensors, allocates the outputs, launches on PyTorch's current stream,
 raises if the launch failed, and counts its launches in `LAUNCHES`.
-`blocks_per_sm` reads the occupancy of the three kernels that sweep the
-scene, and of the reduction's chunk kernel, from the CUDA runtime.
+`blocks_per_sm` reads the occupancy of the kernels that sweep the scene,
+and of the reduction's chunk kernel, from the CUDA runtime;
+`threefry_grid` the persistent grid of the keyed kernel.
 """
 
 from __future__ import annotations
@@ -170,13 +171,15 @@ def load() -> ctypes.CDLL:
         lib.rt_threefry_render.argtypes = [
             ptr, i32, ptr, ptr, i32,  # table, n_spheres, cam, pix, n
             ctypes.c_uint, ctypes.c_uint, i32, i32, i32,  # key0, key1, sample_offset, spp, max_depth
-            ptr, ptr, ptr,  # out, work, stream
+            ptr, ptr, ptr, ptr,  # out, work, queue, stream
         ]
         for name in ("rt_threefry_max_spheres", "rt_threefry_block"):
             getattr(lib, name).restype = i32
             getattr(lib, name).argtypes = []
         lib.rt_threefry_blocks_per_sm.restype = i32
         lib.rt_threefry_blocks_per_sm.argtypes = [i32]
+        lib.rt_threefry_grid.restype = i32
+        lib.rt_threefry_grid.argtypes = [i32, i32]
         lib.rt_grad_replay.restype = i32
         lib.rt_grad_replay.argtypes = [
             ptr, i32, ptr, ptr,  # table, n_spheres, cam, pix
@@ -261,6 +264,18 @@ def blocks_per_sm(kernel: str, tile: int, n_spheres: int) -> int:
     return n
 
 
+def threefry_grid(n_spheres: int, n: int, device=None) -> int:
+    """Blocks of `threefry_render_kernel`'s persistent grid for `n` pixels
+    of a scene of `n_spheres` on `device`: SMs x resident blocks, at most
+    one block a 128 pixels."""
+    lib = load()
+    with torch.cuda.device(device):
+        g = lib.rt_threefry_grid(n_spheres, n)
+    if g < 0:
+        _raise_on(lib, -g, "threefry_render_kernel grid")
+    return g
+
+
 def render_pass(table, cam_vec, scalars, sf, si, tile, spp, max_depth):
     """One pass of `csrc/render_kernel.cu` on CUDA tensors -> (of, oi).
 
@@ -311,7 +326,9 @@ def threefry_render(table, cam_vec, pix, key, sample_offset, spp, max_depth, wor
     table [N, 16] f32 (the transposed packed scene), cam_vec [24] f32, pix
     [n] i32 global pixel ids, all contiguous on one CUDA device; `key` the
     base key's two uint32 words; samples [sample_offset, sample_offset +
-    spp) of each pixel, up to `max_depth` bounces each."""
+    spp) of each pixel, up to `max_depth` bounces each. The kernel's
+    persistent grid (`threefry_grid`) takes the positions past its threads
+    from a queue counter, allocated and zeroed here for every launch."""
     device = pix.device
     if device.type != "cuda":
         raise ValueError(f"threefry_render runs on CUDA tensors, got {device}")
@@ -335,12 +352,13 @@ def threefry_render(table, cam_vec, pix, key, sample_offset, spp, max_depth, wor
     counts = torch.empty((n,), dtype=torch.int32, device=device) if work else None
     if n == 0:
         return (out, counts) if work else out
+    queue = torch.zeros((1,), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.rt_threefry_render(
             table.data_ptr(), n_spheres, cam_vec.data_ptr(), pix.data_ptr(), n, k0, k1,
             int(sample_offset), int(spp), int(max_depth), out.data_ptr(),
-            counts.data_ptr() if work else None, stream,
+            counts.data_ptr() if work else None, queue.data_ptr(), stream,
         )
     _raise_on(lib, err, "threefry_render_kernel")
     LAUNCHES["threefry_render_kernel"] += 1

@@ -3,12 +3,16 @@
 The JAX package's jnp path (ops/render.py::render_image ->
 ops/integrator.py::trace_rays, XLA-fused, no Pallas kernel) on the
 port's threefry keys. `render_kernel_pixels` renders any flat batch of
-global pixel ids of a CUDA scene by `csrc/threefry_render_kernel.cu` (one
-thread a pixel; see its source note) through
-`kernels.build.threefry_render`, which raises if it cannot. The kernel's
-plain version is `ops/render.render_flat_threefry`; `ops/render.render_keyed`
-chooses between the two by the scene's device, with no fallback from one
-to the other.
+global pixel ids of a CUDA scene by `csrc/threefry_render_kernel.cu`
+through `kernels.build.threefry_render`, which raises if it cannot: a
+persistent grid whose threads take the pixels from a queue counter on the
+card, one pixel at a time, and sweep the scene in groups of tests with
+one sign test a group (see the kernel's source note). A pixel's value and
+its count of sweeps depend only on its global id, so any order of
+`pixel_indices` gives the same bits. The kernel's plain version is
+`ops/render.render_flat_threefry` (its `return_work` counts the sweeps as
+the kernel does); `ops/render.render_keyed` chooses between the two by the
+scene's device, with no fallback from one to the other.
 
 The kernel and the plain version compute the same operations in the same
 order (the fused multiply-adds the plain version computes exactly), so on

@@ -126,9 +126,12 @@ def trace_rays_threefry(
     keys,
     max_depth: int,
     differentiable: bool = False,
-) -> torch.Tensor:
+    return_work: bool = False,
+):
     """Trace a flat batch of rays to radiance [R, 3] on threefry keys: the
-    JAX package's jnp `trace_rays` (integrator.py:50-120).
+    JAX package's jnp `trace_rays` (integrator.py:50-120). With
+    `return_work`, also the [R] int32 sweeps each ray ran: one a bounce it
+    was live for, as `csrc/threefry_render_kernel.cu` counts them.
 
     `origin`, `direction` [R, 3] (directions need not be unit), `keys` the
     rays' [R] keys (already folded with pixel and sample index). Bounce i
@@ -152,9 +155,11 @@ def trace_rays_threefry(
         rad = torch.zeros(n, 3, dtype=torch.float32, device=origin.device)
         att = torch.ones(n, 3, dtype=torch.float32, device=origin.device)
         live = torch.arange(n, device=origin.device)
+        work = torch.zeros(n, dtype=torch.int32, device=origin.device)
         o, d, k = origin, direction, keys
         for i in range(max_depth):
             rec = hit_scene(scene, o, d)
+            work[live] += 1
             miss = ~rec.hit
             rad = rad.index_copy(0, live, rad[live] + torch.where(miss[:, None], att * sky_color(d), 0.0))
             if i + 1 == max_depth or not bool(rec.hit.any()):
@@ -168,4 +173,4 @@ def trace_rays_threefry(
             live = live[keep]
             o, d, att = rec.point[keep], new_dir[keep], (att * mat_att)[keep]
             k = (k[0][keep], k[1][keep])
-        return rad
+        return (rad, work) if return_work else rad

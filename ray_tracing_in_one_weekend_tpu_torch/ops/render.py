@@ -157,25 +157,31 @@ def render_pixels_threefry(
     spp: int | None = None,
     sample_offset: int = 0,
     differentiable: bool = False,
-) -> torch.Tensor:
+    return_work: bool = False,
+):
     """Render a flat batch of global pixel indices on threefry keys -> the
     linear sample-mean color [R, 3] on the scene's device, in one piece
-    (JAX render.py:39-82). `sample_offset` shifts the global sample indices
-    drawn; any subset of pixels renders the same colors whichever call
-    renders it."""
+    (JAX render.py:39-82), and with `return_work` the [R] int32 sweeps each
+    pixel ran over its samples, as the kernel counts them. `sample_offset`
+    shifts the global sample indices drawn; any subset of pixels renders
+    the same colors whichever call renders it."""
     spp = cam.samples_per_pixel if spp is None else spp
     pix = torch.as_tensor(pixel_indices, device=scene.device).reshape(-1).to(torch.int64)
     px, py = pix % cam.image_width, pix // cam.image_width
     pixel_keys = threefry.fold_in(threefry.as_key(base_key), pix)
     total = torch.zeros(pix.numel(), 3, dtype=torch.float32, device=scene.device)
+    work = torch.zeros(pix.numel(), dtype=torch.int32, device=scene.device)
     for s in range(spp):
         keys = threefry.fold_in(pixel_keys, sample_offset + s)
         origin, direction = get_rays(cam, px, py, threefry.fold_in(keys, 0))
-        total = total + trace_rays_threefry(scene, origin, direction, threefry.fold_in(keys, 1),
-                                            cam.max_depth, differentiable=differentiable)
+        rad, sweeps = trace_rays_threefry(scene, origin, direction, threefry.fold_in(keys, 1),
+                                          cam.max_depth, differentiable=differentiable, return_work=True)
+        total = total + rad
+        work += sweeps
     # A true division on every device (CUDA divides by a Python scalar as a
     # multiplication by its reciprocal), as the kernel divides.
-    return total / torch.full_like(total, float(spp))
+    colors = total / torch.full_like(total, float(spp))
+    return (colors, work) if return_work else colors
 
 
 def render_flat_threefry(
@@ -187,20 +193,25 @@ def render_flat_threefry(
     spp: int | None = None,
     sample_offset: int = 0,
     differentiable: bool = False,
-) -> torch.Tensor:
-    """`render_pixels_threefry` `chunk_size` pixels at a time -> [R, 3]:
-    memory is one chunk's [chunk, N] sweep (JAX render.py:85-121)."""
+    return_work: bool = False,
+):
+    """`render_pixels_threefry` `chunk_size` pixels at a time -> [R, 3]
+    (and, with `return_work`, the [R] sweeps a pixel): memory is one
+    chunk's [chunk, N] sweep (JAX render.py:85-121)."""
     if chunk_size < 1:
         raise ValueError(f"chunk_size ({chunk_size}) must be positive")
     pix = torch.as_tensor(pixel_indices, device=scene.device).reshape(-1)
     parts = [
         render_pixels_threefry(scene, cam, pix[a : a + chunk_size], base_key, spp, sample_offset,
-                               differentiable)
+                               differentiable, return_work=True)
         for a in range(0, pix.numel(), chunk_size)
     ]
-    if not parts:
-        return torch.zeros(0, 3, dtype=torch.float32, device=scene.device)
-    return torch.cat(parts)
+    colors = (torch.cat([c for c, _ in parts]) if parts
+              else torch.zeros(0, 3, dtype=torch.float32, device=scene.device))
+    if not return_work:
+        return colors
+    work = torch.cat([w for _, w in parts]) if parts else torch.zeros(0, dtype=torch.int32, device=scene.device)
+    return colors, work
 
 
 def render_threefry(
@@ -220,16 +231,18 @@ def render_threefry(
 
 
 def render_keyed(scene: Scene, cam: Camera, pixel_indices, base_key=0, spp: int | None = None,
-                 sample_offset: int = 0, chunk_size: int = DEFAULT_CHUNK) -> torch.Tensor:
+                 sample_offset: int = 0, chunk_size: int = DEFAULT_CHUNK, return_work: bool = False):
     """Samples [sample_offset, sample_offset + spp) of the global pixels
     `pixel_indices` on threefry keys from `base_key` -> [R, 3] means on the
-    scene's device: the kernel on a CUDA scene (`chunk_size` is then
-    unused, as the kernel holds no [chunk, N] temporary), the plain version
-    `chunk_size` pixels at a time on a CPU scene."""
+    scene's device (and, with `return_work`, the [R] int32 sweeps a pixel):
+    the kernel on a CUDA scene (`chunk_size` is then unused, as the kernel
+    holds no [chunk, N] temporary), the plain version `chunk_size` pixels
+    at a time on a CPU scene."""
     if scene.device.type == "cuda":
-        return render_kernel_pixels(scene, cam, pixel_indices, base_key, spp, sample_offset)
+        return render_kernel_pixels(scene, cam, pixel_indices, base_key, spp, sample_offset,
+                                    return_work=return_work)
     return render_flat_threefry(scene, cam, pixel_indices, base_key, chunk_size=chunk_size, spp=spp,
-                                sample_offset=sample_offset)
+                                sample_offset=sample_offset, return_work=return_work)
 
 
 def render_image(

@@ -38,8 +38,8 @@ N_SLOTS = 512
 TABLE_BYTES = 16
 # Float32 multiplies of one sphere test: d.c 3, c.(-2o) 3, half_b^2 1.
 FMUL_PER_TEST = 7
-# threefry_render_kernel's sweep: d.c 2, o.c 2 and disc 1 explicit FFMAs a
-# test (built with -fmad=false, nothing else is fused).
+# threefry_render_kernel's sweep: d.c 2, (-2o).c 2 and disc 1 explicit
+# FFMAs a test (built with -fmad=false, nothing else is fused).
 THREEFRY_KERNEL = "threefry_render_kernel"
 FFMA_PER_TEST = 5
 
@@ -161,7 +161,9 @@ def sweep_loop(listing: str, marker: str = "FMUL", per_test: int = FMUL_PER_TEST
     predicated instructions count, as they take an issue slot. The sweep
     loop is the loop with the most `marker` instructions (`per_test` a
     test: 7 FMULs in the PCG kernels' sweep) among the loops of at least
-    one test that enclose no other such loop."""
+    one test that enclose no other such loop on their trip (a loop inside
+    the skipped roots, as threefry_render_kernel's loop over a group's
+    roots, does not count)."""
     insns = [i for i in _instructions(listing) if i[1] != "NOP"]
     loops = []
     for k, (addr, op, _, _, target) in enumerate(insns):
@@ -175,12 +177,12 @@ def sweep_loop(listing: str, marker: str = "FMUL", per_test: int = FMUL_PER_TEST
             hot = [i for i in body if i[0] not in skipped]
             fmul = sum(1 for i in hot if i[1] == marker)
             if fmul >= per_test:
-                loops.append((target, addr, hot, fmul))
+                loops.append((target, addr, hot, fmul, {i[0] for i in hot}))
     inner = [lp for lp in loops
-             if not any(o is not lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
+             if not any(o is not lp and lp[0] <= o[0] and o[1] <= lp[1] and o[1] in lp[4] for o in loops)]
     if not inner:
         return None
-    _, _, hot, fmul = max(inner, key=lambda lp: lp[3])
+    _, _, hot, fmul, _ = max(inner, key=lambda lp: lp[3])
     opcodes: dict[str, int] = {}
     for i in hot:
         opcodes[i[1]] = opcodes.get(i[1], 0) + 1

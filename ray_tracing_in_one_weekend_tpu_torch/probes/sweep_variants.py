@@ -3,21 +3,31 @@ and the parent tree's kernels beside them.
 
     python -m ray_tracing_in_one_weekend_tpu_torch.probes.sweep_variants [--rounds 7] [--parent DIR]
 
-Builds `csrc/` once per variant (-DRT_SWEEP_GROUP=g -DRT_SWEEP_REGS=r,
-csrc/render_device.cuh; the committed build, group 8 at 64 registers,
-first) and, with `--parent`, the kernels of another checkout of the port
-by its own `kernels/build.py`. For each it prints the readings of the
-three sweep kernels (registers, spills, blocks an SM, SASS per sphere
-test: probes/sweep_readings.py) and, at the bench preset (cover scene,
+The PCG kernels: builds `csrc/` once per variant
+(-DRT_SWEEP_GROUP=g -DRT_SWEEP_REGS=r, csrc/render_device.cuh; the
+committed build, group 8 at 64 registers, first) and, with `--parent`,
+the kernels of another checkout of the port by its own
+`kernels/build.py`. For each it prints the readings of the three sweep
+kernels (registers, spills, blocks an SM, SASS per sphere test:
+probes/sweep_readings.py) and, at the bench preset (cover scene,
 1200x800, 10 spp, depth 50), by CUDA events: one render pass in pixel
 order, one pass over the lanes sorted by cost (the warm schedule), and
 the sweep probe at 131072 columns (64 reps); by torch.profiler (its
 wrapper syncs), the backward replay on the train step's cost-sorted
-lanes, all rounds in one profile. All take turns in each of `--rounds`
-rounds; it prints the best and the median of each, and the SM clock and
-power nvidia-smi read meanwhile. Every build's lane state, sweep-probe result and replay
-records must equal the committed build's bit for bit. Needs one CUDA
-GPU with nvcc.
+lanes, all rounds in one profile. Every build's lane state, sweep-probe
+result and replay records must equal the committed build's bit for bit.
+
+Then the jnp backend's `threefry_render_kernel`: builds it at
+groups 8 and 4 and register caps 64, 72, 80 and 96
+(-DRT_THREEFRY_GROUP=g -DRT_THREEFRY_REGS=r; the committed build, group
+8 at 72, first) and, with `--parent`, the parent's, prints each one's
+reading and times the whole bench image through each by CUDA events.
+Every build's image and work map must equal the committed build's bit
+for bit.
+
+All builds take turns in each of `--rounds` rounds; it prints the best
+and the median of each, and the SM clock and power nvidia-smi read
+meanwhile. Needs one CUDA GPU with nvcc.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ from torch.profiler import ProfilerActivity, profile
 from ray_tracing_in_one_weekend_tpu_torch.kernels import build
 from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_grad as cg
 from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_render as cr
+from ray_tracing_in_one_weekend_tpu_torch.ops import threefry
 from ray_tracing_in_one_weekend_tpu_torch.probes import (
     cuda_ms,
     lane_inputs,
@@ -59,12 +70,16 @@ COMMITTED = (8, 64)
 VARIANTS = (COMMITTED, (8, 72), (8, 80), (8, 255), (1, 64), (4, 64), (4, 80), (16, 64), (16, 80))
 # Shared memory a sphere of the parent's sweep table: the whole packed row.
 PARENT_TABLE_BYTES = 64
+# The keyed kernel's (group, register cap): the committed design first.
+KEYED_COMMITTED = (8, 72)
+KEYED_VARIANTS = (KEYED_COMMITTED, *((g, r) for g in (8, 4) for r in (64, 72, 80, 96) if (g, r) != KEYED_COMMITTED))
 
 
-def flags_of(group: int, regs: int) -> tuple:
-    if (group, regs) == COMMITTED:
+def flags_of(group: int, regs: int, keyed: bool = False) -> tuple:
+    if (group, regs) == (KEYED_COMMITTED if keyed else COMMITTED):
         return build.NVCC_FLAGS
-    return (*build.NVCC_FLAGS, f"-DRT_SWEEP_GROUP={group}", f"-DRT_SWEEP_REGS={regs}")
+    prefix = "RT_THREEFRY" if keyed else "RT_SWEEP"
+    return (*build.NVCC_FLAGS, f"-D{prefix}_GROUP={group}", f"-D{prefix}_REGS={regs}")
 
 
 @dataclasses.dataclass
@@ -95,16 +110,33 @@ def builds(parent: Path | None) -> list[Build]:
     return out
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--rounds", type=int, default=7)
-    ap.add_argument("--parent", type=Path, default=None, help="another checkout of the port, timed beside")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("sweep_variants: needs a CUDA GPU", file=sys.stderr)
-        return 2
-    dev = torch.device("cuda", 0)
-    smi = nvidia_smi()
+def keyed_builds(parent: Path | None) -> list[Build]:
+    """Every keyed variant's build, then the parent's; prints their readings."""
+    out = []
+    for v in KEYED_VARIANTS:
+        with built_with(flags_of(*v, keyed=True)) as res:
+            r = sr.threefry_reading(res.log, res.path, lambda k: build.blocks_per_sm(k, sr.TILE, sr.N_SLOTS))
+            print(f"keyed group {v[0]}, cap {v[1]}: {r.line()}", flush=True)
+            out.append(Build(f"keyed group {v[0]}, cap {v[1]}", build, build._LIB))
+    if parent is not None:
+        mod = sr.load_build(parent)
+        res = mod.build()
+        print(f"keyed parent {parent}: {sr.threefry_reading(res.log, res.path).line()}", flush=True)
+        out.append(Build(f"keyed parent {parent}", mod))
+    return out
+
+
+def smi_summary(smi_lines, smi) -> str:
+    clocks = [float(x.split(",")[0]) for x in smi_lines if x.strip()]
+    power = [float(x.split(",")[1]) for x in smi_lines if x.strip()]
+    if not clocks:
+        return f"while timing: no nvidia-smi reading [{smi}]"
+    return (f"while timing: SM clock min / median / max {min(clocks):.0f} / {statistics.median(clocks):.0f} / "
+            f"{max(clocks):.0f} MHz, power median / max {statistics.median(power):.0f} / {max(power):.0f} W "
+            f"({len(clocks)} readings) [{smi}]")
+
+
+def sweep_part(args, dev, smi) -> None:
     config = PRESETS["bench"]
     scene, cam = make_scene_from_config(config, dev), make_camera_from_config(config, dev)
     spp, depth, n = cam.samples_per_pixel, cam.max_depth, cam.num_pixels
@@ -167,12 +199,51 @@ def main(argv=None) -> int:
         parts = "; ".join(f"{k} {min(ts):.4f} / {statistics.median(ts):.4f} ms" for k, ts in times[b.label].items())
         print(f"{b.label}: best / median of {args.rounds} rounds: pixel-order pass, warm pass, sweep probe at "
               f"{kp.FILL_TILE} columns, replay: {parts}; bit-identical to the committed build [{smi}]", flush=True)
-    clocks = [float(x.split(",")[0]) for x in smi_lines if x.strip()]
-    power = [float(x.split(",")[1]) for x in smi_lines if x.strip()]
-    if clocks:
-        print(f"while timing: SM clock min / median / max {min(clocks):.0f} / {statistics.median(clocks):.0f} / "
-              f"{max(clocks):.0f} MHz, power median / max {statistics.median(power):.0f} / {max(power):.0f} W "
-              f"({len(clocks)} readings) [{smi}]", flush=True)
+    print(smi_summary(smi_lines, smi), flush=True)
+
+
+def keyed_part(args, dev, smi) -> None:
+    config = PRESETS["bench"]
+    scene, cam = make_scene_from_config(config, dev), make_camera_from_config(config, dev)
+    table = cr.pack_scene(scene).T.contiguous()
+    cam_vec = cr.pack_camera(cam).to(dev)
+    pix = torch.arange(cam.num_pixels, dtype=torch.int32, device=dev)
+    key = threefry.as_key(0)
+    render = (table, cam_vec, pix, key, 0, cam.samples_per_pixel, cam.max_depth)
+    all_builds = keyed_builds(args.parent.resolve() if args.parent else None)
+    with all_builds[0].on():
+        ref, ref_work = build.threefry_render(*render, work=True)
+    for b in all_builds:
+        with b.on():
+            got, got_work = b.mod.threefry_render(*render, work=True)
+            if not (torch.equal(got, ref) and torch.equal(got_work, ref_work)):
+                raise RuntimeError(f"{b.label}: image or work map differs from the committed build's")
+    times = {b.label: [] for b in all_builds}
+    with smi_samples() as smi_lines:
+        for _ in range(args.rounds):
+            for b in all_builds:
+                with b.on():
+                    times[b.label].append(cuda_ms(lambda: b.mod.threefry_render(*render), reps=3))
+    for b in all_builds:
+        ts = times[b.label]
+        print(f"{b.label}: bench image (1200x800, 10 spp, depth 50) best / median of {args.rounds} rounds "
+              f"{min(ts):.4f} / {statistics.median(ts):.4f} ms; image and work map bit-identical to the "
+              f"committed build [{smi}]", flush=True)
+    print(smi_summary(smi_lines, smi), flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rounds", type=int, default=7)
+    ap.add_argument("--parent", type=Path, default=None, help="another checkout of the port, timed beside")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("sweep_variants: needs a CUDA GPU", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    smi = nvidia_smi()
+    sweep_part(args, dev, smi)
+    keyed_part(args, dev, smi)
     return 0
 
 

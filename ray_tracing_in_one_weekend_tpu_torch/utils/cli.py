@@ -398,7 +398,7 @@ def _run_monolithic(args, config, backend, scene, cam, device, mesh, log) -> Cli
     else:
         img, render_s = render_with_retries()
     result = CliResult(config, backend, img, first_s, render_s, warm_hit)
-    schedule = "one thread a pixel" if backend == "jnp" else f"{'warm' if warm_hit else 'cold'} schedule"
+    schedule = "persistent grid, pixel queue" if backend == "jnp" else f"{'warm' if warm_hit else 'cold'} schedule"
     log(f"render: {render_s:.3f}s  ({result.mrays_per_s:.2f} Mrays/s, {schedule})")
     return result
 

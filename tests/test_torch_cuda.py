@@ -4,7 +4,7 @@ These tests need an NVIDIA GPU with nvcc (they build csrc/ on first use)
 and skip without one. They repeat phases 3-5, 7a, 8 and 9 of
 chip_smoke.py (7a: the replay kernel's records and the reverse kernel's
 events against their plain versions; 12b: the milestone scenes; 15c: the jnp
-backend's threefry_render_kernel), check that the wrappers refuse
+backend's threefry_render_kernel, in any pixel order), check that the wrappers refuse
 what the kernels do not take, and read the sweep kernels' occupancy.
 On the card:
 
@@ -557,6 +557,27 @@ def test_threefry_kernel_matches_plain(dev):
         assert torch.equal(pr.render_image(scene, cam, 3).reshape(-1, 3), k)
         state = ckpt.accumulate(ckpt.new_state(cam, device=dev), scene, cam, 3, 4, backend="jnp")
         assert torch.equal(state.accum, (k * 4.0).reshape(state.accum.shape))
+
+
+def test_threefry_kernel_is_the_same_in_any_pixel_order(dev):
+    """The persistent grid takes pixels from a queue, so threads meet them
+    in another order each launch: the 64x32 image (spp 4, depth 8) in
+    identity, reversed and random order, and over fewer pixels than one
+    block, gives the same bits and work map after un-permuting, equal to
+    the plain version's."""
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_threefry as ct
+    from ray_tracing_in_one_weekend_tpu_torch.ops import render as pr
+
+    cam = _cam(dev)
+    scene = scene_lib.cover_scene(0, device=dev)
+    pix = torch.arange(cam.num_pixels, device=dev)
+    image, work = ct.render_kernel_pixels(scene, cam, pix, 3, return_work=True)
+    plain, plain_work = pr.render_flat_threefry(scene, cam, pix, 3, return_work=True)
+    assert torch.equal(image, plain) and torch.equal(work, plain_work)
+    gen = torch.Generator().manual_seed(0)
+    for order in (pix.flip(0), torch.randperm(cam.num_pixels, generator=gen).to(dev), pix[:77].flip(0)):
+        got, got_work = ct.render_kernel_pixels(scene, cam, order, 3, return_work=True)
+        assert torch.equal(got, image[order]) and torch.equal(got_work, work[order])
 
 
 def test_threefry_wrapper_refuses_what_the_kernel_does_not_take(dev):

@@ -41,8 +41,8 @@ from ray_tracing_in_one_weekend_tpu.ops import sampling as jax_sampling
 from ray_tracing_in_one_weekend_tpu.utils import cli as jax_cli
 from ray_tracing_in_one_weekend_tpu_torch.kernels import build
 from ray_tracing_in_one_weekend_tpu_torch.models import scene as scene_lib
-from ray_tracing_in_one_weekend_tpu_torch.models.camera import camera_from_numpy, get_rays
-from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_threefry, intersect, materials, threefry
+from ray_tracing_in_one_weekend_tpu_torch.models.camera import camera_from_numpy, get_rays, make_camera
+from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_threefry, intersect, materials, sampling, threefry
 from ray_tracing_in_one_weekend_tpu_torch.ops import render as port_render
 from ray_tracing_in_one_weekend_tpu_torch.ops.integrator import trace_rays_threefry
 from ray_tracing_in_one_weekend_tpu_torch.parallel import worker
@@ -231,6 +231,88 @@ def test_chunks_windows_and_subsets_give_the_same_bits(scenes, cams, images):
     w1 = port_render.render_flat_threefry(ts, tc, sub, 0, spp=1, sample_offset=1)
     assert torch.equal((w0 + w1) / 2.0, base.reshape(-1, 3)[sub])
     assert torch.equal(port_render.render_threefry(ts, tc, threefry.key(0)), base)
+
+
+# The work map's camera: 16x8, 3 samples, depth 6 (the cover scene's glass
+# and metal reach the cut-off at 6 now and then).
+WORK_CAM = dict(image_width=16, aspect_ratio=2.0, samples_per_pixel=3, max_depth=6)
+
+
+def _work_cam():
+    return make_camera(device="cpu", **WORK_CAM)
+
+
+def _recount(scene, cam, p, spp, sample_offset=0):
+    """The sweeps of pixel `p`'s samples, one ray at a time: a sweep a
+    bounce until the ray misses, is absorbed or reaches max_depth."""
+    px, py = torch.tensor([p % cam.image_width]), torch.tensor([p // cam.image_width])
+    pixel_key = threefry.fold_in(threefry.key(0), torch.tensor([p]))
+    sweeps = 0
+    for s in range(sample_offset, sample_offset + spp):
+        keys = threefry.fold_in(pixel_key, s)
+        o, d = get_rays(cam, px, py, threefry.fold_in(keys, 0))
+        k = threefry.fold_in(keys, 1)
+        for i in range(cam.max_depth):
+            sweeps += 1
+            rec = intersect.hit_scene(scene, o, d)
+            if not bool(rec.hit[0]) or i + 1 == cam.max_depth:
+                break
+            u = sampling.uniforms_b(k, 5, domain=i)
+            new_dir, _, ok = materials.scatter_sampled(rec, d, sampling.unit_vector_from_uniforms(u[:, 0:4]),
+                                                       u[:, 4])
+            if not bool(ok[0]):
+                break
+            o, d = rec.point, new_dir
+    return sweeps
+
+
+def test_work_map_counts_each_pixels_sweeps(scenes):
+    """`return_work` at 16x8, 3 spp, depth 6: the colours unchanged; each
+    count between spp and spp x max_depth; the top-left pixel, whose every
+    sample misses, exactly spp; every third pixel's count (43 across the
+    image) equal to a one-ray-at-a-time recount."""
+    _, ts = scenes["cover0"]
+    cam = _work_cam()
+    spp, depth = cam.samples_per_pixel, cam.max_depth
+    pix = torch.arange(cam.num_pixels)
+    colors, work = port_render.render_pixels_threefry(ts, cam, pix, 0, return_work=True)
+    assert torch.equal(colors, port_render.render_pixels_threefry(ts, cam, pix, 0))
+    assert work.dtype == torch.int32 and work.shape == (cam.num_pixels,)
+    assert int(work.min()) >= spp and int(work.max()) <= spp * depth
+    assert int(work.max()) > 2 * spp  # bounces were counted, not only samples
+    keys = threefry.fold_in(threefry.fold_in(threefry.key(0), torch.zeros(spp, dtype=torch.int64)),
+                            torch.arange(spp))
+    o, d = get_rays(cam, torch.zeros(spp, dtype=torch.int64), torch.zeros(spp, dtype=torch.int64),
+                    threefry.fold_in(keys, 0))
+    assert not bool(intersect.hit_scene(ts, o, d).hit.any())
+    assert int(work[0]) == spp
+    drawn = range(0, cam.num_pixels, 3)
+    assert work[::3].tolist() == [_recount(ts, cam, p, spp) for p in drawn]
+
+
+def test_work_map_is_the_same_for_any_chunk_subset_or_window(scenes):
+    """The counts of `render_flat_threefry` and `render_keyed` (CPU) for any
+    chunk size equal one piece's; a reversed pixel subset gets its pixels'
+    counts; two one-sample windows add up to the two-sample count."""
+    _, ts = scenes["cover0"]
+    cam = _work_cam()
+    pix = torch.arange(cam.num_pixels)
+    colors, work = port_render.render_pixels_threefry(ts, cam, pix, 0, return_work=True)
+    for chunk in (37, 64, cam.num_pixels):
+        c, w = port_render.render_flat_threefry(ts, cam, pix, 0, chunk_size=chunk, return_work=True)
+        assert torch.equal(c, colors) and torch.equal(w, work), chunk
+        c, w = port_render.render_keyed(ts, cam, pix, 0, chunk_size=chunk, return_work=True)
+        assert torch.equal(c, colors) and torch.equal(w, work), chunk
+    sub = pix.flip(0)[::3]
+    c, w = port_render.render_flat_threefry(ts, cam, sub, 0, chunk_size=7, return_work=True)
+    assert torch.equal(c, colors[sub]) and torch.equal(w, work[sub])
+    w2 = port_render.render_flat_threefry(ts, cam, sub, 0, spp=2, return_work=True)[1]
+    w0, w1 = (port_render.render_flat_threefry(ts, cam, sub, 0, spp=1, sample_offset=s, return_work=True)[1]
+              for s in (0, 1))
+    assert torch.equal(w0 + w1, w2)
+    assert [int(x) for x in w1[:4]] == [_recount(ts, cam, int(p), 1, sample_offset=1) for p in sub[:4]]
+    empty = port_render.render_flat_threefry(ts, cam, pix[:0], 0, return_work=True)
+    assert empty[0].shape == (0, 3) and empty[1].shape == (0,) and empty[1].dtype == torch.int32
 
 
 def test_batched_accumulation_matches_one_render(scenes, cams):

@@ -346,6 +346,51 @@ def test_sass_sweep_loop_per_test():
     assert sr.sweep_loop("") is None
 
 
+def _synthetic_sass_root_loop():
+    """threefry_render_kernel's shape: a sweep loop of 2 tests a trip (each
+    LDS, 2 FMUL, 5 FFMA) whose skipped root block holds a loop over the
+    group's roots (one test taken again: 5 FFMA)."""
+    body, a = [], 0
+
+    def emit(text):
+        nonlocal a
+        body.append(_sass_line(a, text))
+        a += 0x10
+
+    head = a
+    for _ in range(2):
+        emit("LDS.128 R4, [R2]")
+        for _ in range(2):
+            emit("FMUL R10, R4, R5")
+        for _ in range(5):
+            emit("FFMA R11, R10, R6, R7")
+    emit("LOP3.LUT P0, RZ, R12, R13, RZ, 0x80, !PT")
+    emit("@P0 BRA 0xSKIP")
+    roots = a
+    emit("FLO.U32 R15, R16")
+    for _ in range(5):
+        emit("FFMA R11, R10, R6, R7")
+    emit("MUFU.RSQ R14, R11")
+    emit(f"@P2 BRA 0x{roots:x}")
+    join = a
+    emit("IADD3 R2, R2, 0x20, RZ")
+    emit("ISETP.GE.AND P1, PT, R2, R3, PT")
+    emit(f"@!P1 BRA 0x{head:x}")
+    emit("EXIT")
+    text = "".join(body).replace("0xSKIP", f"0x{join:x}")
+    return "\n\tcode for sm_90a\n\t\tFunction : _ZN3tfr22threefry_render_kernelEPK6float4\n" + text
+
+
+def test_sass_sweep_loop_around_a_root_loop():
+    """The loop over a group's roots lies in the skipped block, so the sweep
+    loop is still the one read: 2 x (1 + 2 + 5) + LOP3 + BRA + IADD3 +
+    ISETP + BRA = 21 a trip, 2 tests, nothing of the root loop."""
+    funcs = sr.sass_functions(_synthetic_sass_root_loop())
+    loop = sr.sweep_loop(next(iter(funcs.values())), "FFMA", sr.FFMA_PER_TEST)
+    assert (loop.instructions, loop.tests) == (21, 2)
+    assert "FLO" not in loop.opcodes and "MUFU" not in loop.opcodes and loop.opcodes["FFMA"] == 10
+
+
 def test_occupancy_rules():
     """Blocks an H100 SM holds at 128 threads: the parent's sweep kernels
     (76 registers, 32 KB table) 6, the 64-register kernels with an 8 KB
