@@ -15,7 +15,9 @@ the book's milestone scenes and cameras at the book's size, the
 closed-form render probes and the milestone shading renders; the four
 reference presets at 500 spp, held to the reference's image and to the
 TPU's renders, and the scheduling sweep; and, with no kernel, the
-differentiable render under torch.autograd, held to the kernels.
+differentiable render under torch.autograd, held to the kernels; and the
+jnp backend on threefry keys, its forward kernel and its gradient (the
+keyed replay and reverse kernels), held to torch.autograd on the card.
 
 Phases, one line each; any failure raises and the script exits non-zero
 without the result lines:
@@ -72,7 +74,8 @@ without the result lines:
       (another checkout of the port, built by its own `kernels/build.py`),
       the parent's pair on the same events in turns, with the events'
       share of no sphere and the heaviest sphere's events a chunk;
-   d. the inverse-render demo on the card: exit 0 (albedo error halved);
+   d. the inverse-render demo on the card (`--backend pallas`): exit 0
+      (albedo error halved);
 8. the lane scheduler on the card: at 64x32 and at the bench preset, the
    3-pass compacted render, a work_hint render and a warm cache hit each
    bit-identical to one pixel-order pass; a render of another seed misses
@@ -180,10 +183,10 @@ without the result lines:
       the cpu preset's image (the reference scene, the aperture lens) and
       the gpu preset's (the JAX scene), bit for bit.
 14. the differentiable render under torch.autograd (`ops/integrator.py`,
-   `ops/render.py`, `parallel.dist.render_grads`), plain PyTorch on the
+   `ops/render.py`, `parallel.dist.render_grads_pcg`), plain PyTorch on the
    card that must launch no kernel (launch counts from 0 in each part):
    a. at 64x32, spp 4, depth 8: `render(differentiable=True)` bit-identical
-      to `render_cuda` (the kernel), and `render_grads`' loss and
+      to `render_cuda` (the kernel), and `render_grads_pcg`' loss and
       gradients against `render_grads_cuda`'s (the loss within 1e-6
       relative, each field within GRAD_GATE relative L2);
    b. at the bench preset, on phase 7b's 16384 drawn pixels: `render_pixels`
@@ -191,7 +194,7 @@ without the result lines:
       gradient for the image cotangent that 7b's per-sample cotangent `g`
       stands for (g · spp) against `build.grad_pass` on the same lanes,
       each field within GRAD_GATE;
-   c. the slice at full width: `render_grads` once at the bench preset
+   c. the slice at full width: `render_grads_pcg` once at the bench preset
       with a zero target at the default chunk (seconds, step Mrays/s, peak
       memory), the loss within 1e-6 relative of `render_grads_cuda`'s and
       each field but ior within GRAD_GATE; ior (on the JAX cover_scene(0)
@@ -201,7 +204,7 @@ without the result lines:
       EXACT_GRAD_FACTOR times the larger of GRAD_GATE and the kernels' own
       distance; then the forward alone (`render`, no tape), timed and
       bit-identical to `render_cuda` at full width;
-   d. `inverse_render --grad autograd` on the card: exit 0.
+   d. `inverse_render --backend pallas --grad autograd` on the card: exit 0.
 15. the jnp backend on threefry keys (`ops/threefry.py`,
    `ops/cuda_threefry.py`, `csrc/threefry_render_kernel.cu`):
    a. `cover_scene(0)` equals the committed table of the JAX scene, and
@@ -222,6 +225,35 @@ without the result lines:
    e. the gallery's jnp image at full size (cpu preset, 500 spp) under
       render seeds 0 and 1 against the TPU's in `gallery/`: seed 0 within
       TPU_GATE x noise, seed 1 not.
+16. the keyed gradient on threefry keys (`parallel.dist.render_grads`,
+   `ops/cuda_threefry.py`, `csrc/threefry_grad_kernel.cu`: the replay and
+   the reverse kernels, then grad_kernel.cu's reduction; phase 2 prints
+   their registers and spills):
+   a. at 64x32 on the inverse-render example's world (spp 4, depth 8, its
+      damaged albedos and target) and on cover_scene(0) (spp 2, zero
+      target): the four kernels launched once, the loss the bits of the
+      loss of threefry_render_kernel's image, each field within GRAD_GATE
+      of `render_grads_autograd` on the card (which launches nothing);
+   b. at the bench preset on phase 15c's 16384 drawn pixels: the replay's
+      records bit-identical to the plain replay's, the reverse's events
+      within ADJOINT_GATE of the plain reverse's (winners equal; by
+      distance from the path's end), the reduction the ordered plain
+      reduction's bits, the gradient bit-identical run to run and for a
+      shuffled pixel order;
+   c. the main path of the slice: `render_grads` at the bench preset with a
+      zero target, cold and warm (seconds, Mrays/s, launches, peak memory),
+      one warm step under torch.profiler (each kernel's device ms, the idle
+      share), each kernel's bound from the step's sweeps and events; then
+      `render_grads_autograd` once on the card (KEYED_ORACLE_CHUNK pixels a
+      chunk): the loss the kernels' bits, each field within GRAD_GATE but
+      EXACT_GRAD_FIELDS, held as 14c holds them to the exact float64 sum
+      of the kernels' events;
+   d. the inverse-render example's default (`--backend jnp`) on the card:
+      exit 0, the four kernels launched;
+   e. the keyed step in 2 gloo ranks on (2, 1) and (1, 2) at 64x32 against
+      one process: the image one process's bits (pixels) or the windows'
+      rank-order mean's (samples), the loss and gradients as phase 11b
+      holds them at 64x32, the kernels launched on every rank.
 
 Then it prints nvidia-smi's line, a JSON line of per-kernel results, and
 last `{"ok": true, "device": {...}}`. It imports no JAX.
@@ -1817,7 +1849,7 @@ def phase_autograd_small(scene, cam):
     build.reset_launches()
     img = rr.render(cg.scene_with_params(scene, leaf_params(scene)), cam, differentiable=True)
     check(img.grad_fn is not None, "phase 14a: render(differentiable=True) recorded no tape")
-    loss, grads = pdist.render_grads(cg.scene_params(scene), scene, cam, target)
+    loss, grads = pdist.render_grads_pcg(cg.scene_params(scene), scene, cam, target)
     torch_sync()
     check_no_launch("phase 14a")
     check(torch.equal(img.detach(), want), "phase 14a: render(differentiable=True) differs from render_cuda")
@@ -1862,7 +1894,7 @@ def phase_autograd_subset(scene, cam, n_lanes=16384):
 
 
 def phase_autograd_step(scene, cam):
-    """14c: `parallel.dist.render_grads` once at the bench preset, zero
+    """14c: `parallel.dist.render_grads_pcg` once at the bench preset, zero
     target, default chunk: seconds, peak memory, and its loss and gradients
     against `render_grads_cuda`'s; then the forward alone (`render`, no
     tape), timed and held to `render_cuda` bit for bit at full width."""
@@ -1885,7 +1917,7 @@ def phase_autograd_step(scene, cam):
     torch_sync()
     build.reset_launches()
     t0 = time.perf_counter()
-    loss, grads = pdist.render_grads(cg.scene_params(scene), scene, cam, target)
+    loss, grads = pdist.render_grads_pcg(cg.scene_params(scene), scene, cam, target)
     torch_sync()
     seconds = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1906,13 +1938,15 @@ def phase_autograd_step(scene, cam):
 
 
 def phase_autograd_demo():
-    """14d: the inverse-render example with `--grad autograd` on the card."""
+    """14d: the inverse-render example's PCG route with `--grad autograd`
+    (`--backend pallas`) on the card."""
     from ray_tracing_in_one_weekend_tpu_torch.examples import inverse_render
 
     demo_dir = REPO / "build" / "inverse_render_autograd"
     t0 = time.perf_counter()
-    rc = inverse_render.main(["--device", DEVICE, "--grad", "autograd", "--outdir", str(demo_dir)])
-    check(rc == 0, f"phase 14d: inverse_render --grad autograd exited {rc}")
+    rc = inverse_render.main(["--device", DEVICE, "--backend", "pallas", "--grad", "autograd", "--outdir",
+                              str(demo_dir)])
+    check(rc == 0, f"phase 14d: inverse_render --backend pallas --grad autograd exited {rc}")
     check((demo_dir / "inverse_recovered.ppm").read_bytes().startswith(b"P3\n64 32\n255\n"),
           "phase 14d: bad recovered PPM")
     return time.perf_counter() - t0
@@ -2101,6 +2135,341 @@ def phase_jnp_gallery():
             "mrays": {s: rays / t / 1e6 for s, t in seconds.items()}, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# 16. the keyed gradient (parallel/dist.py render_grads, ops/cuda_threefry.py,
+#     csrc/threefry_grad_kernel.cu)
+# ---------------------------------------------------------------------------
+
+KEYED_KERNELS = ("threefry_render_kernel", "threefry_replay", "threefry_reverse", "grad_reduce")
+# Pixels a chunk of the autograd oracle's backward in 16c: a quarter of the
+# bench image. At one chunk its float32 sums of the per-bounce gathers sit
+# 4.9e-4 (center) and 2.7e-4 (albedo) off the exact sum of the kernels'
+# events, at four 6.1e-5 and 6.8e-5, as far as the plain reverse's own
+# events summed exactly (6.2e-5; probes/keyed_grad_exact.py, H100 80GB HBM3,
+# 700 W), for 184 s and 16.3 GB against 83 s and 46.9 GB.
+KEYED_ORACLE_CHUNK = 240000
+KEYED_REPLACES = ("ray_tracing_in_one_weekend_tpu/parallel/dist.py:244 render_grads -> ops/integrator.py:50 "
+                  "trace_rays (no Pallas kernel: the jnp path under jax.grad)")
+
+
+def example_world():
+    """The inverse-render example's scene, camera (64x32, spp 4, depth 8),
+    target (the true scene's keyed image) and damaged albedos."""
+    import torch
+
+    from ray_tracing_in_one_weekend_tpu_torch.models import scene as scene_lib
+    from ray_tracing_in_one_weekend_tpu_torch.models.camera import make_camera
+    from ray_tracing_in_one_weekend_tpu_torch.ops import render as rr
+    from ray_tracing_in_one_weekend_tpu_torch.parallel import dist as pdist
+
+    scene = scene_lib.three_sphere_scene(pad_to=128, device=DEVICE)
+    cam = make_camera(image_width=64, aspect_ratio=2.0, samples_per_pixel=4, max_depth=8, vfov_degrees=90.0,
+                      lookfrom=(0.0, 0.0, 0.5), lookat=(0.0, 0.0, -1.0), defocus_angle_degrees=0.0,
+                      focus_dist=1.5, device=DEVICE)
+    params = pdist.scene_params(scene)
+    damaged = params["albedo"].clone()
+    damaged[1] = torch.tensor([0.6, 0.6, 0.6], device=DEVICE)
+    damaged[3] = torch.tensor([0.3, 0.3, 0.8], device=DEVICE)
+    return scene, cam, dict(params, albedo=damaged), rr.render_image(scene, cam, 0)
+
+
+def phase_keyed_small():
+    """16a: `parallel.dist.render_grads` through the kernels at 64x32 on the
+    example's world (its damaged albedos and target) and on cover_scene(0)
+    (spp 2, zero target): the four kernels launched, the loss the bits of
+    the loss of `threefry_render_kernel`'s image, and each field within
+    GRAD_GATE of `render_grads_autograd` on the card (which launches
+    nothing)."""
+    import torch
+
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.models import scene as scene_lib
+    from ray_tracing_in_one_weekend_tpu_torch.ops import render as rr
+    from ray_tracing_in_one_weekend_tpu_torch.parallel import dist as pdist
+    from ray_tracing_in_one_weekend_tpu_torch.probes import small_camera
+
+    scene, cam, params, target = example_world()
+    cover = scene_lib.cover_scene(0, device=DEVICE)
+    cam2 = small_camera(DEVICE, spp=2)
+    worlds = {"example": (scene, cam, params, target),
+              "cover": (cover, cam2, pdist.scene_params(cover),
+                        torch.zeros(cam2.image_height, cam2.image_width, 3, device=DEVICE))}
+    out = {}
+    for label, (sc, c, p, t) in worlds.items():
+        build.reset_launches()
+        loss, grads = pdist.render_grads(p, sc, c, t, 0)
+        torch_sync()
+        for k in KEYED_KERNELS:
+            check(build.LAUNCHES[k] == 1, f"phase 16a ({label}): {k} launched {build.LAUNCHES[k]} times, not once")
+        img = rr.render_image(pdist.scene_with_params(sc, p), c, 0)
+        check(torch.equal(loss, torch.mean((img - t) ** 2)),
+              f"phase 16a ({label}): the kernels' loss is not the loss of threefry_render_kernel's image")
+        build.reset_launches()
+        loss_a, grads_a = pdist.render_grads_autograd(p, sc, c, t, 0)
+        torch_sync()
+        check_no_launch(f"phase 16a ({label})")
+        check(torch.equal(loss_a, loss), f"phase 16a ({label}): the autograd oracle's loss differs")
+        out[label] = check_grads(f"phase 16a ({label})", grads, grads_a)
+    return out
+
+
+def phase_keyed_subset(n_lanes=JNP_LANES):
+    """16b: at the bench preset on phase 15c's drawn pixels: the replay's
+    records bit-identical to `replay_records_plain`'s (the same slots), the
+    reverse's events within ADJOINT_GATE of `reverse_records_plain`'s on the
+    same records (winners equal; the error also read by distance from the
+    path's end), the reduction the ordered plain reduction's bits, and the
+    backward's [16, N] cotangent bit-identical run to run and for the
+    pixels in another order."""
+    import torch
+
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_grad as cg
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_render as cr
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_threefry as ct
+    from ray_tracing_in_one_weekend_tpu_torch.probes import random_cotangent, rel_l2
+    from ray_tracing_in_one_weekend_tpu_torch.utils.config import (
+        PRESETS,
+        make_camera_from_config,
+        make_scene_from_config,
+    )
+
+    config = PRESETS["bench"]
+    scene, cam = make_scene_from_config(config, DEVICE), make_camera_from_config(config, DEVICE)
+    n, spp, depth = cam.num_pixels, cam.samples_per_pixel, cam.max_depth
+    gen = torch.Generator().manual_seed(15)  # phase 15c's draw
+    pix = torch.randperm(n, generator=gen)[:n_lanes].to(DEVICE)
+    _, work = ct.render_kernel_pixels(scene, cam, torch.arange(n, device=DEVICE), 0, return_work=True)
+    p_mat, cam_vec = cr.pack_scene(scene), cr.pack_camera(cam)
+    table, pix32, key = p_mat.T.contiguous(), pix.to(torch.int32), (0, 0)
+    replay = build.threefry_replay(table, cam_vec, pix32, key, 0, spp, depth, work, 0, n)
+    out = {}
+    torch_sync()
+    t0 = time.perf_counter()
+    plain = ct.replay_records_plain(scene, cam, pix, 0)
+    torch_sync()
+    out["replay_plain_ms"] = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(replay.ev_start, plain.ev_start) and torch.equal(replay.ev_count, plain.ev_count),
+          "phase 16b: the replay kernel's record slots differ from the plain replay's")
+    out["record_abs_err"] = float((replay.records[:, :9] - plain.records[:, :9]).abs().max())
+    same = replay.records.view(torch.int32) == plain.records.view(torch.int32)
+    check(bool(same.all()), f"phase 16b: {int((~same.all(1)).sum())} of {same.shape[0]} records differ from "
+                            "the plain replay's (bit-identical required)")
+    g = random_cotangent((3, n_lanes), 2, DEVICE) / spp
+    t0 = time.perf_counter()
+    want = ct.reverse_records_plain(p_mat, cam_vec, plain, g)
+    torch_sync()
+    out["reverse_plain_ms"] = (time.perf_counter() - t0) * 1e3
+    events = build.threefry_reverse(table, cam_vec, replay, g)
+    wk, wp = events[:, 0].view(torch.int32), want[:, 0].view(torch.int32)
+    check(torch.equal(wk, wp), f"phase 16b: {int((wk != wp).sum())} event winners differ from the plain reverse's")
+    out["event_err"] = rel_l2(events[:, 1:14], want[:, 1:14])
+    out["event_abs_err"] = float((events[:, 1:14] - want[:, 1:14]).abs().max())
+    check(out["event_err"] <= ADJOINT_GATE,
+          f"phase 16b: reverse kernel vs plain events rel L2 {out['event_err']:.2e} > {ADJOINT_GATE}")
+    back = cg._path_positions(plain.records)[2].clamp(max=8)
+    out["event_err_by_back"] = {}
+    for b in range(1, 9):
+        sel = ((back == b) & (wk >= 0)).nonzero()[:, 0]
+        if sel.numel():
+            out["event_err_by_back"]["8+" if b == 8 else str(b)] = rel_l2(events[sel, 1:14], want[sel, 1:14])
+    check_reduce_bits(events, p_mat.shape[1], "phase 16b")
+    args = (table, cam_vec, pix32, key, 0, spp, depth, work, 0, n)
+    pk = build.threefry_grad_pass(*args, g)
+    check(torch.equal(pk, build.threefry_grad_pass(*args, g)), "phase 16b: two kernel runs differ")
+    perm = torch.randperm(n_lanes, generator=gen).to(DEVICE)
+    shuffled = build.threefry_grad_pass(table, cam_vec, pix32[perm].contiguous(), key, 0, spp, depth, work, 0, n,
+                                        g[:, perm].contiguous())
+    check(torch.equal(pk, shuffled), "phase 16b: the gradient changed with the pixels' order")
+    out["n_events"] = events.shape[0]
+    return out
+
+
+def phase_keyed_step(scene, cam, warm_reps=3):
+    """16c: the slice at full width, `parallel.dist.render_grads` at the bench
+    preset with a zero target: a cold step then warm steps (seconds, launch
+    counts, peak memory), one warm step under torch.profiler (each kernel's
+    device ms and the idle share), each kernel's bound from this step's
+    sweeps and events; then the gradients once against
+    `render_grads_autograd` on the card at KEYED_ORACLE_CHUNK pixels a
+    chunk, GRAD_GATE per field but EXACT_GRAD_FIELDS, held as phase 14c holds them
+    to the exact float64 sum of the kernels' events
+    (`probes/keyed_grad_exact.keyed_exact_grads`)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_threefry as ct
+    from ray_tracing_in_one_weekend_tpu_torch.parallel import dist as pdist
+    from ray_tracing_in_one_weekend_tpu_torch.probes import cuda_ms, rel_l2
+    from ray_tracing_in_one_weekend_tpu_torch.probes import kernel_parts as kp
+    from ray_tracing_in_one_weekend_tpu_torch.probes.keyed_grad_exact import keyed_exact_grads, keyed_step_paths
+
+    params = pdist.scene_params(scene)
+    target = torch.zeros(cam.image_height, cam.image_width, 3, device=DEVICE)
+    rays = cam.num_pixels * cam.samples_per_pixel
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch_sync()
+    live = torch.cuda.memory_allocated()  # what earlier phases still hold
+    build.reset_launches()
+    t0 = time.perf_counter()
+    loss, grads = pdist.render_grads(params, scene, cam, target, 0)
+    torch_sync()
+    cold_s = time.perf_counter() - t0
+    warm = []
+    for _ in range(warm_reps):
+        t0 = time.perf_counter()
+        loss, grads = pdist.render_grads(params, scene, cam, target, 0)
+        torch_sync()
+        warm.append(time.perf_counter() - t0)
+    launches = dict(build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_gb = (torch.cuda.max_memory_allocated() - live) / 1e9
+    check(bool(torch.isfinite(loss)) and float(loss) > 0.0, "phase 16c: bad loss")
+    for k, v in grads.items():
+        check(bool(torch.isfinite(v).all()), f"phase 16c: non-finite {k} gradient")
+    for k in KEYED_KERNELS:
+        check(launches[k] == 1 + warm_reps, f"phase 16c: {k} launched {launches[k]} times in {1 + warm_reps} steps")
+    # One warm step under the profiler: each kernel's device time and the
+    # device's idle share of the step (1 - busy / wall).
+    names = {"forward": "threefry_render_kernel", "replay": "threefry_replay_kernel",
+             "reverse": "threefry_reverse_kernel", "reduce_chunks": "grad_reduce_chunks",
+             "reduce_partials": "grad_reduce_partials"}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pdist.render_grads(params, scene, cam, target, 0)
+        torch_sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernel_ms = {label: sum(e.self_device_time_total for e in dev_events if key in e.key) / 1e3
+                 for label, key in names.items()}
+    check(all(v > 0.0 for v in kernel_ms.values()), f"phase 16c: the profiler missed a kernel: {kernel_ms}")
+    busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
+    # The bounds, from this step's sweeps and events.
+    p_mat, cam_vec, replay, g = keyed_step_paths(scene, cam, target)
+    n, n_events, n_slots = cam.num_pixels, replay.records.shape[0], p_mat.shape[1]
+    table_bytes = 4.0 * (16 * n_slots + 24)
+    ops = float(n_events) * scene.num_active * JNP_OPS_PER_SPHERE_TEST
+    bounds = {
+        "forward": kp.bound_ms(ops, table_bytes + 4.0 * n * (1 + 3 + 1)),  # pix in; radiance, work out
+        "replay": kp.bound_ms(ops, table_bytes + n * (4.0 + 8.0 + 4.0) + 64.0 * n_events),
+        "reverse": kp.bound_ms(0.0, table_bytes + n * (12.0 + 8.0 + 4.0) + 128.0 * n_events),
+    }
+    events = build.threefry_reverse(p_mat.T.contiguous(), cam_vec, replay, g)
+    bounds["reduce"] = reduce_bounds(events, n_slots)[0]
+    reduce_ms, library_ms = reduce_times(events, n_slots)
+    fwd = (scene, cam, torch.arange(n, device=DEVICE), 0)
+    forward_ms = cuda_ms(lambda: ct.render_kernel_pixels(*fwd, return_work=True), reps=3)
+    del replay, events
+    # The oracle, once.
+    exact = keyed_exact_grads(scene, cam, target)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    torch_sync()
+    t0 = time.perf_counter()
+    loss_a, grads_a = pdist.render_grads_autograd(params, scene, cam, target, 0, chunk_size=KEYED_ORACLE_CHUNK)
+    torch_sync()
+    oracle_s = time.perf_counter() - t0
+    oracle_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check_no_launch("phase 16c (render_grads_autograd)")
+    check(torch.equal(loss_a, loss), "phase 16c: the autograd oracle's loss is not the kernels' bits")
+    errs = check_grads("phase 16c", grads, grads_a, [k for k in pdist.DIFF_FIELDS if k not in EXACT_GRAD_FIELDS])
+    errs.update({k: rel_l2(grads[k], grads_a[k]) for k in EXACT_GRAD_FIELDS})
+    vs_exact = {k: (rel_l2(grads[k], exact[k]), rel_l2(grads_a[k], exact[k])) for k in pdist.DIFF_FIELDS}
+    return dict(cold_s=cold_s, warm_s=warm, mrays=[rays / t / 1e6 for t in warm], cold_mrays=rays / cold_s / 1e6,
+                launches=launches, peak_gb=peak_gb, step_gb=step_gb, wall_ms=wall_ms, busy_ms=busy_ms,
+                idle=1.0 - busy_ms / wall_ms, kernel_ms=kernel_ms, forward_ms=forward_ms, reduce_ms=reduce_ms, library_ms=library_ms, bounds=bounds, n_events=n_events,
+                oracle_s=oracle_s, oracle_peak_gb=oracle_peak_gb, errs=errs, vs_exact=vs_exact,
+                exact=check_exact_grads("phase 16c", grads_a, grads, exact))
+
+
+def phase_keyed_demo():
+    """16d: the inverse-render example's default (`--backend jnp`) on the
+    card: exit 0, the four keyed kernels launched."""
+    from ray_tracing_in_one_weekend_tpu_torch.examples import inverse_render
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+
+    demo_dir = REPO / "build" / "inverse_render_keyed"
+    build.reset_launches()
+    t0 = time.perf_counter()
+    rc = inverse_render.main(["--device", DEVICE, "--outdir", str(demo_dir)])
+    seconds = time.perf_counter() - t0
+    check(rc == 0, f"phase 16d: inverse_render (--backend jnp) exited {rc}")
+    check((demo_dir / "inverse_recovered.ppm").read_bytes().startswith(b"P3\n64 32\n255\n"),
+          "phase 16d: bad recovered PPM")
+    for k in KEYED_KERNELS:
+        check(build.LAUNCHES[k] > 0, f"phase 16d: the example never launched {k}")
+    return seconds, dict(build.LAUNCHES)
+
+
+def phase_keyed_ranks(out_dir):
+    """16e: the keyed step in 2 local ranks over gloo on a (2, 1) pixel mesh
+    and a (1, 2) sample mesh (cover_scene(0), 64x32, spp 4, depth 8, zero
+    target, each twice) against one process: the step's image one
+    process's bits on the pixel mesh and the windows' rank-order mean's
+    bits within SHARD_IMAGE_ATOL of one render on the sample mesh; the loss
+    as phase 11b holds it, the gradients within rtol 2e-5 + atol 1e-6 of
+    one process's (phase 11b's gate at 64x32), every rank the same bits run
+    to run; the four kernels launched on every rank."""
+    import torch
+
+    from ray_tracing_in_one_weekend_tpu_torch.models import scene as scene_lib
+    from ray_tracing_in_one_weekend_tpu_torch.ops import render as rr
+    from ray_tracing_in_one_weekend_tpu_torch.parallel import dist as pdist
+    from ray_tracing_in_one_weekend_tpu_torch.parallel import worker
+    from ray_tracing_in_one_weekend_tpu_torch.probes import small_camera
+
+    scene, cam = scene_lib.cover_scene(0, device=DEVICE), small_camera(DEVICE)
+    target = torch.zeros(cam.image_height, cam.image_width, 3, device=DEVICE)
+    loss_ref, grads_ref = pdist.render_grads(pdist.scene_params(scene), scene, cam, target, 0)
+    one = pdist.render_distributed(scene, cam, 0).cpu()
+    meshes = ((2, 1), (1, 2))
+    t0 = time.perf_counter()
+    ranks = worker.launch([dict(job("keyed_step", scene, cam, m, 2), kw={"base_key": 0}) for m in meshes], 2,
+                          out_dir / "keyed_ranks2", device=DEVICE, timeout=SHARD_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    out = {}
+    for i, mesh in enumerate(meshes):
+        label = f"phase 16e ({mesh[0]}x{mesh[1]})"
+        rs = [r[i] for r in ranks]
+        check(all(r["backend"] == "gloo" for r in rs), f"{label}: backend {[r['backend'] for r in rs]}")
+        img = rs[0]["image"]
+        check(all(torch.equal(r["image"], img) for r in rs), f"{label}: the ranks' images differ")
+        if mesh[1] == 1:
+            check(torch.equal(img, one), f"{label}: the pixel mesh's image is not one process's bits")
+            image_err = 0.0
+        else:
+            pix = torch.arange(cam.num_pixels, device=DEVICE)
+            half = cam.samples_per_pixel // 2
+            wins = [rr.render_keyed(scene, cam, pix, 0, half, s * half).cpu() for s in range(2)]
+            comp = ((wins[0] + wins[1]) / 2).reshape(img.shape)
+            check(torch.equal(img, comp), f"{label}: the sample mesh's image is not the rank-order mean's bits")
+            image_err = float((img - one).abs().max())
+            check(image_err <= SHARD_IMAGE_ATOL, f"{label}: image {image_err:.2e} off one process")
+        loss = rs[0]["loss"]
+        check(all(torch.equal(r["loss"], loss) for r in rs), f"{label}: the ranks' losses differ")
+        check(all(all(r["same"]) for r in rs), f"{label}: a repeated step gave other bits")
+        loss_err = abs(float(loss) - float(loss_ref)) / float(loss_ref)
+        if mesh[1] == 1:
+            check(torch.equal(loss, loss_ref.cpu()), f"{label}: the pixel mesh's loss is not one process's bits")
+        check(loss_err <= SHARD_LOSS_RTOL, f"{label}: loss {loss_err:.2e} relative off one process")
+        vs_one = {}
+        for k, g in grads_ref.items():
+            check(all(torch.equal(r["grads"][k], rs[0]["grads"][k]) for r in rs), f"{label}: the ranks' {k} differ")
+            vs_one[k] = grad_excess(rs[0]["grads"][k], g)
+            check(vs_one[k] <= 1.0, f"{label}: {k} gradient off one process by {vs_one[k]:.3f} of rtol "
+                                    f"{SHARD_GRAD_RTOL} + atol {SHARD_GRAD_ATOL}")
+        for k in KEYED_KERNELS:
+            check(all(r["launches"][k] > 0 for r in rs), f"{label}: a rank never launched {k}")
+        out[f"{mesh[0]}x{mesh[1]}"] = dict(image_err=image_err, loss_err=loss_err, vs_one=vs_one,
+                                           step_s=[max(r["seconds"][j] for r in rs) for j in range(2)],
+                                           launches=[{k: r["launches"][k] for k in KEYED_KERNELS} for r in rs])
+    return out, seconds
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2167,6 +2536,18 @@ def main(argv=None) -> int:
     reduce_resources = (f"{reduce_parts.resources_line(res.log)}; grad_reduce_chunks blocks per SM at "
                         f"{sweep_readings.N_SLOTS} spheres {reduce_blocks}")
     say(f"phase 2 reduction: {reduce_resources}")
+
+    keyed_resources = {}
+    for name, r in sweep_readings.ptxas_resources(res.log).items():
+        for kernel in ("threefry_replay_kernel", "threefry_reverse_kernel"):
+            if kernel in name:
+                keyed_resources[kernel] = {"registers": r.registers, "spill_stores": r.spill_stores,
+                                           "spill_loads": r.spill_loads}
+    say("phase 2 keyed backward: " + "; ".join(f"{k} {v['registers']} registers, spill stores/loads "
+                                               f"{v['spill_stores']}/{v['spill_loads']}"
+                                               for k, v in keyed_resources.items())
+        + f"; threefry_replay_kernel blocks per SM at {sweep_readings.N_SLOTS} spheres "
+        f"{build.blocks_per_sm('threefry_replay_kernel', 128, sweep_readings.N_SLOTS)}")
 
     # 3. kernel vs plain, one pass
     ref = scene_lib.cover_scene_reference(device=DEVICE)
@@ -2325,11 +2706,11 @@ def main(argv=None) -> int:
     from ray_tracing_in_one_weekend_tpu_torch.examples import inverse_render
 
     demo_dir = REPO / "build" / "inverse_render"
-    rc = inverse_render.main(["--device", DEVICE, "--outdir", str(demo_dir)])
+    rc = inverse_render.main(["--device", DEVICE, "--backend", "pallas", "--outdir", str(demo_dir)])
     check(rc == 0, f"phase 7d: the inverse-render demo exited {rc}")
     check((demo_dir / "inverse_recovered.ppm").read_bytes().startswith(b"P3\n64 32\n255\n"),
           "phase 7d: bad recovered PPM")
-    say("phase 7d inverse render: the demo recovered sphere 1's albedo (error at least halved)")
+    say("phase 7d inverse render (--backend pallas): the demo recovered sphere 1's albedo (error at least halved)")
 
     # 8. the lane scheduler
     phase_scheduler(ref, cam_small, "phase 8 (64x32)")
@@ -2523,7 +2904,7 @@ def main(argv=None) -> int:
         f"build.grad_pass on the same lanes rel L2 " + ", ".join(f"{k} {e:.2e}" for k, e in ag_sub.items())
         + f" (gate {GRAD_GATE}) [{smi}]")
     ag = phase_autograd_step(scene, cam)
-    say(f"phase 14c autograd step (parallel.dist.render_grads, bench preset, zero target, chunk {ag['chunk']} "
+    say(f"phase 14c autograd step (parallel.dist.render_grads_pcg, bench preset, zero target, chunk {ag['chunk']} "
         f"pixels): no kernel launched; {ag['seconds']:.2f}s = {ag['mrays']:.4f} Mrays/s; peak memory "
         f"{ag['peak_gb']:.3f} GB; the forward alone (render, no tape) {ag['forward_s']:.2f}s, bit-identical "
         f"to render_cuda; vs render_grads_cuda: loss {ag['loss_err']:.2e} relative, gradients rel L2 "
@@ -2533,7 +2914,8 @@ def main(argv=None) -> int:
                                                 f"(bound {most:.2e})" for k, (e_k, e_a, most) in ag["exact"].items())
         + f" [{smi}]")
     demo_s = phase_autograd_demo()
-    say(f"phase 14d inverse_render --grad autograd: exit 0 (albedo error at least halved) in {demo_s:.1f}s")
+    say(f"phase 14d inverse_render --backend pallas --grad autograd: exit 0 (albedo error at least halved) in "
+        f"{demo_s:.1f}s")
     say(f"phase 14 took {time.perf_counter() - t14:.1f}s")
 
     # 15. the jnp backend on threefry keys
@@ -2571,6 +2953,53 @@ def main(argv=None) -> int:
         f"noise (seed 0 vs seed 1) MAD {jg['noise']:.4f}; seed 1 vs TPU MAD {jg['seed1_vs_tpu'].mad:.4f} "
         f"(gate: seed 0 below {rg.TPU_GATE} x noise = {rg.TPU_GATE * jg['noise']:.4f}, seed 1 not) [{smi}]")
     say(f"phase 15 took {time.perf_counter() - t15:.1f}s")
+
+    # 16. the keyed gradient
+    torch.cuda.empty_cache()
+    t16 = time.perf_counter()
+    ks = phase_keyed_small()
+    say("phase 16a keyed gradient at 64x32 (parallel.dist.render_grads, key 0): the four kernels launched once "
+        "each; the loss the bits of the loss of threefry_render_kernel's image; vs render_grads_autograd on the "
+        "card (no launch) rel L2 " + "; ".join(f"{label} " + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+                                               for label, errs in ks.items()) + f" (gate {GRAD_GATE}) [{smi}]")
+    kb = phase_keyed_subset()
+    say(f"phase 16b keyed backward at the bench preset, phase 15c's {JNP_LANES} drawn pixels: {kb['n_events']} "
+        f"records bit-identical to the plain replay's; reverse events vs plain: winners equal, rel L2 "
+        f"{kb['event_err']:.2e} (gate {ADJOINT_GATE}; by bounces from the path's end: "
+        + ", ".join(f"{b} {e:.2e}" for b, e in kb["event_err_by_back"].items()) + "); the reduction the ordered "
+        f"plain reduction's bits; the gradient bit-identical run to run and for a shuffled pixel order; plain "
+        f"replay {kb['replay_plain_ms']:.0f} ms, plain reverse {kb['reverse_plain_ms']:.0f} ms [{smi}]")
+    kc = phase_keyed_step(scene, cam)
+    b = kc["bounds"]
+    say(f"phase 16c keyed train step (parallel.dist.render_grads, bench preset, zero target): cold "
+        f"{kc['cold_s']:.4f}s = {kc['cold_mrays']:.2f} Mrays/s; warm " + ", ".join(f"{t:.4f}" for t in kc["warm_s"])
+        + "s = " + ", ".join(f"{r:.2f}" for r in kc["mrays"]) + f" Mrays/s; launches "
+        + ", ".join(f"{k} {kc['launches'][k]}" for k in KEYED_KERNELS) + f"; peak memory {kc['peak_gb']:.3f} GB "
+        f"({kc['step_gb']:.3f} GB above what earlier phases hold); "
+        f"one warm step under torch.profiler {kc['wall_ms']:.3f} ms wall, device busy {kc['busy_ms']:.3f} ms, idle "
+        f"share {kc['idle']:.4f}; device ms " + ", ".join(f"{k} {v:.3f}" for k, v in kc["kernel_ms"].items())
+        + f" ({kc['n_events']} sweeps); the forward alone {kc['forward_ms']:.3f} ms (events), the reduction "
+        f"{kc['reduce_ms']:.3f} ms (events; index_add_ {kc['library_ms']:.3f} ms); bounds forward "
+        f"{b['forward'][0]:.3f} by {b['forward'][1]}, replay {b['replay'][0]:.3f} by {b['replay'][1]}, reverse "
+        f"{b['reverse'][0]:.3f} by {b['reverse'][1]}, reduction {b['reduce'][0]:.3f} by {b['reduce'][1]} [{smi}]")
+    say(f"phase 16c vs render_grads_autograd on the card (chunks of {KEYED_ORACLE_CHUNK} pixels, no launch): "
+        f"{kc['oracle_s']:.2f}s, peak memory {kc['oracle_peak_gb']:.3f} GB; loss the kernels' bits; gradients rel L2 "
+        + ", ".join(f"{k} {e:.2e}" for k, e in kc["errs"].items())
+        + f" (gate {GRAD_GATE} but on " + ", ".join(EXACT_GRAD_FIELDS) + "); from the exact float64 sum of the "
+        "kernels' events (kernels, autograd): " + ", ".join(f"{k} {a:.2e}, {o:.2e}" for k, (a, o) in kc["vs_exact"].items())
+        + "; held: " + ", ".join(f"{k} kernels {e_k:.2e} (gate {GRAD_GATE}), autograd {e_a:.2e} (bound {most:.2e})"
+                                 for k, (e_k, e_a, most) in kc["exact"].items()) + f" [{smi}]")
+    demo16_s, demo16_launches = phase_keyed_demo()
+    say(f"phase 16d inverse_render (--backend jnp, the default): exit 0 (albedo error at least halved) in "
+        f"{demo16_s:.1f}s; launches " + ", ".join(f"{k} {demo16_launches[k]}" for k in KEYED_KERNELS))
+    ke, ke_s = phase_keyed_ranks(REPO / "build" / "sharding")
+    say(f"phase 16e keyed step in 2 gloo ranks (64x32, spp 4, depth 8, cover_scene(0)) in {ke_s:.1f}s: "
+        + "; ".join(f"{m}: image {'one process' if r['image_err'] == 0.0 else 'the rank-order mean'}'s bits "
+                    f"({r['image_err']:.2e} off one process), loss {r['loss_err']:.2e} relative, gradients "
+                    f"{max(r['vs_one'].values()):.3f} of rtol {SHARD_GRAD_RTOL} + atol {SHARD_GRAD_ATOL} off one "
+                    f"process, step s " + ", ".join(f"{t:.3f}" for t in r["step_s"]) + ", launches by rank "
+                    + str(r["launches"]) for m, r in ke.items()) + f" [{smi}]")
+    say(f"phase 16 took {time.perf_counter() - t16:.1f}s")
 
     check("jax" not in sys.modules and "flax" not in sys.modules, "JAX was imported")
     say(smi)
@@ -2739,6 +3168,61 @@ def main(argv=None) -> int:
         "gallery_noise_mad": jg["noise"],
         "gallery_seed1_vs_tpu_mad": jg["seed1_vs_tpu"].mad,
         "launches_gallery": jg["launches"],
+    }, {
+        "name": "threefry_replay_kernel",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/threefry_grad_kernel.cu (+ threefry_device.cuh, threefry.cuh)",
+        "replaces": KEYED_REPLACES,
+        "launches": kc["launches"]["threefry_replay"],
+        "max_abs_err": kb["record_abs_err"],
+        "ms": kc["kernel_ms"]["replay"],
+        "plain_ms": kb["replay_plain_ms"],
+        "tolerance": "records bit-identical to the plain replay (replay_records_plain: all 16 words, the same "
+                     "slots) on 16384 drawn bench pixels; the keyed gradient per field rel L2 <= "
+                     f"{GRAD_GATE} against render_grads_autograd at 64x32 and at the bench preset",
+        "bound_ms": kc["bounds"]["replay"][0],
+        "bound_by": kc["bounds"]["replay"][1],
+        "library_ms": None,
+        "shapes": "ms (device time by torch.profiler inside a warm step) and bound_ms at the bench preset "
+                  "(1200x800, 10 spp, depth 50); plain_ms on the 16384 drawn pixels; launches from 16c's steps",
+        **{k: v for k, v in keyed_resources.get("threefry_replay_kernel", {}).items()},
+        "sweeps": kc["n_events"],
+        "step_cold_s": kc["cold_s"],
+        "step_warm_s": kc["warm_s"],
+        "step_mrays_per_s": kc["mrays"],
+        "step_peak_memory_gb": kc["peak_gb"],
+        "step_memory_above_live_gb": kc["step_gb"],
+        "step_idle_share": kc["idle"],
+        "forward_ms_in_step": kc["kernel_ms"]["forward"],
+        "forward_bound_ms": kc["bounds"]["forward"][0],
+        "rel_l2_64x32": ks,
+        "rel_l2_bench": kc["errs"],
+        "rel_l2_vs_exact_bench": kc["vs_exact"],
+        "oracle_s": kc["oracle_s"],
+        "oracle_peak_memory_gb": kc["oracle_peak_gb"],
+        "launches_sharded": {m: r["launches"] for m, r in ke.items()},
+    }, {
+        "name": "threefry_reverse_kernel",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/threefry_grad_kernel.cu (+ threefry_device.cuh)",
+        "replaces": KEYED_REPLACES,
+        "launches": kc["launches"]["threefry_reverse"],
+        "max_abs_err": kb["event_abs_err"],
+        "ms": kc["kernel_ms"]["reverse"],
+        "plain_ms": kb["reverse_plain_ms"],
+        "tolerance": f"events against the plain reverse (reverse_records_plain) on the same records: winners "
+                     f"equal, cotangent words rel L2 <= {ADJOINT_GATE}; max_abs_err on the 16384 drawn pixels",
+        "bound_ms": kc["bounds"]["reverse"][0],
+        "bound_by": kc["bounds"]["reverse"][1],
+        "library_ms": None,
+        "shapes": "ms (device time by torch.profiler inside a warm step) and bound_ms at the bench preset; "
+                  "plain_ms on the 16384 drawn pixels; launches from 16c's steps",
+        **{k: v for k, v in keyed_resources.get("threefry_reverse_kernel", {}).items()},
+        "rel_l2": kb["event_err"],
+        "rel_l2_by_back": kb["event_err_by_back"],
+        "reduce_ms_in_step": kc["kernel_ms"]["reduce_chunks"] + kc["kernel_ms"]["reduce_partials"],
+        "reduce_bound_ms": kc["bounds"]["reduce"][0],
+        "launches_grad_reduce_keyed": kc["launches"]["grad_reduce"],
     }]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

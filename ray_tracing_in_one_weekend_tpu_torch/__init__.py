@@ -21,15 +21,27 @@ the reference presets written as PNG with a manifest, held against the
 reference's image and the TPU's renders (`scripts/`, `utils/manifest.py`);
 and the differentiable render in plain PyTorch under torch.autograd, on
 the same streams, with its loss, gradients and train step over a mesh
-(`ops/integrator.py`, `ops/render.py`, `parallel/dist.py`): a gradient
+(`ops/integrator.py`, `ops/render.py`, `parallel/dist.py`
+`render_loss_pcg`, `render_grads_pcg`, `train_step_pcg`): a gradient
 independent of the backward kernels; and the JAX package's jnp backend on
 its own threefry keys, carried bit for bit (`ops/threefry.py`,
 `ops/sampling.py`, `ops/intersect.py`, `ops/materials.py`,
-`render_image`), with the hand-written `threefry_render_kernel` on the
+`render_image`, `ray_color`), with the hand-written `threefry_render_kernel` on the
 card (`ops/cuda_threefry.py`, `csrc/threefry_render_kernel.cu`), sharded
 by `parallel.dist.render_image_distributed` and accumulated by
 `checkpoint.accumulate(backend="jnp")`; the cover scene draws from the
-same keys as the JAX package's.
+same keys as the JAX package's; and its gradient, JAX's `render_loss`,
+`render_grads` and `train_step` on a `base_key`
+(`parallel.dist.render_distributed(..., differentiable=True)`): on the
+card the forward kernel and two hand-written backward kernels
+(`csrc/threefry_grad_kernel.cu`: the replay records every sweep, the
+reverse walks them by the keyed bounce adjoint) with the PCG backward's
+reduction, on the CPU torch.autograd through the plain render;
+`render_grads_autograd` is the same gradient by autograd on any device.
+The keyed step runs on the CPU with `render_grads(params, scene, cam,
+target, 0)` on scenes built with `device="cpu"`, and on the card on
+scenes built there (the default); `examples/inverse_render.py` runs it by
+default (`--backend jnp`).
 
 Scenes and cameras are built on the card unless the caller passes
 `device="cpu"`; without a GPU the default raises.
@@ -56,13 +68,18 @@ from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import (
     render_cuda,
     render_cuda_distributed,
 )
-from ray_tracing_in_one_weekend_tpu_torch.ops.integrator import trace_rays, trace_rays_threefry
+from ray_tracing_in_one_weekend_tpu_torch.ops.integrator import ray_color, trace_rays, trace_rays_threefry
 from ray_tracing_in_one_weekend_tpu_torch.ops.render import render, render_image
 from ray_tracing_in_one_weekend_tpu_torch.parallel.dist import (
+    render_distributed,
     render_grads,
+    render_grads_autograd,
+    render_grads_pcg,
     render_image_distributed,
     render_loss,
+    render_loss_pcg,
     train_step,
+    train_step_pcg,
 )
 from ray_tracing_in_one_weekend_tpu_torch.utils.checkpoint import (
     RenderState,
@@ -99,12 +116,18 @@ __all__ = [
     "train_step_cuda",
     "trace_rays",
     "trace_rays_threefry",
+    "ray_color",
     "render",
     "render_image",
+    "render_distributed",
     "render_image_distributed",
     "render_loss",
     "render_grads",
+    "render_grads_autograd",
     "train_step",
+    "render_loss_pcg",
+    "render_grads_pcg",
+    "train_step_pcg",
     "RenderConfig",
     "RenderState",
     "new_state",

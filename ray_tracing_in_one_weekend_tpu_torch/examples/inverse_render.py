@@ -6,16 +6,25 @@ The port of `examples/inverse_render.py`, with its defaults: the
 three-sphere scene padded to 128 slots, 64 pixels wide, 4 spp, depth 8.
 It renders the target, damages sphere 1's albedo to (0.6, 0.6, 0.6) and
 sphere 3's to (0.3, 0.3, 0.8), and runs albedo-only SGD (lr 30, clipped
-to [0, 1]) on the mean squared pixel error. `--grad kernel` (the default;
-the JAX example's `--backend pallas`) takes each step's gradient from the
-forward render and the gradient replay as the hand-written CUDA kernels
-(`ops/cuda_grad.py`), with the warm-start carry between steps; `--grad
-autograd` (its `--backend jnp`, the autodiff oracle) from torch.autograd
-through the plain render (`parallel.dist.render_grads`), which launches
-no kernel. The target and the recovered image are rendered by
-`render_cuda` either way (the autograd render's value is its bits). It
-logs the loss to stderr, writes the target and recovered images as PPM
-to `--outdir`, and exits 0 only if sphere 1's albedo L1 error fell below
+to [0, 1]) on the mean squared pixel error.
+
+`--backend jnp` (the default, as in the JAX example) renders on the JAX
+package's threefry keys from key 0: the target and the recovered image by
+`parallel.dist.render_image_distributed` (chunks of 2048 pixels), every
+step's gradient by `parallel.dist.render_grads` (the keyed gradient: on
+the card the forward kernel and the keyed backward kernels,
+`csrc/threefry_grad_kernel.cu`; on the CPU torch.autograd through the
+plain render). `--backend pallas` is the JAX example's kernel route on the
+port's PCG streams: the target and the recovered image by `render_cuda`,
+each step by the PCG backward kernels (`ops/cuda_grad.py`) with the
+warm-start carry between steps.
+
+`--grad kernel` (the default) takes that route's gradient; `--grad
+autograd` its autodiff oracle, torch.autograd through the plain render,
+which launches no kernel: `parallel.dist.render_grads_autograd` on the
+keys, `parallel.dist.render_grads_pcg` on the PCG streams. It logs the
+loss to stderr, writes the target and recovered images as PPM to
+`--outdir`, and exits 0 only if sphere 1's albedo L1 error fell below
 half its start.
 
 `--device cuda` (the default) needs a GPU and never moves to the CPU on
@@ -44,7 +53,7 @@ from ray_tracing_in_one_weekend_tpu_torch.models.camera import make_camera
 from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_grad as cg
 from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import render_cuda, render_cuda_distributed
 from ray_tracing_in_one_weekend_tpu_torch.ops.image import to_uint8
-from ray_tracing_in_one_weekend_tpu_torch.parallel.dist import render_grads
+from ray_tracing_in_one_weekend_tpu_torch.parallel import dist as pdist
 from ray_tracing_in_one_weekend_tpu_torch.utils import ppm
 
 _DEFAULT_OUTDIR = Path(__file__).resolve().parents[2] / "build" / "inverse_render"
@@ -57,8 +66,11 @@ def main(argv=None) -> int:
     ap.add_argument("--width", type=int, default=64)
     ap.add_argument("--spp", type=int, default=4)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--backend", choices=("jnp", "pallas"), default="jnp",
+                    help="jnp (default): threefry keys, render_image_distributed and dist.render_grads; "
+                         "pallas: the PCG streams, render_cuda and the PCG backward kernels")
     ap.add_argument("--grad", choices=("kernel", "autograd"), default="kernel",
-                    help="the steps' gradient: the backward kernels (default) or torch.autograd "
+                    help="the steps' gradient: the backend's kernels (default) or torch.autograd "
                          "through the plain render")
     ap.add_argument("--mesh", default=None, metavar="P[,S]",
                     help="rank mesh: pixel shards, optional sample shards (under torchrun)")
@@ -89,7 +101,11 @@ def main(argv=None) -> int:
     outdir = Path(args.outdir)
     outdir.mkdir(parents=True, exist_ok=True)
 
+    keyed = args.backend == "jnp"
+
     def render(scene):
+        if keyed:
+            return pdist.render_image_distributed(scene, cam, 0, mesh, chunk_size=2048)
         if mesh is not None:
             return render_cuda_distributed(scene, cam, seed=0, mesh=mesh)
         return render_cuda(scene, cam, seed=0)
@@ -110,10 +126,13 @@ def main(argv=None) -> int:
     params["albedo"] = damaged
     before_err = float((params["albedo"][1] - true_albedo[1]).abs().sum())
 
-    work = None  # the warm-start carry of the kernels: the previous step's cost map
+    work = None  # the warm-start carry of the PCG kernels: the previous step's cost map
     for step in range(args.steps):
-        if args.grad == "autograd":
-            loss, grads = render_grads(params, scene, cam, target, seed=0, mesh=mesh)
+        if keyed:
+            grads_fn = pdist.render_grads_autograd if args.grad == "autograd" else pdist.render_grads
+            loss, grads = grads_fn(params, scene, cam, target, 0, mesh, chunk_size=2048)
+        elif args.grad == "autograd":
+            loss, grads = pdist.render_grads_pcg(params, scene, cam, target, seed=0, mesh=mesh)
         else:
             (loss, work), grads = cg.render_grads_cuda(
                 params, scene, cam, target, mesh=mesh, seed=0, work_hint=work, return_work=True

@@ -9,7 +9,10 @@ is compiled, so a build takes seconds.
 
 `render_pass` is the wrapper of `csrc/render_kernel.cu`;
 `threefry_render` that of `csrc/threefry_render_kernel.cu` (the jnp
-backend's forward on threefry keys); `grad_replay`,
+backend's forward on threefry keys); `threefry_replay` and
+`threefry_reverse` (chained with `grad_reduce` in `threefry_grad_pass`)
+those of the keyed backward's two kernels, `csrc/threefry_grad_kernel.cu`;
+`grad_replay`,
 `grad_reverse` and `grad_reduce` (chained in `grad_pass`) are those of the
 three kernels of `csrc/grad_kernel.cu`, the backward's replay, its reverse
 walk and its reduction; `chain_fma`,
@@ -55,7 +58,8 @@ NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 # Launches per kernel since the last `reset_launches()`: what a run reads
 # to show that its main path went through the kernels.
 LAUNCHES = {
-    "render_kernel": 0, "threefry_render_kernel": 0, "grad_replay": 0, "grad_reverse": 0, "grad_reduce": 0, "bounce_adjoint": 0,
+    "render_kernel": 0, "threefry_render_kernel": 0, "threefry_replay": 0, "threefry_reverse": 0,
+    "grad_replay": 0, "grad_reverse": 0, "grad_reduce": 0, "bounce_adjoint": 0,
     "chain_fma": 0, "fma_peak": 0, "sweep_probe": 0, "gather_probe": 0, "skinny_probe": 0,
     "skinny_probe_default": 0,
 }
@@ -180,6 +184,19 @@ def load() -> ctypes.CDLL:
         lib.rt_threefry_blocks_per_sm.argtypes = [i32]
         lib.rt_threefry_grid.restype = i32
         lib.rt_threefry_grid.argtypes = [i32, i32]
+        lib.rt_threefry_replay_blocks_per_sm.restype = i32
+        lib.rt_threefry_replay_blocks_per_sm.argtypes = [i32]
+        lib.rt_threefry_replay.restype = i32
+        lib.rt_threefry_replay.argtypes = [
+            ptr, i32, ptr, ptr, i32,  # table, n_spheres, cam, pix, n
+            ctypes.c_uint, ctypes.c_uint, i32, i32, i32,  # key0, key1, sample_offset, spp, max_depth
+            ptr, ptr, ptr, ptr, ptr, ptr,  # ev_start, ev_count, records, flags, queue, stream
+        ]
+        lib.rt_threefry_reverse.restype = i32
+        lib.rt_threefry_reverse.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, ptr,  # table, cam, g, ev_start, ev_count, records
+            ctypes.c_longlong, i32, ptr,  # n_records, n, stream
+        ]
         lib.rt_grad_replay.restype = i32
         lib.rt_grad_replay.argtypes = [
             ptr, i32, ptr, ptr,  # table, n_spheres, cam, pix
@@ -244,8 +261,8 @@ def _check_spheres(n_spheres, most):
 
 def blocks_per_sm(kernel: str, tile: int, n_spheres: int) -> int:
     """Resident blocks an SM holds of `kernel` ("render_kernel",
-    "grad_replay", "sweep_probe" or "threefry_render_kernel", whose block
-    is always 128 threads, or
+    "grad_replay", "sweep_probe", or "threefry_render_kernel" and
+    "threefry_replay_kernel", whose block is always 128 threads, or
     "grad_reduce_chunks", always 256) at `tile` threads a block for a scene
     of `n_spheres`: the CUDA runtime's occupancy from the kernel's
     registers and shared memory."""
@@ -254,6 +271,8 @@ def blocks_per_sm(kernel: str, tile: int, n_spheres: int) -> int:
         n = lib.rt_sweep_probe_blocks_per_sm(n_spheres)
     elif kernel == "threefry_render_kernel":
         n = lib.rt_threefry_blocks_per_sm(n_spheres)
+    elif kernel == "threefry_replay_kernel":
+        n = lib.rt_threefry_replay_blocks_per_sm(n_spheres)
     elif kernel == "grad_reduce_chunks":
         n = lib.rt_reduce_blocks_per_sm(n_spheres)
     else:
@@ -330,24 +349,9 @@ def threefry_render(table, cam_vec, pix, key, sample_offset, spp, max_depth, wor
     persistent grid (`threefry_grid`) takes the positions past its threads
     from a queue counter, allocated and zeroed here for every launch."""
     device = pix.device
-    if device.type != "cuda":
-        raise ValueError(f"threefry_render runs on CUDA tensors, got {device}")
-    n = pix.shape[0] if pix.dim() == 1 else -1
-    n_spheres = table.shape[0] if table.dim() == 2 else -1
-    _check_tensor("table", table, torch.float32, (n_spheres, 16), device)
-    _check_tensor("cam_vec", cam_vec, torch.float32, (24,), device)
-    _check_tensor("pix", pix, torch.int32, (n,), device)
+    n, n_spheres, k0, k1 = _check_keyed(table, cam_vec, pix, key, sample_offset, spp, max_depth, device,
+                                        "threefry_render")
     lib = load()
-    _check_spheres(n_spheres, lib.rt_threefry_max_spheres())
-    k0, k1 = (int(w) for w in key)
-    for name, v in (("key[0]", k0), ("key[1]", k1)):
-        if not 0 <= v < 1 << 32:
-            raise ValueError(f"{name} ({v}) is not a uint32 word")
-    if spp < 1 or max_depth < 1:
-        raise ValueError(f"spp ({spp}) and max_depth ({max_depth}) must be >= 1")
-    for name, v in (("sample_offset", sample_offset), ("spp", spp), ("max_depth", max_depth),
-                    ("sample_offset + spp", sample_offset + spp)):
-        _check_int32(name, int(v))
     out = torch.empty((n, 3), dtype=torch.float32, device=device)
     counts = torch.empty((n,), dtype=torch.int32, device=device) if work else None
     if n == 0:
@@ -363,6 +367,28 @@ def threefry_render(table, cam_vec, pix, key, sample_offset, spp, max_depth, wor
     _raise_on(lib, err, "threefry_render_kernel")
     LAUNCHES["threefry_render_kernel"] += 1
     return (out, counts) if work else out
+
+
+def _check_keyed(table, cam_vec, pix, key, sample_offset, spp, max_depth, device, name):
+    """The keyed kernels' common checks -> (n, n_spheres, k0, k1)."""
+    if device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA tensors, got {device}")
+    n = pix.shape[0] if pix.dim() == 1 else -1
+    n_spheres = table.shape[0] if table.dim() == 2 else -1
+    _check_tensor("table", table, torch.float32, (n_spheres, 16), device)
+    _check_tensor("cam_vec", cam_vec, torch.float32, (24,), device)
+    _check_tensor("pix", pix, torch.int32, (n,), device)
+    _check_spheres(n_spheres, load().rt_threefry_max_spheres())
+    k0, k1 = (int(w) for w in key)
+    for label, v in (("key[0]", k0), ("key[1]", k1)):
+        if not 0 <= v < 1 << 32:
+            raise ValueError(f"{label} ({v}) is not a uint32 word")
+    if spp < 1 or max_depth < 1:
+        raise ValueError(f"spp ({spp}) and max_depth ({max_depth}) must be >= 1")
+    for label, v in (("sample_offset", sample_offset), ("spp", spp), ("max_depth", max_depth),
+                     ("sample_offset + spp", sample_offset + spp)):
+        _check_int32(label, int(v))
+    return n, n_spheres, k0, k1
 
 
 @dataclasses.dataclass
@@ -541,6 +567,98 @@ def grad_reduce(events, n_spheres):
     _raise_on(lib, err, "grad_reduce")
     LAUNCHES["grad_reduce"] += 1
     return out
+
+
+def threefry_grad_pass(table, cam_vec, pix, key, sample_offset, spp, max_depth, work, pixel_offset, n_live, g):
+    """The keyed backward on CUDA tensors -> [16, N] f32, the cotangent of
+    the packed scene: `threefry_replay`, `threefry_reverse` on its records,
+    then `grad_reduce` over the events."""
+    replay = threefry_replay(table, cam_vec, pix, key, sample_offset, spp, max_depth, work, pixel_offset, n_live)
+    return grad_reduce(threefry_reverse(table, cam_vec, replay, g), table.shape[0])
+
+
+def threefry_replay(table, cam_vec, pix, key, sample_offset, spp, max_depth, work, pixel_offset, n_live) -> Replay:
+    """`threefry_replay_kernel` on CUDA tensors: the keyed forward's paths of
+    global pixel ids `pix` [n] i32, replayed with its persistent loop and
+    pixel queue -> `Replay`, one 64-byte record a sweep in the position's
+    slots (`event_slots`: the ranges follow the pixel ids in increasing
+    order), in sample and bounce order. Record words (int fields as int32
+    bits): 0-2 the pre-bounce o, 3-5 d, 6-8 att, 9 the winning sphere (-1
+    for a miss), 10-11 the sample's trace key, 12 the bounce index, 13 how
+    the path goes on (0 on, 1 ends without radiance, 2 ends at the sky),
+    14-15 zero.
+
+    table, cam_vec, key, sample_offset, spp and max_depth as for
+    `threefry_render`; `work` [n_live - pixel_offset] int, the forward's
+    sweeps of each pixel in pixel order (its `work` output); every id of
+    `pix` must lie in [pixel_offset, n_live). Raises if the replay did not
+    take the forward's paths (a pixel's sweeps differ from `work`)."""
+    device = pix.device
+    n, n_spheres, k0, k1 = _check_keyed(table, cam_vec, pix, key, sample_offset, spp, max_depth, device,
+                                        "threefry_replay")
+    pixel_offset, n_live = int(pixel_offset), int(n_live)
+    if work.device != device or work.dtype not in (torch.int32, torch.int64) \
+            or tuple(work.shape) != (n_live - pixel_offset,):
+        raise ValueError(f"work must be an integer tensor [{n_live - pixel_offset}] on {device}, got "
+                         f"{work.dtype} {tuple(work.shape)} on {work.device}")
+    if n > 0 and not (int(pix.min()) >= pixel_offset and int(pix.max()) < n_live):
+        raise ValueError(f"pixel ids must lie in [{pixel_offset}, {n_live})")
+    lib = load()
+    ev_start, ev_count = event_slots(pix, work, pixel_offset, n_live)
+    records = torch.empty((int(ev_count.sum()), 16), dtype=torch.float32, device=device)
+    flags = torch.zeros(2, dtype=torch.int32, device=device)
+    queue = torch.zeros((1,), dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        err = lib.rt_threefry_replay(
+            table.data_ptr(), n_spheres, cam_vec.data_ptr(), pix.data_ptr(), n, k0, k1, int(sample_offset),
+            int(spp), int(max_depth), ev_start.data_ptr(), ev_count.data_ptr(), records.data_ptr(),
+            flags.data_ptr(), queue.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_on(lib, err, "threefry_replay_kernel")
+    LAUNCHES["threefry_replay"] += 1
+    over, under = flags.tolist()
+    if over or under:
+        raise RuntimeError(
+            "threefry_replay_kernel: the replay diverged from the forward render (a pixel had "
+            f"{'more' if over else 'fewer'} sweeps than its work count)"
+        )
+    return Replay(records, ev_start, ev_count)
+
+
+def threefry_reverse(table, cam_vec, replay: Replay, g):
+    """`threefry_reverse_kernel` on CUDA tensors: each position walks its
+    records from the last to the first and overwrites each IN PLACE with
+    that bounce's event -> the record buffer, now events [E, 16] f32 in
+    `grad_reverse`'s layout: word 0 the winning sphere as int32 bits (-1 for
+    none), words 1-13 the cotangent of its rows 0-3, 5-9, 12-15 (rows 12-15
+    zero: the keyed sweep reads center and radius), words 14-15 zero.
+
+    `replay` as `threefry_replay` returned it, with the same table and
+    cam_vec; the call consumes it (`replay.records` becomes None). g [3, n]
+    f32, each position's radiance cotangent of one sample."""
+    device = g.device
+    if device.type != "cuda":
+        raise ValueError(f"threefry_reverse runs on CUDA tensors, got {device}")
+    records, ev_start, ev_count = replay.records, replay.ev_start, replay.ev_count
+    if records is None:
+        raise ValueError("threefry_reverse: this Replay was reversed already (its records are events now)")
+    n = g.shape[1] if g.dim() == 2 else -1
+    _check_grad_tables(table, cam_vec, device)
+    _check_tensor("g", g, torch.float32, (3, n), device)
+    _check_tensor("ev_start", ev_start, torch.int64, (n,), device)
+    _check_tensor("ev_count", ev_count, torch.int32, (n,), device)
+    n_events = records.shape[0] if records.dim() == 2 else -1
+    _check_tensor("records", records, torch.float32, (n_events, 16), device)
+    lib = load()
+    replay.records = None
+    with torch.cuda.device(device):
+        err = lib.rt_threefry_reverse(
+            table.data_ptr(), cam_vec.data_ptr(), g.data_ptr(), ev_start.data_ptr(), ev_count.data_ptr(),
+            records.data_ptr(), n_events, n, torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_on(lib, err, "threefry_reverse_kernel")
+    LAUNCHES["threefry_reverse"] += 1
+    return records
 
 
 def bounce_adjoint(table, t_min, rec, ob, db, ab):

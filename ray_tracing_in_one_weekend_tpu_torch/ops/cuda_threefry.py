@@ -19,6 +19,21 @@ order (the fused multiply-adds the plain version computes exactly), so on
 the card they agree bit for bit where the render kernel and its plain
 version do; against the JAX package on the CPU they agree to float32
 rounding per bounce (tests/test_torch_jnp_render.py holds the gates).
+
+The keyed gradient's backward, the counterpart of `jax.grad` of the jnp
+path (JAX parallel/dist.py:225-282), is `keyed_grad_pass`: on CUDA tensors
+`csrc/threefry_grad_kernel.cu` through `kernels.build.threefry_grad_pass`
+(`threefry_replay_kernel` records every sweep of the forward's paths,
+`threefry_reverse_kernel` turns the records into per-bounce events in
+place by the keyed bounce adjoint, and the PCG backward's fixed-order
+reduction sums them into the [16, N] cotangent of the packed scene). Its
+plain versions are here, record for record: `replay_records_plain`
+(the records of `render_flat_threefry`, whose `trace_rays_threefry`
+returns one a sweep) and
+`reverse_records_plain` (torch.autograd of `_keyed_bounce`, the plain
+keyed bounce, and of the sky, walked from each path's end). Nothing on
+the main path runs them when a card is present; `parallel/dist.py`'s CPU
+path differentiates the plain render itself.
 """
 
 from __future__ import annotations
@@ -27,7 +42,20 @@ import torch
 
 from ray_tracing_in_one_weekend_tpu_torch.models.camera import Camera
 from ray_tracing_in_one_weekend_tpu_torch.models.scene import Scene
-from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import pack_camera, pack_scene
+from ray_tracing_in_one_weekend_tpu_torch.ops import intersect, sampling
+from ray_tracing_in_one_weekend_tpu_torch.ops import vecmath as vm
+from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_grad import _EVENT_ROWS, _path_positions
+from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import _u32, pack_camera, pack_scene
+from ray_tracing_in_one_weekend_tpu_torch.ops.integrator import (
+    _END_SKY,
+    _REC_DEPTH,
+    _REC_END,
+    _REC_K0,
+    _REC_K1,
+    _REC_WINNER,
+    sky_color,
+)
+from ray_tracing_in_one_weekend_tpu_torch.ops.materials import scatter_sampled
 from ray_tracing_in_one_weekend_tpu_torch.ops.threefry import as_key
 
 
@@ -44,3 +72,148 @@ def render_kernel_pixels(scene: Scene, cam: Camera, pixel_indices, base_key=0, s
         sample_offset, spp, cam.max_depth, work=return_work,
     )
 
+
+
+# ---------------------------------------------------------------------------
+# The keyed backward: the kernels' chain and their plain versions.
+# ---------------------------------------------------------------------------
+
+# Pixels a vectorized step of the plain replay (bounds its [pixels, N]
+# sweep), and records a vector-Jacobian product of the plain reverse.
+_PLAIN_PIXELS = {"cuda": 1 << 14, "cpu": 1 << 10}
+_PLAIN_RECORDS = {"cuda": 1 << 20, "cpu": 1 << 16}
+
+
+def keyed_grad_pass(scene: Scene, cam: Camera, pix, base_key, sample_offset, spp, work, g) -> torch.Tensor:
+    """The keyed backward on a CUDA scene -> [16, N] f32, the cotangent of
+    `pack_scene(scene)`: `build.threefry_grad_pass` (replay, reverse,
+    reduction), which raises if a kernel cannot build or launch or the
+    replay leaves the forward's paths. `pix` [n] the distinct global pixel
+    ids of a contiguous run [pix.min(), pix.max()], `work` [n] their
+    forward sweeps in pixel order, `g` [3, n] their radiance cotangents of
+    one sample."""
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+
+    pix = torch.as_tensor(pix, device=scene.device).reshape(-1).to(torch.int32).contiguous()
+    start = int(pix.min())
+    return build.threefry_grad_pass(
+        pack_scene(scene).T.contiguous(), pack_camera(cam).to(scene.device), pix, as_key(base_key),
+        sample_offset, spp, cam.max_depth, work, start, start + pix.numel(), g.contiguous(),
+    )
+
+
+def replay_records_plain(scene: Scene, cam: Camera, pix, base_key=0, sample_offset: int = 0,
+                         spp: int | None = None, pixel_offset: int = 0, n_live: int | None = None):
+    """The keyed replay in plain PyTorch -> `build.Replay`, the layout of
+    `build.threefry_replay` (see there): each pixel's sweeps in sample and
+    bounce order, in slots that follow the pixel ids. `pix` [n] distinct
+    global pixel ids in [pixel_offset, n_live) (default: the image). The
+    records are `render_flat_threefry`'s (its keys, camera rays and
+    `trace_rays_threefry`'s bounces); the slots come from this replay's own
+    sweep counts, so they can be held against the forward's work map."""
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.ops.render import render_flat_threefry
+
+    spp = cam.samples_per_pixel if spp is None else spp
+    n_live = cam.num_pixels if n_live is None else n_live
+    dev = scene.device
+    pix = torch.as_tensor(pix, device=dev).reshape(-1).to(torch.int64)
+    chunk = _PLAIN_PIXELS.get(dev.type, _PLAIN_PIXELS["cpu"])
+    _, parts = render_flat_threefry(scene, cam, pix, base_key, chunk_size=chunk, spp=spp,
+                                    sample_offset=sample_offset, return_records=True)
+    per_sample = torch.zeros(pix.numel(), spp, dtype=torch.int64, device=dev)
+    for lanes, s, _, _ in parts:
+        per_sample[lanes, s] += 1
+    work = torch.zeros(n_live - pixel_offset, dtype=torch.int64, device=dev)
+    work[pix - pixel_offset] = per_sample.sum(1)
+    ev_start, ev_count = build.event_slots(pix, work, pixel_offset, n_live)
+    earlier = torch.cumsum(per_sample, 1) - per_sample  # sweeps of a pixel's earlier samples
+    records = torch.empty(int(work.sum()), 16, dtype=torch.float32, device=dev)
+    for lanes, s, depth, rows in parts:  # moved as int32, so every word keeps its bits
+        records.view(torch.int32)[ev_start[lanes] + earlier[lanes, s] + depth] = rows.view(torch.int32)
+    return build.Replay(records, ev_start, ev_count)
+
+
+def _keyed_bounce(o, d, att, pc, keys, depth, t_min):
+    """One keyed bounce off the winner as a pure function of its continuous
+    inputs -> (o', d', att'): `pc` [L, 16] the winner's packed parameter
+    rows; the hit point and the outward normal as `intersect.hit_scene`
+    takes them (its t recomputed by `intersect._winner_t`, the sweep's
+    bits), then `scatter_sampled` on the bounce's draws
+    (uniforms_b(keys, 5, domain=depth)) and the attenuation. The decisions
+    (root, front face, material, must_reflect) come from the same values as
+    in the forward, so they are its own."""
+    center, radius = pc[:, 0:3], pc[:, 3]
+    t = intersect._winner_t(center, radius, o, d, t_min, intersect.T_MISS)
+    point = vm.ray_at(o, d, t)
+    outward = (point - center) / radius[:, None]
+    front_face = vm.dot_fma(d, outward) < 0.0
+    rec = intersect.HitRecord(
+        hit=torch.ones_like(front_face), t=t, point=point,
+        normal=torch.where(front_face[:, None], outward, -outward), front_face=front_face,
+        sphere_index=torch.zeros_like(front_face, dtype=torch.int64), albedo=pc[:, 5:8], fuzz=pc[:, 8],
+        ior=pc[:, 9], mat_type=pc[:, 10].detach().round().to(torch.int32),
+    )
+    u = sampling.uniforms_b(keys, 5, domain=depth)
+    new_dir, mat_att, _ = scatter_sampled(rec, d, sampling.unit_vector_from_uniforms(u[:, 0:4]), u[:, 4])
+    return point, new_dir, att * mat_att
+
+
+def _vjp(fn, inputs, cotangents):
+    """The cotangents of `inputs` of `fn(*inputs)` by torch.autograd."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_() for x in inputs]
+        outs = fn(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        bars = torch.autograd.grad(outs, leaves, grad_outputs=cotangents, allow_unused=True)
+    return [torch.zeros_like(x) if b is None else b for x, b in zip(leaves, bars)]
+
+
+def reverse_records_plain(p_mat, cam_vec, replay, g) -> torch.Tensor:
+    """The keyed reverse in plain PyTorch: records -> events [E, 16] f32, the
+    layout of `build.threefry_reverse` (a new tensor; the records stay).
+    `p_mat` [16, N] the packed scene, `g` [3, n] each position's radiance
+    cotangent of one sample.
+
+    Paths are independent once the adjoints restart at each path's last
+    bounce, so this walks all paths at once, step r taking the bounce r
+    places before each path's end: at a path that reached the sky the
+    adjoint of att * sky_color(d), then each earlier bounce's
+    vector-Jacobian product of `_keyed_bounce`, from torch.autograd."""
+    records, ev_start, ev_count = replay.records, replay.ev_start, replay.ev_count
+    t_min = float(cam_vec[20])
+    dev = records.device
+    n = records.shape[0]
+    words = records.view(torch.int32)
+    events = torch.zeros(n, 16, dtype=torch.float32, device=dev)
+    events.view(torch.int32)[:, 0] = -1
+    if n == 0:
+        return events
+    counts = ev_count.to(torch.int64)
+    lane_of = torch.repeat_interleave(torch.arange(counts.numel(), device=dev), counts)
+    first = torch.repeat_interleave(torch.cumsum(counts, 0) - counts, counts)
+    slot_lane = torch.empty(n, dtype=torch.int64, device=dev)
+    slot_lane[ev_start[lane_of] + torch.arange(n, device=dev) - first] = lane_of
+    ends, path, back = _path_positions(records)
+    lit = words[ends[path], _REC_END] == _END_SKY  # the slot's path reached the sky
+    bars = torch.zeros(3, ends.numel(), 3, dtype=torch.float32, device=dev)  # o, d, att adjoints a path
+
+    chunk = _PLAIN_RECORDS.get(dev.type, _PLAIN_RECORDS["cpu"])
+    for r in range(int(back.max()) + 1):
+        for sel in ((back == r) & lit).nonzero()[:, 0].split(chunk):
+            if r == 0:  # the path's last bounce: the sky's adjoint
+                db, ab = _vjp(lambda d, att: att * sky_color(d), (records[sel, 3:6], records[sel, 6:9]),
+                              (g[:, slot_lane[sel]].T.contiguous(),))
+                bars[1, path[sel]], bars[2, path[sel]] = db, ab
+                continue
+            winner = words[sel, _REC_WINNER].to(torch.int64)
+            keys = (_u32(words[sel, _REC_K0]), _u32(words[sel, _REC_K1]))
+            depth = words[sel, _REC_DEPTH].to(torch.int64)
+            cot = tuple(bars[i, path[sel]] for i in range(3))
+            ob, db, ab, pb = _vjp(lambda o, d, att, pc: _keyed_bounce(o, d, att, pc, keys, depth, t_min),
+                                  (records[sel, 0:3], records[sel, 3:6], records[sel, 6:9], p_mat[:, winner].T),
+                                  cot)
+            bars[0, path[sel]], bars[1, path[sel]], bars[2, path[sel]] = ob, db, ab
+            events.view(torch.int32)[sel, 0] = winner.to(torch.int32)
+            events[sel, 1:14] = pb[:, list(_EVENT_ROWS)]
+    return events

@@ -2,7 +2,8 @@
 
 The port's counterpart of ray_tracing_in_one_weekend_tpu/ops/integrator.py
 (`trace_rays`, :50-120), twice: `trace_rays_threefry` on the JAX package's
-threefry keys (the jnp backend: see its docstring), and `trace_rays` on
+threefry keys (the jnp backend: see its docstring; `ray_color`, :123-132
+there, is its alias), and `trace_rays` on
 the port's own PCG streams, described here: each bounce runs
 the forward render's device functions (`ops/cuda_render.py`) with the
 draw counter 8 + 16·depth, so a ray's radiance is the bits `render_cuda`
@@ -46,6 +47,7 @@ from ray_tracing_in_one_weekend_tpu_torch.ops import vecmath as vm
 from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_grad import _winner_t
 from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import (
     T_MISS,
+    _as_i32,
     _scatter_block,
     _sky,
     _surface,
@@ -119,6 +121,29 @@ def sky_color(direction: torch.Tensor) -> torch.Tensor:
     return vm.fma(a[..., None], blue, (1.0 - a)[..., None])
 
 
+# Record words of the keyed replay (`build.threefry_replay`; int fields as
+# int32 bits): o, d, att at 0-8, then the winner (-1 for a miss), the trace
+# key's two words, the bounce index and how the path goes on after the
+# bounce. The layout of the PCG records, so `cuda_grad._path_positions`
+# walks both.
+_REC_WINNER, _REC_K0, _REC_K1, _REC_DEPTH, _REC_END = 9, 10, 11, 12, 13
+_END_NONE, _END_DARK, _END_SKY = 0, 1, 2  # goes on; ends without radiance; ends at the sky
+
+
+def _record_rows(o, d, att, winner, keys, depth, end) -> torch.Tensor:
+    """The records [L, 16] of one bounce of L rays."""
+    with torch.no_grad():
+        rows = torch.zeros(o.shape[0], 16, dtype=torch.float32, device=o.device)
+        rows[:, 0:3], rows[:, 3:6], rows[:, 6:9] = o, d, att
+        words = rows.view(torch.int32)
+        words[:, _REC_WINNER] = winner.to(torch.int32)
+        words[:, _REC_K0] = _as_i32(keys[0])
+        words[:, _REC_K1] = _as_i32(keys[1])
+        words[:, _REC_DEPTH] = depth
+        words[:, _REC_END] = end.to(torch.int32)
+    return rows
+
+
 def trace_rays_threefry(
     scene: Scene,
     origin: torch.Tensor,
@@ -127,11 +152,15 @@ def trace_rays_threefry(
     max_depth: int,
     differentiable: bool = False,
     return_work: bool = False,
+    return_records: bool = False,
 ):
     """Trace a flat batch of rays to radiance [R, 3] on threefry keys: the
     JAX package's jnp `trace_rays` (integrator.py:50-120). With
     `return_work`, also the [R] int32 sweeps each ray ran: one a bounce it
-    was live for, as `csrc/threefry_render_kernel.cu` counts them.
+    was live for, as `csrc/threefry_render_kernel.cu` counts them. With
+    `return_records`, last, the sweeps as the replay kernel records them
+    (`_record_rows`): [(rays [L], records [L, 16])], one entry a bounce of
+    the L rays still live, in bounce order.
 
     `origin`, `direction` [R, 3] (directions need not be unit), `keys` the
     rays' [R] keys (already folded with pixel and sample index). Bounce i
@@ -157,20 +186,38 @@ def trace_rays_threefry(
         live = torch.arange(n, device=origin.device)
         work = torch.zeros(n, dtype=torch.int32, device=origin.device)
         o, d, k = origin, direction, keys
+        records = []
         for i in range(max_depth):
             rec = hit_scene(scene, o, d)
             work[live] += 1
             miss = ~rec.hit
             rad = rad.index_copy(0, live, rad[live] + torch.where(miss[:, None], att * sky_color(d), 0.0))
-            if i + 1 == max_depth or not bool(rec.hit.any()):
+            last = i + 1 == max_depth or not bool(rec.hit.any())
+            ok = torch.zeros_like(rec.hit)  # out of depth: every hit ends dark
+            if not last:
+                u = sampling.uniforms_b(k, 5, domain=i)
+                unit_sample = sampling.unit_vector_from_uniforms(u[:, 0:4])
+                new_dir, mat_att, ok = scatter_sampled(rec, d, unit_sample, u[:, 4])
+            if return_records:
+                end = torch.where(rec.hit, torch.where(ok, _END_NONE, _END_DARK), _END_SKY)
+                winner = torch.where(rec.hit, rec.sphere_index, -1)
+                records.append((live, _record_rows(o, d, att, winner, k, i, end)))
+            if last:
                 break
-            u = sampling.uniforms_b(k, 5, domain=i)
-            unit_sample = sampling.unit_vector_from_uniforms(u[:, 0:4])
-            new_dir, mat_att, ok = scatter_sampled(rec, d, unit_sample, u[:, 4])
             keep = (rec.hit & ok).nonzero()[:, 0]
             if keep.numel() == 0:
                 break
             live = live[keep]
             o, d, att = rec.point[keep], new_dir[keep], (att * mat_att)[keep]
             k = (k[0][keep], k[1][keep])
-        return (rad, work) if return_work else rad
+        out = (rad,) + ((work,) if return_work else ()) + ((records,) if return_records else ())
+        return out if len(out) > 1 else rad
+
+
+def ray_color(scene: Scene, origin: torch.Tensor, direction: torch.Tensor, keys,
+              max_depth: int = 50) -> torch.Tensor:
+    """Single-name alias of `trace_rays_threefry` mirroring the reference's
+    `ray_color` (reference: src/gpu/camera.h:112-138), as the JAX package's
+    `ray_color` (ops/integrator.py:123-132) aliases its keyed `trace_rays`:
+    [R] per-ray keys, rays [R, 3] -> radiance [R, 3]."""
+    return trace_rays_threefry(scene, origin, direction, keys, max_depth)

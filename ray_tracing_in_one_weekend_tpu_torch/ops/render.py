@@ -28,8 +28,10 @@ This path is not a fallback and no kernel path routes to it: it launches
 no kernel, and runs on the scene's device. Under autograd, gradients
 reach the scene's center, radius, albedo, fuzz and ior through
 `pack_scene`; the camera gets none. `parallel/dist.py` holds its loss,
-gradients and train step (`render_loss`, `render_grads`, `train_step`),
-whose backward re-renders one chunk at a time.
+gradients and train step (`render_loss_pcg`, `render_grads_pcg`,
+`train_step_pcg`), whose backward re-renders one chunk at a time; the
+keyed ones (`render_loss`, `render_grads`, `train_step`) differentiate
+`render_flat_threefry` the same way on a CPU scene.
 """
 
 from __future__ import annotations
@@ -117,7 +119,7 @@ def render_flat(
     """Render a flat batch of global pixel indices `chunk_size` pixels at a
     time (None: one chunk) -> [R, 3]. Without autograd, memory is one
     chunk's; under it, autograd keeps every chunk's tape until the
-    backward (`parallel.dist.render_grads` keeps one)."""
+    backward (`parallel.dist.render_grads_pcg` keeps one)."""
     spp = cam.samples_per_pixel if spp is None else spp
     pix = torch.as_tensor(pixel_indices, device=scene.device).reshape(-1)
     chunk = max(pix.numel(), 1) if chunk_size is None else chunk_size
@@ -158,30 +160,40 @@ def render_pixels_threefry(
     sample_offset: int = 0,
     differentiable: bool = False,
     return_work: bool = False,
+    return_records: bool = False,
 ):
     """Render a flat batch of global pixel indices on threefry keys -> the
     linear sample-mean color [R, 3] on the scene's device, in one piece
     (JAX render.py:39-82), and with `return_work` the [R] int32 sweeps each
-    pixel ran over its samples, as the kernel counts them. `sample_offset`
-    shifts the global sample indices drawn; any subset of pixels renders
-    the same colors whichever call renders it."""
+    pixel ran over its samples, as the kernel counts them. With
+    `return_records`, last, every sweep as the replay kernel records it:
+    [(pixels [L] as positions in the batch, sample, bounce, records
+    [L, 16])] (`trace_rays_threefry`'s records, sample by sample).
+    `sample_offset` shifts the global sample indices drawn; any subset of
+    pixels renders the same colors whichever call renders it."""
     spp = cam.samples_per_pixel if spp is None else spp
     pix = torch.as_tensor(pixel_indices, device=scene.device).reshape(-1).to(torch.int64)
     px, py = pix % cam.image_width, pix // cam.image_width
     pixel_keys = threefry.fold_in(threefry.as_key(base_key), pix)
     total = torch.zeros(pix.numel(), 3, dtype=torch.float32, device=scene.device)
     work = torch.zeros(pix.numel(), dtype=torch.int32, device=scene.device)
+    records = []
     for s in range(spp):
         keys = threefry.fold_in(pixel_keys, sample_offset + s)
         origin, direction = get_rays(cam, px, py, threefry.fold_in(keys, 0))
-        rad, sweeps = trace_rays_threefry(scene, origin, direction, threefry.fold_in(keys, 1),
-                                          cam.max_depth, differentiable=differentiable, return_work=True)
+        rad, sweeps, *recs = trace_rays_threefry(
+            scene, origin, direction, threefry.fold_in(keys, 1), cam.max_depth,
+            differentiable=differentiable, return_work=True, return_records=return_records,
+        )
         total = total + rad
         work += sweeps
+        if return_records:
+            records += [(lanes, s, depth, rows) for depth, (lanes, rows) in enumerate(recs[0])]
     # A true division on every device (CUDA divides by a Python scalar as a
     # multiplication by its reciprocal), as the kernel divides.
     colors = total / torch.full_like(total, float(spp))
-    return (colors, work) if return_work else colors
+    out = (colors,) + ((work,) if return_work else ()) + ((records,) if return_records else ())
+    return out if len(out) > 1 else colors
 
 
 def render_flat_threefry(
@@ -194,24 +206,31 @@ def render_flat_threefry(
     sample_offset: int = 0,
     differentiable: bool = False,
     return_work: bool = False,
+    return_records: bool = False,
 ):
     """`render_pixels_threefry` `chunk_size` pixels at a time -> [R, 3]
-    (and, with `return_work`, the [R] sweeps a pixel): memory is one
-    chunk's [chunk, N] sweep (JAX render.py:85-121)."""
+    (and, with `return_work`, the [R] sweeps a pixel; with
+    `return_records`, the records, their pixels as positions in
+    `pixel_indices`): memory is one chunk's [chunk, N] sweep (JAX
+    render.py:85-121)."""
     if chunk_size < 1:
         raise ValueError(f"chunk_size ({chunk_size}) must be positive")
     pix = torch.as_tensor(pixel_indices, device=scene.device).reshape(-1)
     parts = [
         render_pixels_threefry(scene, cam, pix[a : a + chunk_size], base_key, spp, sample_offset,
-                               differentiable, return_work=True)
+                               differentiable, return_work=True, return_records=return_records)
         for a in range(0, pix.numel(), chunk_size)
     ]
-    colors = (torch.cat([c for c, _ in parts]) if parts
+    colors = (torch.cat([p[0] for p in parts]) if parts
               else torch.zeros(0, 3, dtype=torch.float32, device=scene.device))
-    if not return_work:
-        return colors
-    work = torch.cat([w for _, w in parts]) if parts else torch.zeros(0, dtype=torch.int32, device=scene.device)
-    return colors, work
+    out = (colors,)
+    if return_work:
+        out += (torch.cat([p[1] for p in parts]) if parts
+                else torch.zeros(0, dtype=torch.int32, device=scene.device),)
+    if return_records:
+        out += ([(lanes + a, s, depth, rows) for a, p in zip(range(0, pix.numel(), chunk_size), parts)
+                 for lanes, s, depth, rows in p[2]],)
+    return out if len(out) > 1 else colors
 
 
 def render_threefry(

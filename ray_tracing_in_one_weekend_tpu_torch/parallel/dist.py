@@ -22,7 +22,15 @@ The jnp backend on threefry keys (`render_distributed`,
 `render_image_distributed`, parallel/dist.py:96-179 there) splits pixels as
 the JAX package does: P equal contiguous slabs of ceil(n / P) pixels, the
 padding repeating the last pixel, each rendered by `render_keyed` (the
-kernel on the card, the plain version on the CPU).
+kernel on the card, the plain version on the CPU). Its gradient, JAX's
+`render_loss`, `render_grads` and `train_step` (:225-282 there), goes
+through `render_distributed(..., differentiable=True)`: on a CUDA scene the
+backward is the keyed kernels (`ops/cuda_threefry.keyed_grad_pass`), on a
+CPU scene torch.autograd through the plain render, re-rendered a chunk at a
+time. `render_grads_autograd` takes the plain route on any device: the
+oracle the card holds the kernels against. The PCG streams' autograd
+render keeps its own names, `render_loss_pcg`, `render_grads_pcg` and
+`train_step_pcg`.
 
 The collectives are the two fixed-order ones below, written once: a sum over
 a group that all-gathers the ranks' tensors and adds them in rank order
@@ -56,7 +64,14 @@ from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_grad import (
     scene_with_params,
 )
 from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import _rank_share, pack_camera, pack_scene
-from ray_tracing_in_one_weekend_tpu_torch.ops.render import DEFAULT_CHUNK, render_keyed, render_lanes
+from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_threefry import keyed_grad_pass
+from ray_tracing_in_one_weekend_tpu_torch.ops.render import (
+    DEFAULT_CHUNK,
+    render_flat_threefry,
+    render_keyed,
+    render_lanes,
+)
+from ray_tracing_in_one_weekend_tpu_torch.ops.threefry import as_key
 
 PIXEL_AXIS = "pixels"
 SAMPLE_AXIS = "samples"
@@ -64,7 +79,8 @@ SAMPLE_AXIS = "samples"
 __all__ = [
     "PIXEL_AXIS", "SAMPLE_AXIS", "DIFF_FIELDS", "Mesh", "make_mesh", "init_distributed",
     "fetch_image", "sum_in_order", "gather_in_order", "scene_params", "scene_with_params",
-    "render_loss", "render_grads", "train_step", "render_distributed", "render_image_distributed",
+    "render_loss", "render_grads", "render_grads_autograd", "train_step", "render_loss_pcg",
+    "render_grads_pcg", "train_step_pcg", "render_distributed", "render_image_distributed",
 ]
 
 
@@ -273,7 +289,7 @@ def _padded_pixel_count(n_pixels: int, n_shards: int) -> int:
 
 def render_distributed(scene: Scene, cam: Camera, base_key=0, mesh: Mesh | None = None,
                        chunk_size: int = DEFAULT_CHUNK, spp: int | None = None,
-                       sample_offset: int = 0) -> torch.Tensor:
+                       differentiable: bool = False, sample_offset: int = 0) -> torch.Tensor:
     """The jnp backend's image sharded over `mesh` (default: every rank on
     the pixel axis) -> linear [H, W, 3], the whole image on every rank, on
     the scene's device (JAX parallel/dist.py:96-161).
@@ -285,21 +301,19 @@ def render_distributed(scene: Scene, cam: Camera, base_key=0, mesh: Mesh | None 
     are averaged over the sample axis in rank order (`sum_in_order`, then
     / S) and the slabs gathered in rank order. A pixel mesh gives
     `render_image`'s bits; a sample mesh the windows rendered on one device
-    and averaged in rank order. `spp % S != 0` raises."""
+    and averaged in rank order. `spp % S != 0` raises.
+
+    With `differentiable=True` the image is the same bits, with a gradient
+    to the scene's center, radius, albedo, fuzz and ior (those that require
+    it): `_DiffRenderKeyed`."""
     mesh = make_mesh() if mesh is None else mesh
-    spp = cam.samples_per_pixel if spp is None else spp
-    if spp % mesh.samples != 0:
-        raise ValueError(f"samples_per_pixel={spp} must divide evenly over the '{SAMPLE_AXIS}' mesh "
-                         f"axis of size {mesh.samples}")
-    spp_local = spp // mesh.samples
-    n = cam.num_pixels
-    slab = _padded_pixel_count(n, mesh.pixels) // mesh.pixels
-    start = mesh.pixel_index * slab
-    idx = torch.clamp(torch.arange(start, start + slab, device=scene.device), max=n - 1)
-    colors = render_keyed(scene, cam, idx, base_key, spp_local,
-                          sample_offset + mesh.sample_index * spp_local, chunk_size)
+    if differentiable:
+        return _keyed_image(scene, cam, base_key, mesh, chunk_size, spp, sample_offset, plain=False)
+    share = _keyed_share(cam, base_key, mesh, chunk_size, spp, sample_offset, plain=False)
+    idx = _slab_ids(share, scene.device)
+    colors = render_keyed(scene, cam, idx, share.key, share.spp, share.sample_offset, chunk_size)
     rad = mesh.gather_pixels(mesh.sample_mean(colors.T.contiguous()))
-    return rad[:, :n].T.reshape(cam.image_height, cam.image_width, 3)
+    return rad[:, : share.n_pixels].T.reshape(cam.image_height, cam.image_width, 3)
 
 
 def render_image_distributed(scene: Scene, cam: Camera, base_key=0, mesh: Mesh | None = None,
@@ -316,12 +330,13 @@ def fetch_image(img: torch.Tensor) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Differentiable rendering through torch.autograd (inverse rendering).
+# Differentiable rendering through torch.autograd on the PCG streams.
 #
-# The counterpart of the JAX package's jnp `render_loss`, `render_grads` and
-# `train_step` (parallel/dist.py:225-282): the plain render of
-# `ops/render.py` under torch.autograd on the port's PCG streams, a gradient
-# independent of the backward kernels (`ops/cuda_grad.py`). It launches no
+# `render_loss_pcg`, `render_grads_pcg` and `train_step_pcg`: the JAX
+# package's jnp `render_loss`, `render_grads` and `train_step`
+# (parallel/dist.py:225-282) on the port's PCG streams, the plain render of
+# `ops/render.py` under torch.autograd, a gradient independent of the PCG
+# backward kernels (`ops/cuda_grad.py`): their oracle. It launches no
 # kernel. Pixel slabs split the flat pixel space into P equal contiguous
 # parts of ceil(n / P) pixels (parallel/dist.py:90-93 there), and the
 # sample axis splits spp into S windows.
@@ -391,9 +406,9 @@ class _AutogradRender(torch.autograd.Function):
         return grads, None, None, None
 
 
-def render_loss(params: dict, scene: Scene, cam: Camera, target: torch.Tensor, seed: int = 0,
-                mesh: Mesh | None = None, chunk_size: int = DEFAULT_CHUNK,
-                spp: int | None = None) -> torch.Tensor:
+def render_loss_pcg(params: dict, scene: Scene, cam: Camera, target: torch.Tensor, seed: int = 0,
+                    mesh: Mesh | None = None, chunk_size: int = DEFAULT_CHUNK,
+                    spp: int | None = None) -> torch.Tensor:
     """Mean squared pixel error of the render of `scene` with `params`
     against `target` [H, W, 3], differentiable in `params` by
     torch.autograd; on `mesh` the render is sharded over it and the loss is
@@ -412,23 +427,209 @@ def render_loss(params: dict, scene: Scene, cam: Camera, target: torch.Tensor, s
     return torch.mean((img - target) ** 2)
 
 
-def render_grads(params: dict, scene: Scene, cam: Camera, target: torch.Tensor, seed: int = 0,
-                 mesh: Mesh | None = None, chunk_size: int = DEFAULT_CHUNK,
-                 spp: int | None = None):
-    """(loss, grads) of `render_loss` with respect to `params`, one gradient
-    per field, by torch.autograd through the plain render; on a mesh the
-    same bits on every rank."""
+def render_grads_pcg(params: dict, scene: Scene, cam: Camera, target: torch.Tensor, seed: int = 0,
+                     mesh: Mesh | None = None, chunk_size: int = DEFAULT_CHUNK,
+                     spp: int | None = None):
+    """(loss, grads) of `render_loss_pcg` with respect to `params`, one
+    gradient per field, by torch.autograd through the plain render; on a
+    mesh the same bits on every rank."""
     leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
-    loss = render_loss(leaves, scene, cam, target, seed, mesh, chunk_size, spp)
+    loss = render_loss_pcg(leaves, scene, cam, target, seed, mesh, chunk_size, spp)
     grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
     return loss.detach(), grads
 
 
-def train_step(params: dict, scene: Scene, cam: Camera, target: torch.Tensor, seed: int = 0,
-               mesh: Mesh | None = None, chunk_size: int = DEFAULT_CHUNK,
-               spp: int | None = None, lr: float = 1e-2):
+def train_step_pcg(params: dict, scene: Scene, cam: Camera, target: torch.Tensor, seed: int = 0,
+                   mesh: Mesh | None = None, chunk_size: int = DEFAULT_CHUNK,
+                   spp: int | None = None, lr: float = 1e-2):
     """One SGD step of inverse rendering -> (loss, new_params): the
     autograd render's forward, its chunked backward, the cross-rank sum of
     the gradient, and the update."""
-    loss, grads = render_grads(params, scene, cam, target, seed, mesh, chunk_size, spp)
+    loss, grads = render_grads_pcg(params, scene, cam, target, seed, mesh, chunk_size, spp)
+    return loss, {k: (params[k] - lr * grads[k]).detach() for k in params}
+
+
+# ---------------------------------------------------------------------------
+# The keyed gradient: the JAX package's `render_loss`, `render_grads` and
+# `train_step` (parallel/dist.py:225-282) on its threefry keys.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class _KeyedShare:
+    start: int  # this rank's first global pixel
+    stop: int  # one past its last pixel inside the image
+    slab: int  # pixels a slab, ceil(n / P)
+    n_pixels: int
+    key: tuple  # the base key's words
+    spp: int  # this rank's samples, spp / S
+    samples: int  # S
+    sample_offset: int  # this rank's window starts here
+    chunk_size: int
+    plain: bool  # the plain functions on any device (the oracle)
+
+
+def _keyed_share(cam: Camera, base_key, mesh: Mesh, chunk_size, spp, sample_offset, plain) -> _KeyedShare:
+    spp = cam.samples_per_pixel if spp is None else spp
+    if spp % mesh.samples != 0:
+        raise ValueError(f"samples_per_pixel={spp} must divide evenly over the '{SAMPLE_AXIS}' mesh "
+                         f"axis of size {mesh.samples}")
+    spp_local = spp // mesh.samples
+    n = cam.num_pixels
+    slab = _padded_pixel_count(n, mesh.pixels) // mesh.pixels
+    start = mesh.pixel_index * slab
+    return _KeyedShare(start=start, stop=min(start + slab, n), slab=slab, n_pixels=n, key=as_key(base_key),
+                       spp=spp_local, samples=mesh.samples,
+                       sample_offset=sample_offset + mesh.sample_index * spp_local, chunk_size=chunk_size,
+                       plain=plain)
+
+
+def _slab_ids(share: _KeyedShare, device) -> torch.Tensor:
+    """The slab's global pixel ids; those past the image repeat the last."""
+    return torch.clamp(torch.arange(share.start, share.start + share.slab, device=device), max=share.n_pixels - 1)
+
+
+def _scene_from_packed(p_mat: torch.Tensor, scene: Scene) -> Scene:
+    """The scene whose center, radius, albedo, fuzz and ior are views of the
+    packed matrix's rows (0-3, 5-9), so gradients reach those rows. An
+    active sphere's values are the scene's bits; an inactive one's center is
+    0, which no sweep sees."""
+    return scene.replace(center=p_mat[0:3].T, radius=p_mat[3], albedo=p_mat[5:8].T, fuzz=p_mat[8],
+                         ior=p_mat[9])
+
+
+def _autograd_slab(p_mat, scene: Scene, cam: Camera, pix, g, share: _KeyedShare) -> torch.Tensor:
+    """[16, N] cotangent of `p_mat` for the radiance cotangent `g` [3, R] of
+    global pixels `pix` [R]: the plain render re-rendered `chunk_size`
+    pixels at a time under torch.autograd (memory is one chunk's tape)."""
+    grads = torch.zeros_like(p_mat)
+    with torch.enable_grad():
+        leaf = p_mat.detach().requires_grad_()
+        sc = _scene_from_packed(leaf, scene)
+        for a in range(0, pix.numel(), share.chunk_size):
+            colors = render_flat_threefry(sc, cam, pix[a : a + share.chunk_size], share.key,
+                                          chunk_size=share.chunk_size, spp=share.spp,
+                                          sample_offset=share.sample_offset, differentiable=True)
+            if colors.grad_fn is None:  # every ray of the chunk went to the sky at once
+                continue
+            (part,) = torch.autograd.grad(colors, leaf, grad_outputs=g[:, a : a + share.chunk_size].T,
+                                          allow_unused=True)
+            if part is not None:
+                grads = grads + part
+    return grads
+
+
+class _DiffRenderKeyed(torch.autograd.Function):
+    """(p_mat, ...) -> the keyed image's radiance [3, n] on every rank, whose
+    vector-Jacobian product is the keyed backward.
+
+    Forward: the rank's slab and sample window, the windows' rank-order mean
+    and the slabs' gather, as `render_distributed` does: on a CUDA scene
+    `threefry_render_kernel` (which also counts each pixel's sweeps), on a
+    CPU scene, or with `share.plain`, `render_flat_threefry` without a
+    tape. Backward: every rank holds the whole image's cotangent; it takes
+    its slab's pixels inside the image (each window enters the image with
+    weight 1 / S, each sample its window with 1 / spp) and gets the [16, N]
+    cotangent of the packed scene from `keyed_grad_pass` (the replay, the
+    reverse and the reduction kernels) on the card, or by re-rendering the
+    slab under autograd one chunk at a time; then sums it over the mesh in
+    rank order (`Mesh.sum_all`), so every rank gets the same bits and the
+    chain rule through `pack_scene` runs once, on the sum."""
+
+    @staticmethod
+    def forward(ctx, p_mat, scene: Scene, cam: Camera, share: _KeyedShare, mesh):
+        idx = _slab_ids(share, p_mat.device)
+        work = None
+        if share.plain or scene.device.type != "cuda":
+            colors = render_flat_threefry(scene, cam, idx, share.key, chunk_size=share.chunk_size, spp=share.spp,
+                                          sample_offset=share.sample_offset)
+        else:
+            colors, work = render_keyed(scene, cam, idx, share.key, share.spp, share.sample_offset,
+                                        share.chunk_size, return_work=True)
+        rad = mesh.gather_pixels(mesh.sample_mean(colors.T.contiguous()))[:, : share.n_pixels].contiguous()
+        ctx.save_for_backward(p_mat)
+        ctx.scene, ctx.cam, ctx.share, ctx.mesh, ctx.work = scene, cam, share, mesh, work
+        return rad
+
+    @staticmethod
+    def backward(ctx, grad_rad):
+        (p_mat,) = ctx.saved_tensors
+        share, mesh = ctx.share, ctx.mesh
+        n_live = share.stop - share.start
+        if n_live <= 0 or grad_rad is None:
+            grads = torch.zeros_like(p_mat)  # a slab wholly past the image: no launch
+        else:
+            g = grad_rad[:, share.start : share.stop] / share.samples
+            pix = torch.arange(share.start, share.stop, device=p_mat.device)
+            if ctx.work is not None:
+                grads = keyed_grad_pass(ctx.scene, ctx.cam, pix, share.key, share.sample_offset, share.spp,
+                                        ctx.work[:n_live], g / share.spp)
+            else:
+                grads = _autograd_slab(p_mat, ctx.scene, ctx.cam, pix, g, share)
+        return mesh.sum_all(grads), None, None, None, None
+
+
+def _keyed_image(scene: Scene, cam: Camera, base_key, mesh: Mesh, chunk_size, spp, sample_offset,
+                 plain: bool) -> torch.Tensor:
+    share = _keyed_share(cam, base_key, mesh, chunk_size, spp, sample_offset, plain)
+    frozen = Scene(**{f.name: getattr(scene, f.name).detach() for f in dataclasses.fields(scene)})
+    rad = _DiffRenderKeyed.apply(pack_scene(scene), frozen, cam, share, mesh)
+    return rad.T.reshape(cam.image_height, cam.image_width, 3)
+
+
+def render_loss(params: dict, scene: Scene, cam: Camera, target: torch.Tensor, base_key=0,
+                mesh: Mesh | None = None, chunk_size: int = DEFAULT_CHUNK,
+                spp: int | None = None) -> torch.Tensor:
+    """Mean squared pixel error of the keyed render of `scene` with `params`
+    against `target` [H, W, 3] (JAX parallel/dist.py:225-241):
+    `render_distributed(..., differentiable=True)` on `base_key` (an int
+    seed or a key) over `mesh` (default: every rank on the pixel axis), the
+    whole image's loss on every rank. The image is `render_image`'s bits
+    (on a sample mesh, its windows' rank-order mean)."""
+    img = render_distributed(scene_with_params(scene, params), cam, base_key, mesh, chunk_size, spp,
+                             differentiable=True)
+    return torch.mean((img - target) ** 2)
+
+
+def _loss_and_grads(loss_fn, params: dict, *args):
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    loss = loss_fn(leaves, *args)
+    grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    return loss.detach(), grads
+
+
+def render_grads(params: dict, scene: Scene, cam: Camera, target: torch.Tensor, base_key=0,
+                 mesh: Mesh | None = None, chunk_size: int = DEFAULT_CHUNK, spp: int | None = None):
+    """(loss, grads) of `render_loss` with respect to `params`, one gradient
+    per field (JAX parallel/dist.py:244-258): on a CUDA scene the forward
+    kernel and the keyed backward kernels, which raise if they cannot build
+    or launch; on a CPU scene torch.autograd through the plain render. On a
+    mesh, the same bits on every rank."""
+    return _loss_and_grads(render_loss, params, scene, cam, target, base_key, mesh, chunk_size, spp)
+
+
+def _render_loss_autograd(params, scene, cam, target, base_key, mesh, chunk_size, spp):
+    mesh = make_mesh() if mesh is None else mesh
+    img = _keyed_image(scene_with_params(scene, params), cam, base_key, mesh, chunk_size, spp, 0, plain=True)
+    return torch.mean((img - target) ** 2)
+
+
+def render_grads_autograd(params: dict, scene: Scene, cam: Camera, target: torch.Tensor, base_key=0,
+                          mesh: Mesh | None = None, chunk_size: int = DEFAULT_CHUNK,
+                          spp: int | None = None):
+    """`render_grads` by torch.autograd through the plain functions on
+    whatever device the scene is on: the forward `render_flat_threefry`
+    without a tape, the backward the slab re-rendered `chunk_size` pixels
+    at a time under autograd. It launches no kernel: the oracle the card
+    holds the keyed kernels against, and their whole path's plain version."""
+    return _loss_and_grads(_render_loss_autograd, params, scene, cam, target, base_key, mesh, chunk_size, spp)
+
+
+def train_step(params: dict, scene: Scene, cam: Camera, target: torch.Tensor, base_key=0,
+               mesh: Mesh | None = None, chunk_size: int = DEFAULT_CHUNK, spp: int | None = None,
+               lr: float = 1e-2):
+    """One SGD step of inverse rendering on the keyed render -> (loss,
+    new_params) (JAX parallel/dist.py:261-282): the sharded forward, the
+    backward, the cross-rank sum of the gradient, and the update."""
+    loss, grads = render_grads(params, scene, cam, target, base_key, mesh, chunk_size, spp)
     return loss, {k: (params[k] - lr * grads[k]).detach() for k in params}

@@ -22,9 +22,13 @@ A job is a dict: `job` (a name of `JOBS`), `mesh` ((P,) or (P, S)),
   scene's own parameters and `target` (None: zeros); the first call's
   loss, gradients and cost map, whether each later call gave the same
   bits, and each call's seconds and collectives' seconds.
-* "autograd_step": `dist.render_grads` (torch.autograd through the plain
-  render) on the mesh, as "step" with the same layout; it has no cost
-  map, so `work` is None.
+* "autograd_step": `dist.render_grads_pcg` (torch.autograd through the
+  plain render on the PCG streams) on the mesh, as "step" with the same
+  layout; it has no cost map, so `work` is None.
+* "keyed_step": `dist.render_grads` (the keyed gradient on threefry keys:
+  the kernels on the card, autograd through the plain render on the CPU)
+  on the mesh, as "autograd_step", and the step's image,
+  `dist.render_distributed(..., differentiable=True)`, in `image`.
 * "jnp_render": `dist.render_distributed` (the jnp backend on threefry
   keys) with `kw`; the image and the call's seconds.
 * "accumulate": `checkpoint.accumulate` on the mesh, one batch of each
@@ -199,11 +203,17 @@ def _kernel_grads(params, scene, cam, target, mesh, **kw):
     return cg.render_grads_cuda(params, scene, cam, target, mesh=mesh, return_work=True, **kw)
 
 
-def _autograd_grads(params, scene, cam, target, mesh, **kw):
-    from ray_tracing_in_one_weekend_tpu_torch.parallel import dist as pdist
+def _dist_grads(name):
+    """`parallel.dist`'s `name` (a function with no cost map) as a step's
+    gradient function."""
 
-    loss, grads = pdist.render_grads(params, scene, cam, target, mesh=mesh, **kw)
-    return (loss, None), grads
+    def grads_fn(params, scene, cam, target, mesh, **kw):
+        from ray_tracing_in_one_weekend_tpu_torch.parallel import dist as pdist
+
+        loss, grads = getattr(pdist, name)(params, scene, cam, target, mesh=mesh, **kw)
+        return (loss, None), grads
+
+    return grads_fn
 
 
 def _job_step(job, mesh, device, grads_fn=_kernel_grads):
@@ -264,10 +274,21 @@ def _job_dryrun(job, mesh, device):
 
 
 def _job_autograd_step(job, mesh, device):
-    return _job_step(job, mesh, device, _autograd_grads)
+    return _job_step(job, mesh, device, _dist_grads("render_grads_pcg"))
+
+
+def _job_keyed_step(job, mesh, device):
+    from ray_tracing_in_one_weekend_tpu_torch.parallel import dist as pdist
+
+    res = _job_step(job, mesh, device, _dist_grads("render_grads"))
+    scene, cam = _scene(job["scene"], device), _camera(job["camera"], device)
+    kw = {k: v for k, v in job.get("kw", {}).items() if k in ("base_key", "chunk_size", "spp")}
+    res["image"] = pdist.render_distributed(scene, cam, mesh=mesh, differentiable=True, **kw).detach().cpu()
+    return res
 
 
 JOBS = {"render": _job_render, "step": _job_step, "autograd_step": _job_autograd_step,
+        "keyed_step": _job_keyed_step,
         "jnp_render": _job_jnp_render, "accumulate": _job_accumulate, "dryrun": _job_dryrun}
 
 

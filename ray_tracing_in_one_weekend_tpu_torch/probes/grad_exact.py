@@ -13,7 +13,7 @@ summed in float64 and taken through `pack_scene`'s chain rule as
 reverse kernel's float32 adjoint nor with the autograd oracle's float32
 tape. Per scene field it prints the relative L2 from the reference of the
 kernels' gradient (`render_grads_cuda`), of the autograd oracle's
-(`parallel.dist.render_grads`) and of the plain float32 reverse on the
+(`parallel.dist.render_grads_pcg`) and of the plain float32 reverse on the
 same records, the kernels' from the oracle's, the ratio of the sum of the
 reference's per-event magnitudes to its total (how far the field's terms
 cancel), and the kernels' and the oracle's relative L2 from the exact
@@ -127,7 +127,7 @@ def main(argv=None) -> int:
           if dev.type == "cuda" else e32)
     ref, plain = params_f64(scene, _sum_events(e64, n)), params_f64(scene, _sum_events(e32, n))
     mags = {k: float(v.norm()) for k, v in params_f64(scene, _sum_events(e64, n, magnitudes=True)).items()}
-    _, oracle = pdist.render_grads(cg.scene_params(scene), scene, cam, target)
+    _, oracle = pdist.render_grads_pcg(cg.scene_params(scene), scene, cam, target)
     print(f"grad_exact: {cam.image_width}x{cam.image_height}, spp {cam.samples_per_pixel}, depth "
           f"{cam.max_depth}, replay and both plain reverse walks {walks_s:.1f} s on "
           f"{torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}"

@@ -203,7 +203,7 @@ def jnp_bounce(grad_world):
 @pytest.fixture(scope="module")
 def autograd_grads(grad_world):
     _, _, sc, cam = grad_world
-    return dist.render_grads(cg.scene_params(sc), sc, cam, _zero_target(cam), seed=SEED)
+    return dist.render_grads_pcg(cg.scene_params(sc), sc, cam, _zero_target(cam), seed=SEED)
 
 
 def test_image_matches_jax_jnp_bounce(grad_world, jnp_bounce):
@@ -253,12 +253,12 @@ def test_chunking_and_a_one_rank_mesh_change_no_gradient(grad_world, autograd_gr
     is mesh=None bit for bit."""
     _, _, sc, cam = grad_world
     loss, grads = autograd_grads
-    loss_c, grads_c = dist.render_grads(cg.scene_params(sc), sc, cam, _zero_target(cam), seed=SEED,
+    loss_c, grads_c = dist.render_grads_pcg(cg.scene_params(sc), sc, cam, _zero_target(cam), seed=SEED,
                                         chunk_size=16)
     assert torch.equal(loss_c, loss)
     for k in cg.DIFF_FIELDS:
         np.testing.assert_allclose(grads_c[k].numpy(), grads[k].numpy(), rtol=1e-5, atol=1e-8)
-    loss_m, grads_m = dist.render_grads(cg.scene_params(sc), sc, cam, _zero_target(cam), seed=SEED,
+    loss_m, grads_m = dist.render_grads_pcg(cg.scene_params(sc), sc, cam, _zero_target(cam), seed=SEED,
                                         mesh=dist.make_mesh())
     assert torch.equal(loss_m, loss)
     assert all(torch.equal(grads_m[k], grads[k]) for k in cg.DIFF_FIELDS)
@@ -342,7 +342,7 @@ def test_jvp_vjp_consistency(fd_world):
 def test_gradients_finite_and_nonzero_on_cover_scene(cover):
     sc, cam = cover
     target = torch.full((cam.image_height, cam.image_width, 3), 0.5)
-    _, grads = dist.render_grads(cg.scene_params(sc), sc, cam, target, seed=SEED, chunk_size=256)
+    _, grads = dist.render_grads_pcg(cg.scene_params(sc), sc, cam, target, seed=SEED, chunk_size=256)
     for k, g in grads.items():
         assert bool(torch.isfinite(g).all()), f"non-finite gradient of {k}"
     assert sum(float(g.abs().sum()) for g in grads.values()) > 0.0
@@ -359,7 +359,7 @@ def test_train_step_lowers_the_loss(grad_world):
     params = {"albedo": damaged}
     losses = []
     for _ in range(3):
-        loss, params = dist.train_step(params, sc, cam, target, seed=SEED, lr=5.0)
+        loss, params = dist.train_step_pcg(params, sc, cam, target, seed=SEED, lr=5.0)
         losses.append(float(loss))
     assert losses[2] < losses[1] < losses[0], losses
     assert float((params["albedo"][1] - damaged[1]).abs().sum()) > 0.0
@@ -369,7 +369,7 @@ def test_inverse_render_autograd_recovers_the_albedo(tmp_path):
     """`inverse_render --grad autograd --device cpu` in this process, at
     width 32 and 6 steps: it exits 0 (sphere 1's albedo error at least
     halved) and writes both images."""
-    rc = inverse_render.main(["--device", "cpu", "--grad", "autograd", "--width", "32",
+    rc = inverse_render.main(["--device", "cpu", "--backend", "pallas", "--grad", "autograd", "--width", "32",
                               "--steps", "6", "--outdir", str(tmp_path)])
     assert rc == 0
     for name in ("target", "recovered"):

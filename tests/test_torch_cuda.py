@@ -599,3 +599,89 @@ def test_threefry_wrapper_refuses_what_the_kernel_does_not_take(dev):
     big = torch.zeros(4096, 16, device=dev)
     with pytest.raises(ValueError, match="do not fit"):
         build.threefry_render(big, cam_vec, pix, (0, 0), 0, 1, 2)
+
+
+def _keyed_world(dev):
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_threefry as ct
+
+    cam = _cam(dev)
+    scene = scene_lib.cover_scene(0, device=dev)
+    pix = torch.arange(cam.num_pixels, device=dev)
+    _, work = ct.render_kernel_pixels(scene, cam, pix, 3, return_work=True)
+    return scene, cam, pix, work, cr.pack_scene(scene), cr.pack_camera(cam)
+
+
+def test_keyed_replay_and_reverse_match_plain(dev):
+    """threefry_replay_kernel's records bit-identical to
+    `replay_records_plain`'s (all 16 words, the same slots) on the 64x32
+    image (spp 4, depth 8) of the JAX cover scene, in identity and reversed
+    pixel order; threefry_reverse_kernel's events against
+    `reverse_records_plain`'s on the same records: winners equal, cotangent
+    words within 3e-5 relative L2 (chip_smoke.py's ADJOINT_GATE)."""
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_threefry as ct
+    from ray_tracing_in_one_weekend_tpu_torch.probes import random_cotangent, rel_l2
+
+    scene, cam, pix, work, p_mat, cam_vec = _keyed_world(dev)
+    table, n = p_mat.T.contiguous(), cam.num_pixels
+    plain = ct.replay_records_plain(scene, cam, pix, 3)
+    for order in (pix, pix.flip(0)):
+        before = build.LAUNCHES["threefry_replay"]
+        replay = build.threefry_replay(table, cam_vec, order.to(torch.int32), (0, 3), 0, 4, 8, work, 0, n)
+        assert build.LAUNCHES["threefry_replay"] == before + 1
+        assert torch.equal(replay.records.view(torch.int32), plain.records.view(torch.int32))
+    g = random_cotangent((3, n), 1, dev) / 4
+    want = ct.reverse_records_plain(p_mat, cam_vec, plain, g)
+    replay = build.threefry_replay(table, cam_vec, pix.to(torch.int32), (0, 3), 0, 4, 8, work, 0, n)
+    events = build.threefry_reverse(table, cam_vec, replay, g)
+    assert replay.records is None
+    assert torch.equal(events[:, 0].view(torch.int32), want[:, 0].view(torch.int32))
+    assert rel_l2(events[:, 1:14], want[:, 1:14]) <= 3e-5
+
+
+def test_keyed_render_grads_on_the_card(dev):
+    """`parallel.dist.render_grads` on a CUDA scene runs the forward kernel,
+    the replay, the reverse and the reduction, once each; its loss is that
+    of the kernel's image bit for bit, and its gradients within 2e-4
+    relative L2 a field (chip_smoke.py's GRAD_GATE) of
+    `render_grads_autograd`'s, which launches nothing; bit-identical run to
+    run."""
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.ops import render as pr
+    from ray_tracing_in_one_weekend_tpu_torch.parallel import dist
+    from ray_tracing_in_one_weekend_tpu_torch.probes import rel_l2
+
+    scene, cam = scene_lib.cover_scene(0, device=dev), _cam(dev, samples_per_pixel=2)
+    target = torch.zeros(cam.image_height, cam.image_width, 3, device=dev)
+    build.reset_launches()
+    loss, grads = dist.render_grads(dist.scene_params(scene), scene, cam, target, 0)
+    kernels = ("threefry_render_kernel", "threefry_replay", "threefry_reverse", "grad_reduce")
+    assert all(build.LAUNCHES[k] == 1 for k in kernels), build.LAUNCHES
+    assert torch.equal(loss, torch.mean((pr.render_image(scene, cam, 0) - target) ** 2))
+    loss2, grads2 = dist.render_grads(dist.scene_params(scene), scene, cam, target, 0)
+    assert torch.equal(loss2, loss) and all(torch.equal(grads2[k], grads[k]) for k in grads)
+    build.reset_launches()
+    loss_a, grads_a = dist.render_grads_autograd(dist.scene_params(scene), scene, cam, target, 0)
+    assert sum(build.LAUNCHES.values()) == 0
+    assert torch.equal(loss_a, loss)
+    for k in dist.DIFF_FIELDS:
+        assert rel_l2(grads[k], grads_a[k]) <= 2e-4, k
+
+
+def test_keyed_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+
+    scene, cam, pix, work, p_mat, cam_vec = _keyed_world(dev)
+    table, n = p_mat.T.contiguous(), cam.num_pixels
+    pix32 = pix.to(torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        build.threefry_replay(table.cpu(), cam_vec.cpu(), pix32.cpu(), (0, 3), 0, 4, 8, work.cpu(), 0, n)
+    with pytest.raises(ValueError, match="must lie in"):
+        build.threefry_replay(table, cam_vec, pix32, (0, 3), 0, 4, 8, work[1:], 1, n)
+    with pytest.raises(RuntimeError, match="diverged"):
+        build.threefry_replay(table, cam_vec, pix32, (0, 3), 0, 4, 8, work + 1, 0, n)
+    replay = build.threefry_replay(table, cam_vec, pix32, (0, 3), 0, 4, 8, work, 0, n)
+    g = torch.zeros(3, n, device=dev)
+    build.threefry_reverse(table, cam_vec, replay, g)
+    with pytest.raises(ValueError, match="reversed already"):
+        build.threefry_reverse(table, cam_vec, replay, g)

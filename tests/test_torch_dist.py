@@ -14,15 +14,17 @@ JAX call).
   image (on (2, 1) slab 1 is half past it);
 * gradients: tests/test_torch_grad.py's scene and camera at spp 4 (seed
   3), and the same at 24x16, by the backward kernels' plain versions
-  ("step") and by torch.autograd through the plain render
-  ("autograd_step").
+  ("step"), by torch.autograd through the plain render ("autograd_step"),
+  and the keyed gradient on threefry key 3 ("keyed_step": JAX's
+  `render_grads`, autograd through the plain keyed render on the CPU).
 
 Pixel meshes must give one device's image bit for bit, sample meshes the
 sample windows rendered on one device and averaged in rank order (and
 within 1e-6 of one render, tests/test_pallas_dist.py:43); gradients within
 rtol 2e-5, atol 1e-6 of one device's and the loss within 1e-6 relative
-(tests/test_pallas_grad.py:171-181); the autograd gradients within rtol
-1e-4, atol 1e-6 of one process's (tests/test_dist.py:108-125).
+(tests/test_pallas_grad.py:171-181); the autograd gradients, PCG and
+keyed, within rtol 1e-4, atol 1e-6 of one process's
+(tests/test_dist.py:108-125).
 """
 
 import jax.numpy as jnp
@@ -38,6 +40,7 @@ from ray_tracing_in_one_weekend_tpu_torch.models import scene as scene_lib
 from ray_tracing_in_one_weekend_tpu_torch.models.camera import camera_from_numpy
 from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_grad as cg
 from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_render as cr
+from ray_tracing_in_one_weekend_tpu_torch.ops import render as port_render
 from ray_tracing_in_one_weekend_tpu_torch.parallel import dist, worker
 from ray_tracing_in_one_weekend_tpu_torch.utils import checkpoint as ckpt
 from ray_tracing_in_one_weekend_tpu_torch.utils import compare
@@ -117,6 +120,8 @@ def _jobs(world, meshes, accumulate=()):
                      "repeat": 2 if mesh[0] * mesh[1] == 2 else 1})
         jobs.append({"job": "autograd_step", "mesh": mesh, "scene": worker.scene_spec(grad),
                      "camera": worker.camera_spec(gcam), "kw": {"seed": GRAD_SEED}})
+        jobs.append({"job": "keyed_step", "mesh": mesh, "scene": worker.scene_spec(grad),
+                     "camera": worker.camera_spec(gcam), "kw": {"base_key": GRAD_SEED}})
     for mesh in accumulate:
         jobs.append({"job": "accumulate", "mesh": mesh, "scene": worker.scene_spec(cover),
                      "camera": worker.camera_spec(world["render", "32"][1]), "batches": BATCHES})
@@ -223,15 +228,62 @@ def test_gradients_match_one_device(sharded, world, mesh, width):
 
 @pytest.mark.parametrize("mesh,width", CASES, ids=IDS)
 def test_autograd_gradients_match_one_process(sharded, world, mesh, width):
-    """`dist.render_grads` (torch.autograd through the plain render) on the
+    """`dist.render_grads_pcg` (torch.autograd through the plain render) on the
     mesh against the same on one process (tests/test_dist.py:108-125):
     gradients within rtol 1e-4, atol 1e-6, the same bits on every rank,
     and the loss within 1e-6 relative (bit for bit on pixel meshes, whose
     image is one process's)."""
     scene, cam = world["grad"][1], world["grad_cam", width][1]
     target = torch.zeros(cam.image_height, cam.image_width, 3)
-    loss, grads = dist.render_grads(cg.scene_params(scene), scene, cam, target, seed=GRAD_SEED)
+    loss, grads = dist.render_grads_pcg(cg.scene_params(scene), scene, cam, target, seed=GRAD_SEED)
     ranks = sharded["autograd_step", mesh, width]
+    losses = [r["loss"] for r in ranks]
+    assert _same_on_every_rank(losses)
+    if mesh[1] == 1:
+        assert torch.equal(losses[0], loss)
+    assert abs(float(losses[0]) - float(loss)) <= 1e-6 * float(loss)
+    for k in cg.DIFF_FIELDS:
+        assert _same_on_every_rank([r["grads"][k] for r in ranks]), k
+        np.testing.assert_allclose(ranks[0]["grads"][k].numpy(), grads[k].numpy(), rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
+    assert all(sum(r["launches"].values()) == 0 for r in ranks)
+
+
+def _keyed_composite(scene, cam, spp, n_smp):
+    """The keyed sample windows of an n_smp-way sample axis rendered in one
+    process and averaged in rank order."""
+    part = spp // n_smp
+    pix = torch.arange(cam.num_pixels)
+    wins = [port_render.render_keyed(scene, cam, pix, GRAD_SEED, part, s * part) for s in range(n_smp)]
+    out = wins[0]
+    for w in wins[1:]:
+        out = out + w
+    return (out / n_smp).reshape(cam.image_height, cam.image_width, 3)
+
+
+@pytest.mark.parametrize("mesh,width", CASES, ids=IDS)
+def test_keyed_step_matches_one_process(sharded, world, mesh, width):
+    """The keyed `dist.render_grads` (threefry key 3; torch.autograd through
+    the plain keyed render on the CPU) on the mesh against the same in one
+    process. The step's image (`render_distributed(..., differentiable=True)`)
+    is one process's bits on a pixel mesh, and on a sample mesh the windows'
+    rank-order mean bit for bit, within 1e-6 of one render; the loss is one
+    process's bits on a pixel mesh, within 1e-6 relative on a sample mesh;
+    the gradients within rtol 1e-4, atol 1e-6 of one process's
+    (tests/test_dist.py:108-125), the same bits on every rank. No kernel is
+    launched."""
+    scene, cam = world["grad"][1], world["grad_cam", width][1]
+    target = torch.zeros(cam.image_height, cam.image_width, 3)
+    loss, grads = dist.render_grads(cg.scene_params(scene), scene, cam, target, GRAD_SEED)
+    ranks = sharded["keyed_step", mesh, width]
+    images = [r["image"] for r in ranks]
+    assert _same_on_every_rank(images)
+    one = dist.render_distributed(scene, cam, GRAD_SEED)
+    if mesh[1] == 1:
+        assert torch.equal(images[0], one)
+    else:
+        assert torch.equal(images[0], _keyed_composite(scene, cam, cam.samples_per_pixel, mesh[1]))
+        np.testing.assert_allclose(images[0].numpy(), one.numpy(), atol=1e-6)
     losses = [r["loss"] for r in ranks]
     assert _same_on_every_rank(losses)
     if mesh[1] == 1:

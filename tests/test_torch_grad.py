@@ -410,7 +410,7 @@ def test_inverse_render_entry_point_loss_falls(tmp_path):
     env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=REPO)
     proc = subprocess.run(
         [sys.executable, "-m", "ray_tracing_in_one_weekend_tpu_torch.examples.inverse_render",
-         "--device", "cpu", "--steps", "3", "--width", "32", "--outdir", str(tmp_path)],
+         "--device", "cpu", "--backend", "pallas", "--steps", "3", "--width", "32", "--outdir", str(tmp_path)],
         capture_output=True, text=True, timeout=300, cwd=REPO, env=env,
     )
     assert proc.returncode in (0, 1), proc.stderr

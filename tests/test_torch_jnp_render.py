@@ -406,18 +406,24 @@ def test_jnp_backend_needs_a_gpu_unless_the_platform_is_cpu(monkeypatch, scenes,
 
 def test_port_alone_imports_no_jax(tmp_path):
     """A fresh interpreter imports the port's keyed path and renders through
-    it (library and CLI, in one piece and batched) with neither jax nor
-    flax in sys.modules."""
+    it (library and CLI, in one piece and batched), and takes a keyed
+    gradient step, with neither jax nor flax in sys.modules."""
     code = (
         "import sys\n"
+        "import torch\n"
         "from ray_tracing_in_one_weekend_tpu_torch.ops import threefry, sampling, intersect, materials\n"
         "from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_threefry, render\n"
+        "from ray_tracing_in_one_weekend_tpu_torch.ops.integrator import ray_color\n"
         "from ray_tracing_in_one_weekend_tpu_torch.parallel import dist\n"
+        "from ray_tracing_in_one_weekend_tpu_torch.probes import keyed_grad_exact\n"
+        "from ray_tracing_in_one_weekend_tpu_torch.examples import inverse_render\n"
         "from ray_tracing_in_one_weekend_tpu_torch.models import scene, camera\n"
         "from ray_tracing_in_one_weekend_tpu_torch.utils import cli\n"
         "sc = scene.cover_scene(0, device='cpu')\n"
         "cam = camera.make_camera(image_width=16, aspect_ratio=2.0, samples_per_pixel=1, max_depth=2, device='cpu')\n"
         "assert render.render_image(sc, cam, 0).shape == (8, 16, 3)\n"
+        "loss, new = dist.train_step(dist.scene_params(sc), sc, cam, torch.zeros(8, 16, 3), 0)\n"
+        "assert all(bool(torch.isfinite(v).all()) for v in new.values())\n"
         "flags = ['--backend', 'jnp', '--platform', 'cpu', '--width', '16', '--aspect', '2', '--max-depth', '2']\n"
         "cli.run([*flags, '--spp', '1', '--no-output'])\n"
         "assert cli.run([*flags, '--spp', '2', '--checkpoint', sys.argv[1], '--no-output']).batches == 2\n"
