@@ -17,7 +17,8 @@ reference presets at 500 spp, held to the reference's image and to the
 TPU's renders, and the scheduling sweep; and, with no kernel, the
 differentiable render under torch.autograd, held to the kernels; and the
 jnp backend on threefry keys, its forward kernel and its gradient (the
-keyed replay and reverse kernels), held to torch.autograd on the card.
+keyed recording forward and reverse kernels), held to torch.autograd on
+the card.
 
 Phases, one line each; any failure raises and the script exits non-zero
 without the result lines:
@@ -226,30 +227,42 @@ without the result lines:
       render seeds 0 and 1 against the TPU's in `gallery/`: seed 0 within
       TPU_GATE x noise, seed 1 not.
 16. the keyed gradient on threefry keys (`parallel.dist.render_grads`,
-   `ops/cuda_threefry.py`, `csrc/threefry_grad_kernel.cu`: the replay and
-   the reverse kernels, then grad_kernel.cu's reduction; phase 2 prints
-   their registers and spills):
+   `ops/cuda_threefry.py`, `csrc/threefry_grad_kernel.cu`: the recording
+   forward and the reverse kernels, then grad_kernel.cu's reduction; phase
+   2 prints their registers and spills and the recording forward's
+   blocks an SM):
    a. at 64x32 on the inverse-render example's world (spp 4, depth 8, its
       damaged albedos and target) and on cover_scene(0) (spp 2, zero
-      target): the four kernels launched once, the loss the bits of the
-      loss of threefry_render_kernel's image, each field within GRAD_GATE
-      of `render_grads_autograd` on the card (which launches nothing);
-   b. at the bench preset on phase 15c's 16384 drawn pixels: the replay's
-      records bit-identical to the plain replay's, the reverse's events
-      within ADJOINT_GATE of the plain reverse's (winners equal; by
-      distance from the path's end), the reduction the ordered plain
-      reduction's bits, the gradient bit-identical run to run and for a
-      shuffled pixel order;
+      target): the recording forward's image and work map the bits of
+      threefry_render_kernel's, the three kernels launched once (and a
+      re-run of the recording forward at most once, the first time), the
+      loss the bits of the loss of threefry_render_kernel's image, each
+      field within GRAD_GATE of `render_grads_autograd` on the card (which
+      launches nothing);
+   b. at the bench preset on phase 15c's 16384 drawn pixels: the recording
+      forward's image and work map the forward kernel's bits and the plain
+      recording's; its records in logical order (links and
+      `build.path_slots`) the plain replay's words 0-13 bit for bit; the
+      reverse's events within ADJOINT_GATE of the plain reverse's (winners
+      equal; by distance from the path's end), the plain per-path reverse
+      on the kernel's arena the plain reverse's bits; the reduction the
+      ordered plain reduction's bits; the gradient bit-identical run to
+      run, for a shuffled pixel order and through a forced overflow (an
+      arena of 1024 records: one re-run);
    c. the main path of the slice: `render_grads` at the bench preset with a
-      zero target, cold and warm (seconds, Mrays/s, launches, peak memory),
-      one warm step under torch.profiler (each kernel's device ms, the idle
-      share), each kernel's bound from the step's sweeps and events; then
-      `render_grads_autograd` once on the card (KEYED_ORACLE_CHUNK pixels a
-      chunk): the loss the kernels' bits, each field within GRAD_GATE but
-      EXACT_GRAD_FIELDS, held as 14c holds them to the exact float64 sum
-      of the kernels' events;
+      zero target, cold and warm (seconds, Mrays/s, launches, re-runs, the
+      step's own peak memory), one warm step under torch.profiler (each
+      kernel's device ms, no replay kernel, the idle share), each kernel's
+      bound from the step's sweeps and paths and its share of it, the
+      recording forward's bench image the forward kernel's bits; with
+      `--parent`, the parent checkout's warm step (`probes/keyed_step.py`
+      in fresh processes, parent, this, this, parent) and its gradient,
+      held to this one's bit for bit; then `render_grads_autograd` once on
+      the card (KEYED_ORACLE_CHUNK pixels a chunk): the loss the kernels'
+      bits, each field within GRAD_GATE but EXACT_GRAD_FIELDS, held as 14c
+      holds them to the exact float64 sum of the kernels' events;
    d. the inverse-render example's default (`--backend jnp`) on the card:
-      exit 0, the four kernels launched;
+      exit 0, the three kernels launched;
    e. the keyed step in 2 gloo ranks on (2, 1) and (1, 2) at 64x32 against
       one process: the image one process's bits (pixels) or the windows'
       rank-order mean's (samples), the loss and gradients as phase 11b
@@ -264,6 +277,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import shutil
 import statistics
 import sys
@@ -2140,7 +2154,9 @@ def phase_jnp_gallery():
 #     csrc/threefry_grad_kernel.cu)
 # ---------------------------------------------------------------------------
 
-KEYED_KERNELS = ("threefry_render_kernel", "threefry_replay", "threefry_reverse", "grad_reduce")
+# The keyed train step's kernels, by their launch counts: the recording
+# forward, the reverse walk and the reduction.
+KEYED_KERNELS = ("threefry_record", "threefry_reverse", "grad_reduce")
 # Pixels a chunk of the autograd oracle's backward in 16c: a quarter of the
 # bench image. At one chunk its float32 sums of the per-bounce gathers sit
 # 4.9e-4 (center) and 2.7e-4 (albedo) off the exact sum of the kernels'
@@ -2176,14 +2192,17 @@ def example_world():
 def phase_keyed_small():
     """16a: `parallel.dist.render_grads` through the kernels at 64x32 on the
     example's world (its damaged albedos and target) and on cover_scene(0)
-    (spp 2, zero target): the four kernels launched, the loss the bits of
-    the loss of `threefry_render_kernel`'s image, and each field within
-    GRAD_GATE of `render_grads_autograd` on the card (which launches
-    nothing)."""
+    (spp 2, zero target): the recording forward's image and work map the
+    bits of `threefry_render_kernel`'s, the three kernels launched once (a
+    re-run of the recording forward counted apart, at most one), the loss
+    the bits of the loss of `threefry_render_kernel`'s image, and each
+    field within GRAD_GATE of `render_grads_autograd` on the card (which
+    launches nothing)."""
     import torch
 
     from ray_tracing_in_one_weekend_tpu_torch.kernels import build
     from ray_tracing_in_one_weekend_tpu_torch.models import scene as scene_lib
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_threefry as ct
     from ray_tracing_in_one_weekend_tpu_torch.ops import render as rr
     from ray_tracing_in_one_weekend_tpu_torch.parallel import dist as pdist
     from ray_tracing_in_one_weekend_tpu_torch.probes import small_camera
@@ -2196,11 +2215,19 @@ def phase_keyed_small():
                         torch.zeros(cam2.image_height, cam2.image_width, 3, device=DEVICE))}
     out = {}
     for label, (sc, c, p, t) in worlds.items():
+        pix = torch.arange(c.num_pixels, device=DEVICE)
+        img, work, _ = ct.record_keyed(sc, c, pix, 0)
+        img_f, work_f = ct.render_kernel_pixels(sc, c, pix, 0, return_work=True)
+        check(torch.equal(img, img_f) and torch.equal(work, work_f),
+              f"phase 16a ({label}): the recording forward's image or work map is not threefry_render_kernel's")
         build.reset_launches()
         loss, grads = pdist.render_grads(p, sc, c, t, 0)
         torch_sync()
+        reruns = build.LAUNCHES["threefry_record_rerun"]
+        check(reruns <= 1, f"phase 16a ({label}): the recording forward re-ran {reruns} times")
         for k in KEYED_KERNELS:
-            check(build.LAUNCHES[k] == 1, f"phase 16a ({label}): {k} launched {build.LAUNCHES[k]} times, not once")
+            want = 1 + (reruns if k == "threefry_record" else 0)
+            check(build.LAUNCHES[k] == want, f"phase 16a ({label}): {k} launched {build.LAUNCHES[k]} times, not {want}")
         img = rr.render_image(pdist.scene_with_params(sc, p), c, 0)
         check(torch.equal(loss, torch.mean((img - t) ** 2)),
               f"phase 16a ({label}): the kernels' loss is not the loss of threefry_render_kernel's image")
@@ -2214,13 +2241,19 @@ def phase_keyed_small():
 
 
 def phase_keyed_subset(n_lanes=JNP_LANES):
-    """16b: at the bench preset on phase 15c's drawn pixels: the replay's
-    records bit-identical to `replay_records_plain`'s (the same slots), the
-    reverse's events within ADJOINT_GATE of `reverse_records_plain`'s on the
-    same records (winners equal; the error also read by distance from the
-    path's end), the reduction the ordered plain reduction's bits, and the
-    backward's [16, N] cotangent bit-identical run to run and for the
-    pixels in another order."""
+    """16b: at the bench preset on phase 15c's drawn pixels: the recording
+    forward's image and work map `threefry_render_kernel`'s bits and the
+    plain recording's (`record_plain`, timed), its records in logical
+    order (`records_in_logical_order`: the links and `build.path_slots`)
+    bit-identical to `replay_records_plain`'s words 0-13, the reverse's
+    events within ADJOINT_GATE of `reverse_records_plain`'s on the plain
+    replay (winners equal; the error also read by distance from the
+    path's end) and the plain per-path reverse on the kernel's arena
+    (`reverse_paths_plain`) the plain reverse's bits, the reduction the
+    ordered plain reduction's bits, and the backward's [16, N] cotangent
+    bit-identical run to run, for the pixels in another order and through
+    a forced overflow (an arena of 1024 records: `threefry_grad_pass`
+    records again once)."""
     import torch
 
     from ray_tracing_in_one_weekend_tpu_torch.kernels import build
@@ -2239,28 +2272,43 @@ def phase_keyed_subset(n_lanes=JNP_LANES):
     n, spp, depth = cam.num_pixels, cam.samples_per_pixel, cam.max_depth
     gen = torch.Generator().manual_seed(15)  # phase 15c's draw
     pix = torch.randperm(n, generator=gen)[:n_lanes].to(DEVICE)
-    _, work = ct.render_kernel_pixels(scene, cam, torch.arange(n, device=DEVICE), 0, return_work=True)
     p_mat, cam_vec = cr.pack_scene(scene), cr.pack_camera(cam)
     table, pix32, key = p_mat.T.contiguous(), pix.to(torch.int32), (0, 0)
-    replay = build.threefry_replay(table, cam_vec, pix32, key, 0, spp, depth, work, 0, n)
-    out = {}
+    args = (table, cam_vec, pix32, key, 0, spp, depth)
+    img, work, rec = build.threefry_record(*args)
+    img_f, work_f = build.threefry_render(*args, work=True)
+    check(torch.equal(img, img_f) and torch.equal(work, work_f),
+          "phase 16b: the recording forward's image or work map is not threefry_render_kernel's")
+    rec = build.complete_recording(rec, int(rec.total))
+    total, sweeps = int(rec.total), int(work.sum())
+    out = {"n_records": sweeps}
     torch_sync()
     t0 = time.perf_counter()
-    plain = ct.replay_records_plain(scene, cam, pix, 0)
+    img_p, work_p, rec_p = ct.record_plain(scene, cam, pix, 0)
     torch_sync()
-    out["replay_plain_ms"] = (time.perf_counter() - t0) * 1e3
-    check(torch.equal(replay.ev_start, plain.ev_start) and torch.equal(replay.ev_count, plain.ev_count),
-          "phase 16b: the replay kernel's record slots differ from the plain replay's")
-    out["record_abs_err"] = float((replay.records[:, :9] - plain.records[:, :9]).abs().max())
-    same = replay.records.view(torch.int32) == plain.records.view(torch.int32)
-    check(bool(same.all()), f"phase 16b: {int((~same.all(1)).sum())} of {same.shape[0]} records differ from "
-                            "the plain replay's (bit-identical required)")
+    out["record_plain_ms"] = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(img, img_p) and torch.equal(work, work_p) and torch.equal(rec.path_count, rec_p.path_count),
+          "phase 16b: the recording forward's image, work map or path counts differ from the plain recording's")
+    slots, n_events = build.path_slots(pix32, rec.path_count, spp, 0, n)
+    n_events = int(n_events)
+    check(n_events == sweeps, f"phase 16b: {n_events} event slots for {sweeps} sweeps")
+    logical = ct.records_in_logical_order(rec, slots, n_events)
+    plain = ct.replay_records_plain(scene, cam, pix, 0)
+    out["record_abs_err"] = float((logical[:, :9] - plain.records[:, :9]).abs().max())
+    same = logical.view(torch.int32)[:, :14] == plain.records.view(torch.int32)[:, :14]
+    check(bool(same.all()), f"phase 16b: {int((~same.all(1)).sum())} of {same.shape[0]} records in logical order "
+                            "differ from the plain replay's in words 0-13 (bit-identical required)")
+    del logical, same
     g = random_cotangent((3, n_lanes), 2, DEVICE) / spp
     t0 = time.perf_counter()
     want = ct.reverse_records_plain(p_mat, cam_vec, plain, g)
     torch_sync()
     out["reverse_plain_ms"] = (time.perf_counter() - t0) * 1e3
-    events = build.threefry_reverse(table, cam_vec, replay, g)
+    per_path = ct.reverse_paths_plain(p_mat, cam_vec, rec, slots, n_events, g)
+    check(torch.equal(per_path.view(torch.int32), want.view(torch.int32)),
+          "phase 16b: the plain per-path reverse on the kernel's arena is not the plain reverse's bits")
+    del per_path
+    events = build.threefry_reverse(rec, slots, n_events, g, total)
     wk, wp = events[:, 0].view(torch.int32), want[:, 0].view(torch.int32)
     check(torch.equal(wk, wp), f"phase 16b: {int((wk != wp).sum())} event winners differ from the plain reverse's")
     out["event_err"] = rel_l2(events[:, 1:14], want[:, 1:14])
@@ -2274,37 +2322,72 @@ def phase_keyed_subset(n_lanes=JNP_LANES):
         if sel.numel():
             out["event_err_by_back"]["8+" if b == 8 else str(b)] = rel_l2(events[sel, 1:14], want[sel, 1:14])
     check_reduce_bits(events, p_mat.shape[1], "phase 16b")
-    args = (table, cam_vec, pix32, key, 0, spp, depth, work, 0, n)
-    pk = build.threefry_grad_pass(*args, g)
-    check(torch.equal(pk, build.threefry_grad_pass(*args, g)), "phase 16b: two kernel runs differ")
+    pk = build.threefry_grad_pass(rec, g, 0, n)
+    check(torch.equal(pk, build.threefry_grad_pass(rec, g, 0, n)), "phase 16b: two kernel runs differ")
     perm = torch.randperm(n_lanes, generator=gen).to(DEVICE)
-    shuffled = build.threefry_grad_pass(table, cam_vec, pix32[perm].contiguous(), key, 0, spp, depth, work, 0, n,
-                                        g[:, perm].contiguous())
-    check(torch.equal(pk, shuffled), "phase 16b: the gradient changed with the pixels' order")
+    _, _, rec_perm = build.threefry_record(table, cam_vec, pix32[perm].contiguous(), key, 0, spp, depth)
+    check(torch.equal(pk, build.threefry_grad_pass(rec_perm, g[:, perm].contiguous(), 0, n)),
+          "phase 16b: the gradient changed with the pixels' order")
+    _, _, small = build.threefry_record(*args, capacity=1024)
+    reruns = build.LAUNCHES["threefry_record_rerun"]
+    check(torch.equal(pk, build.threefry_grad_pass(small, g, 0, n)),
+          "phase 16b: the gradient changed through an arena's overflow")
+    out["overflow_reruns"] = build.LAUNCHES["threefry_record_rerun"] - reruns
+    check(out["overflow_reruns"] == 1, f"phase 16b: an arena of 1024 records re-ran {out['overflow_reruns']} times")
     out["n_events"] = events.shape[0]
     return out
 
 
-def phase_keyed_step(scene, cam, warm_reps=3):
+def keyed_parent_steps(parent, out_dir):
+    """The keyed step of the `parent` checkout and of this one, each in a
+    fresh process (`probes/keyed_step.py`), in turns: parent, this, this,
+    parent -> ({"parent": [...], "this": [...]} of its JSON lines, the
+    parent's last gradient)."""
+    import subprocess
+
+    import torch
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    script = REPO / PKG / "probes" / "keyed_step.py"
+    runs = {"parent": [], "this": []}
+    for i, who in enumerate(("parent", "this", "this", "parent")):
+        root = Path(parent).resolve() if who == "parent" else REPO
+        grads = out_dir / f"keyed_step_{i}_{who}.pt"
+        env = dict(os.environ, PYTHONPATH=str(root))
+        res = subprocess.run([sys.executable, str(script), "--out", str(grads), "--profile"], cwd=root, env=env,
+                             capture_output=True, text=True, timeout=600)
+        check(res.returncode == 0, f"phase 16c: the {who} checkout's keyed step exited {res.returncode}: "
+                                   f"{res.stderr[-2000:]}")
+        runs[who].append(json.loads(res.stdout.strip().splitlines()[-1]))
+        if who == "parent":
+            parent_grads = torch.load(grads)
+    return runs, parent_grads
+
+
+def phase_keyed_step(scene, cam, parent=None, warm_reps=3):
     """16c: the slice at full width, `parallel.dist.render_grads` at the bench
     preset with a zero target: a cold step then warm steps (seconds, launch
-    counts, peak memory), one warm step under torch.profiler (each kernel's
-    device ms and the idle share), each kernel's bound from this step's
-    sweeps and events; then the gradients once against
+    counts, re-runs of the recording forward, the step's own peak memory),
+    two warm steps under torch.profiler (each kernel's device ms, no
+    replay kernel, the idle share of what it traced and the launches it
+    missed), each kernel's bound from this step's
+    sweeps and paths, the recording forward's bench image the bits of
+    `threefry_render_kernel`'s; with `parent`, the parent checkout's warm
+    step beside this one's in fresh processes and its gradient held to
+    this one's bit for bit; then the gradients once against
     `render_grads_autograd` on the card at KEYED_ORACLE_CHUNK pixels a
-    chunk, GRAD_GATE per field but EXACT_GRAD_FIELDS, held as phase 14c holds them
-    to the exact float64 sum of the kernels' events
+    chunk, GRAD_GATE per field but EXACT_GRAD_FIELDS, held as phase 14c
+    holds them to the exact float64 sum of the kernels' events
     (`probes/keyed_grad_exact.keyed_exact_grads`)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from ray_tracing_in_one_weekend_tpu_torch.kernels import build
     from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_threefry as ct
+    from ray_tracing_in_one_weekend_tpu_torch.ops.integrator import _END_SKY, _REC_END
     from ray_tracing_in_one_weekend_tpu_torch.parallel import dist as pdist
     from ray_tracing_in_one_weekend_tpu_torch.probes import cuda_ms, rel_l2
     from ray_tracing_in_one_weekend_tpu_torch.probes import kernel_parts as kp
     from ray_tracing_in_one_weekend_tpu_torch.probes.keyed_grad_exact import keyed_exact_grads, keyed_step_paths
+    from ray_tracing_in_one_weekend_tpu_torch.probes.keyed_step import profiled_steps
 
     params = pdist.scene_params(scene)
     target = torch.zeros(cam.image_height, cam.image_width, 3, device=DEVICE)
@@ -2318,6 +2401,7 @@ def phase_keyed_step(scene, cam, warm_reps=3):
     loss, grads = pdist.render_grads(params, scene, cam, target, 0)
     torch_sync()
     cold_s = time.perf_counter() - t0
+    cold_reruns = build.LAUNCHES["threefry_record_rerun"]
     warm = []
     for _ in range(warm_reps):
         t0 = time.perf_counter()
@@ -2330,39 +2414,67 @@ def phase_keyed_step(scene, cam, warm_reps=3):
     check(bool(torch.isfinite(loss)) and float(loss) > 0.0, "phase 16c: bad loss")
     for k, v in grads.items():
         check(bool(torch.isfinite(v).all()), f"phase 16c: non-finite {k} gradient")
+    check(cold_reruns <= 1, f"phase 16c: the cold step re-ran the recording forward {cold_reruns} times")
+    check(launches["threefry_record_rerun"] == cold_reruns,
+          f"phase 16c: warm steps re-ran the recording forward {launches['threefry_record_rerun'] - cold_reruns} times")
+    check(launches["threefry_render_kernel"] == 0,
+          f"phase 16c: the steps launched threefry_render_kernel {launches['threefry_render_kernel']} times")
     for k in KEYED_KERNELS:
-        check(launches[k] == 1 + warm_reps, f"phase 16c: {k} launched {launches[k]} times in {1 + warm_reps} steps")
-    # One warm step under the profiler: each kernel's device time and the
-    # device's idle share of the step (1 - busy / wall).
-    names = {"forward": "threefry_render_kernel", "replay": "threefry_replay_kernel",
-             "reverse": "threefry_reverse_kernel", "reduce_chunks": "grad_reduce_chunks",
-             "reduce_partials": "grad_reduce_partials"}
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pdist.render_grads(params, scene, cam, target, 0)
-        torch_sync()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    dev_events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    kernel_ms = {label: sum(e.self_device_time_total for e in dev_events if key in e.key) / 1e3
+        want = 1 + warm_reps + (cold_reruns if k == "threefry_record" else 0)
+        check(launches[k] == want, f"phase 16c: {k} launched {launches[k]} times in {1 + warm_reps} steps, not {want}")
+    # Two warm steps under the profiler (`probes/keyed_step.profiled_steps`,
+    # as the parent's and this checkout's steps are read with --parent): each
+    # kernel's device time a traced launch, and the device's idle share of the
+    # steps, 1 - traced busy / wall, beside the hand-written launches traced.
+    names = {"record": "threefry_record_kernel", "reverse": "threefry_reverse_kernel",
+             "reduce_chunks": "grad_reduce_chunks", "reduce_partials": "grad_reduce_partials"}
+    profiled = 2
+    prof = profiled_steps(lambda: pdist.render_grads(params, scene, cam, target, 0), build.LAUNCHES, profiled)
+    counts = {label: sum(c for k, c in prof["kernel_counts"].items() if key in k) for label, key in names.items()}
+    check(all(0 < c <= profiled for c in counts.values()),
+          f"phase 16c: the profiler traced {counts} launches in {profiled} steps")
+    kernel_ms = {label: sum(t for k, t in prof["kernel_ms"].items() if key in k) / counts[label]
                  for label, key in names.items()}
-    check(all(v > 0.0 for v in kernel_ms.values()), f"phase 16c: the profiler missed a kernel: {kernel_ms}")
-    busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
-    # The bounds, from this step's sweeps and events.
-    p_mat, cam_vec, replay, g = keyed_step_paths(scene, cam, target)
-    n, n_events, n_slots = cam.num_pixels, replay.records.shape[0], p_mat.shape[1]
+    replay_launches = sum(c for k, c in prof["kernel_counts"].items() if "replay" in k)
+    check(replay_launches == 0, f"phase 16c: {replay_launches} replay kernels ran in the steps")
+    wall_ms, busy_ms = prof["wall_ms"], prof["busy_ms"]
+    untraced = prof["launches_made"] - prof["launches_traced"]
+    # The bounds, from this step's sweeps and paths; the recording forward's
+    # image against the forward kernel's.
+    img, p_mat, cam_vec, rec, slots, n_events, g = keyed_step_paths(scene, cam, target)
+    n, n_slots, paths = cam.num_pixels, p_mat.shape[1], rec.path_count.numel()
+    pix = torch.arange(n, device=DEVICE)
+    img_f, work_f = ct.render_kernel_pixels(scene, cam, pix, 0, return_work=True)
+    check(torch.equal(img, img_f), "phase 16c: the recording forward's bench image is not threefry_render_kernel's")
+    lit = rec.arena.view(torch.int32)[rec.path_last, _REC_END] == _END_SKY  # the paths that reached the sky
+    lit_records = int(rec.path_count[lit].sum())
+    dark_paths = int((~lit).sum())
     table_bytes = 4.0 * (16 * n_slots + 24)
     ops = float(n_events) * scene.num_active * JNP_OPS_PER_SPHERE_TEST
     bounds = {
-        "forward": kp.bound_ms(ops, table_bytes + 4.0 * n * (1 + 3 + 1)),  # pix in; radiance, work out
-        "replay": kp.bound_ms(ops, table_bytes + n * (4.0 + 8.0 + 4.0) + 64.0 * n_events),
-        "reverse": kp.bound_ms(0.0, table_bytes + n * (12.0 + 8.0 + 4.0) + 128.0 * n_events),
+        # pix in; radiance and work out; a record a sweep; each path's count and last slot
+        "record": kp.bound_ms(ops, table_bytes + n * (4.0 + 12.0 + 4.0) + 64.0 * n_events + 12.0 * paths),
+        "forward": kp.bound_ms(ops, table_bytes + 4.0 * n * (1 + 3 + 1)),
+        # g in; each path's slot, count and last slot; a lit path's records whole, a dark path's end
+        # word's sector; an event a sweep out
+        "reverse": kp.bound_ms(0.0, table_bytes + 12.0 * n + 20.0 * paths + 64.0 * lit_records
+                               + 32.0 * dark_paths + 64.0 * n_events),
     }
-    events = build.threefry_reverse(p_mat.T.contiguous(), cam_vec, replay, g)
+    total = int(rec.total)
+    record_alone_ms = cuda_ms(lambda: ct.record_keyed(scene, cam, pix, 0), reps=3)
+    forward_ms = cuda_ms(lambda: ct.render_kernel_pixels(scene, cam, pix, 0, return_work=True), reps=3)
+    reverse_alone_ms = cuda_ms(lambda: build.threefry_reverse(rec, slots, n_events, g, total), reps=3)
+    events = build.threefry_reverse(rec, slots, n_events, g, total)
+    del rec, slots, img_f, work_f
     bounds["reduce"] = reduce_bounds(events, n_slots)[0]
     reduce_ms, library_ms = reduce_times(events, n_slots)
-    fwd = (scene, cam, torch.arange(n, device=DEVICE), 0)
-    forward_ms = cuda_ms(lambda: ct.render_kernel_pixels(*fwd, return_work=True), reps=3)
-    del replay, events
+    del events
+    parent_runs = None
+    if parent is not None:
+        torch.cuda.empty_cache()
+        parent_runs, parent_grads = keyed_parent_steps(parent, REPO / "build" / "keyed_parent")
+        for k, v in grads.items():
+            check(torch.equal(v.cpu(), parent_grads[k]), f"phase 16c: the {k} gradient is not the parent's bits")
     # The oracle, once.
     exact = keyed_exact_grads(scene, cam, target)
     torch.cuda.empty_cache()
@@ -2380,8 +2492,12 @@ def phase_keyed_step(scene, cam, warm_reps=3):
     errs.update({k: rel_l2(grads[k], grads_a[k]) for k in EXACT_GRAD_FIELDS})
     vs_exact = {k: (rel_l2(grads[k], exact[k]), rel_l2(grads_a[k], exact[k])) for k in pdist.DIFF_FIELDS}
     return dict(cold_s=cold_s, warm_s=warm, mrays=[rays / t / 1e6 for t in warm], cold_mrays=rays / cold_s / 1e6,
-                launches=launches, peak_gb=peak_gb, step_gb=step_gb, wall_ms=wall_ms, busy_ms=busy_ms,
-                idle=1.0 - busy_ms / wall_ms, kernel_ms=kernel_ms, forward_ms=forward_ms, reduce_ms=reduce_ms, library_ms=library_ms, bounds=bounds, n_events=n_events,
+                launches=launches, cold_reruns=cold_reruns, peak_gb=peak_gb, step_gb=step_gb, wall_ms=wall_ms,
+                busy_ms=busy_ms, idle=prof["idle"], untraced=untraced, kernel_ms=kernel_ms,
+                replay_launches=replay_launches,
+                record_alone_ms=record_alone_ms, forward_ms=forward_ms, reverse_alone_ms=reverse_alone_ms,
+                reduce_ms=reduce_ms, library_ms=library_ms, bounds=bounds, n_events=n_events,
+                lit_records=lit_records, dark_paths=dark_paths, parent_runs=parent_runs,
                 oracle_s=oracle_s, oracle_peak_gb=oracle_peak_gb, errs=errs, vs_exact=vs_exact,
                 exact=check_exact_grads("phase 16c", grads_a, grads, exact))
 
@@ -2477,7 +2593,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, default=None,
-                    help="another checkout of the port: its reduction is timed beside this one's in phase 7c")
+                    help="another checkout of the port: its reduction is timed beside this one's in phase 7c, "
+                         "its keyed train step in phase 16c")
     parent = ap.parse_args(argv).parent
 
     if not torch.cuda.is_available():
@@ -2539,15 +2656,16 @@ def main(argv=None) -> int:
 
     keyed_resources = {}
     for name, r in sweep_readings.ptxas_resources(res.log).items():
-        for kernel in ("threefry_replay_kernel", "threefry_reverse_kernel"):
+        for kernel in ("threefry_record_kernel", "threefry_reverse_kernel"):
             if kernel in name:
                 keyed_resources[kernel] = {"registers": r.registers, "spill_stores": r.spill_stores,
                                            "spill_loads": r.spill_loads}
-    say("phase 2 keyed backward: " + "; ".join(f"{k} {v['registers']} registers, spill stores/loads "
-                                               f"{v['spill_stores']}/{v['spill_loads']}"
-                                               for k, v in keyed_resources.items())
-        + f"; threefry_replay_kernel blocks per SM at {sweep_readings.N_SLOTS} spheres "
-        f"{build.blocks_per_sm('threefry_replay_kernel', 128, sweep_readings.N_SLOTS)}")
+    record_blocks = build.blocks_per_sm("threefry_record_kernel", 128, sweep_readings.N_SLOTS)
+    keyed_resources["threefry_record_kernel"]["blocks_per_sm_tile128"] = record_blocks
+    say("phase 2 keyed train step: " + "; ".join(f"{k} {v['registers']} registers, spill stores/loads "
+                                                 f"{v['spill_stores']}/{v['spill_loads']}"
+                                                 for k, v in keyed_resources.items())
+        + f"; threefry_record_kernel blocks per SM at {sweep_readings.N_SLOTS} spheres {record_blocks}")
 
     # 3. kernel vs plain, one pass
     ref = scene_lib.cover_scene_reference(device=DEVICE)
@@ -2958,30 +3076,53 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     t16 = time.perf_counter()
     ks = phase_keyed_small()
-    say("phase 16a keyed gradient at 64x32 (parallel.dist.render_grads, key 0): the four kernels launched once "
-        "each; the loss the bits of the loss of threefry_render_kernel's image; vs render_grads_autograd on the "
-        "card (no launch) rel L2 " + "; ".join(f"{label} " + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+    say("phase 16a keyed gradient at 64x32 (parallel.dist.render_grads, key 0): the recording forward's image "
+        "and work map threefry_render_kernel's bits; the three kernels launched once each; the loss the bits of "
+        "the loss of threefry_render_kernel's image; vs render_grads_autograd on the card (no launch) rel L2 " + "; ".join(f"{label} " + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
                                                for label, errs in ks.items()) + f" (gate {GRAD_GATE}) [{smi}]")
     kb = phase_keyed_subset()
-    say(f"phase 16b keyed backward at the bench preset, phase 15c's {JNP_LANES} drawn pixels: {kb['n_events']} "
-        f"records bit-identical to the plain replay's; reverse events vs plain: winners equal, rel L2 "
-        f"{kb['event_err']:.2e} (gate {ADJOINT_GATE}; by bounces from the path's end: "
-        + ", ".join(f"{b} {e:.2e}" for b, e in kb["event_err_by_back"].items()) + "); the reduction the ordered "
-        f"plain reduction's bits; the gradient bit-identical run to run and for a shuffled pixel order; plain "
-        f"replay {kb['replay_plain_ms']:.0f} ms, plain reverse {kb['reverse_plain_ms']:.0f} ms [{smi}]")
-    kc = phase_keyed_step(scene, cam)
-    b = kc["bounds"]
+    say(f"phase 16b keyed train step at the bench preset, phase 15c's {JNP_LANES} drawn pixels: the recording "
+        f"forward's image and work map threefry_render_kernel's bits and the plain recording's; its {kb['n_events']} "
+        f"records in logical order the plain replay's words 0-13 bit for bit; reverse events vs plain: winners "
+        f"equal, rel L2 {kb['event_err']:.2e} (gate {ADJOINT_GATE}; by bounces from the path's end: "
+        + ", ".join(f"{b} {e:.2e}" for b, e in kb["event_err_by_back"].items()) + "); the plain per-path reverse "
+        f"on the kernel's arena the plain reverse's bits; the reduction the ordered plain reduction's bits; the "
+        f"gradient bit-identical run to run, for a shuffled pixel order and through an arena of 1024 records "
+        f"({kb['overflow_reruns']} re-run); plain recording {kb['record_plain_ms']:.0f} ms, plain reverse "
+        f"{kb['reverse_plain_ms']:.0f} ms [{smi}]")
+    kc = phase_keyed_step(scene, cam, parent)
+    b, km = kc["bounds"], kc["kernel_ms"]
+    reduce_step_ms = km["reduce_chunks"] + km["reduce_partials"]
     say(f"phase 16c keyed train step (parallel.dist.render_grads, bench preset, zero target): cold "
-        f"{kc['cold_s']:.4f}s = {kc['cold_mrays']:.2f} Mrays/s; warm " + ", ".join(f"{t:.4f}" for t in kc["warm_s"])
-        + "s = " + ", ".join(f"{r:.2f}" for r in kc["mrays"]) + f" Mrays/s; launches "
-        + ", ".join(f"{k} {kc['launches'][k]}" for k in KEYED_KERNELS) + f"; peak memory {kc['peak_gb']:.3f} GB "
-        f"({kc['step_gb']:.3f} GB above what earlier phases hold); "
-        f"one warm step under torch.profiler {kc['wall_ms']:.3f} ms wall, device busy {kc['busy_ms']:.3f} ms, idle "
-        f"share {kc['idle']:.4f}; device ms " + ", ".join(f"{k} {v:.3f}" for k, v in kc["kernel_ms"].items())
-        + f" ({kc['n_events']} sweeps); the forward alone {kc['forward_ms']:.3f} ms (events), the reduction "
-        f"{kc['reduce_ms']:.3f} ms (events; index_add_ {kc['library_ms']:.3f} ms); bounds forward "
-        f"{b['forward'][0]:.3f} by {b['forward'][1]}, replay {b['replay'][0]:.3f} by {b['replay'][1]}, reverse "
-        f"{b['reverse'][0]:.3f} by {b['reverse'][1]}, reduction {b['reduce'][0]:.3f} by {b['reduce'][1]} [{smi}]")
+        f"{kc['cold_s']:.4f}s = {kc['cold_mrays']:.2f} Mrays/s ({kc['cold_reruns']} re-run of the recording "
+        f"forward); warm " + ", ".join(f"{t:.4f}" for t in kc["warm_s"])
+        + "s = " + ", ".join(f"{r:.2f}" for r in kc["mrays"]) + " Mrays/s; launches "
+        + ", ".join(f"{k} {kc['launches'][k]}" for k in (*KEYED_KERNELS, "threefry_record_rerun",
+                                                          "threefry_render_kernel"))
+        + f", replay kernels in the profiled step {kc['replay_launches']}; peak memory {kc['peak_gb']:.3f} GB "
+        f"(the step's own {kc['step_gb']:.3f} GB above what earlier phases hold); "
+        f"two warm steps under torch.profiler, a step {kc['wall_ms']:.3f} ms wall, device busy {kc['busy_ms']:.3f} ms "
+        f"traced, idle share {kc['idle']:.4f} ({kc['untraced']} hand-written launches untraced, none filled in); "
+        f"device ms a traced launch " + ", ".join(f"{k} {v:.3f}" for k, v in km.items())
+        + f" ({kc['n_events']} sweeps, {kc['lit_records']} on paths that reached the sky, {kc['dark_paths']} "
+        f"paths dark); alone (events) the recording forward {kc['record_alone_ms']:.3f} ms, the forward kernel "
+        f"{kc['forward_ms']:.3f} ms, the reverse {kc['reverse_alone_ms']:.3f} ms, the reduction "
+        f"{kc['reduce_ms']:.3f} ms (index_add_ {kc['library_ms']:.3f} ms); bounds and shares in the step: "
+        f"recording forward {b['record'][0]:.3f} by {b['record'][1]} ({b['record'][0] / km['record']:.1%}), "
+        f"reverse {b['reverse'][0]:.3f} by {b['reverse'][1]} ({b['reverse'][0] / km['reverse']:.1%}), "
+        f"reduction {b['reduce'][0]:.3f} by {b['reduce'][1]} ({b['reduce'][0] / reduce_step_ms:.1%}); the "
+        f"forward kernel's bound {b['forward'][0]:.3f} [{smi}]")
+    if kc["parent_runs"] is not None:
+        pr = kc["parent_runs"]
+        say("phase 16c against the parent (probes/keyed_step.py in fresh processes, parent, this, this, parent): "
+            + "; ".join(f"{who} warm s " + ", ".join(f"{t:.4f}" for t in r["warm_s"]) + f" (cold {r['cold_s']:.4f}, "
+                        f"own memory {r['step_memory_gb']:.3f} GB; two profiled steps: idle share "
+                        f"{r['profile']['idle']:.4f}, {r['profile']['wall_ms']:.3f} ms wall, "
+                        f"{r['profile']['busy_ms']:.3f} ms busy, launches traced {r['profile']['launches_traced']} "
+                        f"of {r['profile']['launches_made']})" for who in ("parent", "this") for r in pr[who])
+            + f"; median warm this / parent "
+            f"{statistics.median(t for r in pr['this'] for t in r['warm_s']) / statistics.median(t for r in pr['parent'] for t in r['warm_s']):.3f}; "
+            f"the gradient the parent's bits [{smi}]")
     say(f"phase 16c vs render_grads_autograd on the card (chunks of {KEYED_ORACLE_CHUNK} pixels, no launch): "
         f"{kc['oracle_s']:.2f}s, peak memory {kc['oracle_peak_gb']:.3f} GB; loss the kernels' bits; gradients rel L2 "
         + ", ".join(f"{k} {e:.2e}" for k, e in kc["errs"].items())
@@ -3169,32 +3310,41 @@ def main(argv=None) -> int:
         "gallery_seed1_vs_tpu_mad": jg["seed1_vs_tpu"].mad,
         "launches_gallery": jg["launches"],
     }, {
-        "name": "threefry_replay_kernel",
+        "name": "threefry_record_kernel",
         "route": "cuda",
         "source": f"{PKG}/csrc/threefry_grad_kernel.cu (+ threefry_device.cuh, threefry.cuh)",
         "replaces": KEYED_REPLACES,
-        "launches": kc["launches"]["threefry_replay"],
+        "launches": kc["launches"]["threefry_record"],
         "max_abs_err": kb["record_abs_err"],
-        "ms": kc["kernel_ms"]["replay"],
-        "plain_ms": kb["replay_plain_ms"],
-        "tolerance": "records bit-identical to the plain replay (replay_records_plain: all 16 words, the same "
-                     "slots) on 16384 drawn bench pixels; the keyed gradient per field rel L2 <= "
-                     f"{GRAD_GATE} against render_grads_autograd at 64x32 and at the bench preset",
-        "bound_ms": kc["bounds"]["replay"][0],
-        "bound_by": kc["bounds"]["replay"][1],
+        "ms": km["record"],
+        "plain_ms": kb["record_plain_ms"],
+        "tolerance": "image and work map bit-identical to threefry_render_kernel's (64x32, the 16384 drawn bench "
+                     "pixels, the bench image) and to the plain recording's (record_plain); records in logical "
+                     "order bit-identical to the plain replay's words 0-13 (replay_records_plain) on the 16384 "
+                     f"drawn bench pixels; the keyed gradient per field rel L2 <= {GRAD_GATE} against "
+                     "render_grads_autograd at 64x32 and at the bench preset",
+        "bound_ms": b["record"][0],
+        "bound_by": b["record"][1],
         "library_ms": None,
         "shapes": "ms (device time by torch.profiler inside a warm step) and bound_ms at the bench preset "
-                  "(1200x800, 10 spp, depth 50); plain_ms on the 16384 drawn pixels; launches from 16c's steps",
-        **{k: v for k, v in keyed_resources.get("threefry_replay_kernel", {}).items()},
+                  "(1200x800, 10 spp, depth 50); plain_ms the plain recording of the 16384 drawn pixels; launches "
+                  "from 16c's steps (a re-run counted in both)",
+        **keyed_resources.get("threefry_record_kernel", {}),
         "sweeps": kc["n_events"],
+        "ms_alone": kc["record_alone_ms"],
+        "forward_kernel_ms_alone": kc["forward_ms"],
+        "forward_kernel_bound_ms": b["forward"][0],
+        "reruns_cold": kc["cold_reruns"],
+        "reruns_total": kc["launches"]["threefry_record_rerun"],
+        "replay_launches": kc["replay_launches"],
         "step_cold_s": kc["cold_s"],
         "step_warm_s": kc["warm_s"],
         "step_mrays_per_s": kc["mrays"],
         "step_peak_memory_gb": kc["peak_gb"],
         "step_memory_above_live_gb": kc["step_gb"],
         "step_idle_share": kc["idle"],
-        "forward_ms_in_step": kc["kernel_ms"]["forward"],
-        "forward_bound_ms": kc["bounds"]["forward"][0],
+        "step_untraced_launches": kc["untraced"],
+        "parent_steps": kc["parent_runs"],
         "rel_l2_64x32": ks,
         "rel_l2_bench": kc["errs"],
         "rel_l2_vs_exact_bench": kc["vs_exact"],
@@ -3208,20 +3358,25 @@ def main(argv=None) -> int:
         "replaces": KEYED_REPLACES,
         "launches": kc["launches"]["threefry_reverse"],
         "max_abs_err": kb["event_abs_err"],
-        "ms": kc["kernel_ms"]["reverse"],
+        "ms": km["reverse"],
         "plain_ms": kb["reverse_plain_ms"],
-        "tolerance": f"events against the plain reverse (reverse_records_plain) on the same records: winners "
-                     f"equal, cotangent words rel L2 <= {ADJOINT_GATE}; max_abs_err on the 16384 drawn pixels",
-        "bound_ms": kc["bounds"]["reverse"][0],
-        "bound_by": kc["bounds"]["reverse"][1],
+        "tolerance": f"events against the plain reverse (reverse_records_plain) on the plain replay's records: "
+                     f"winners equal, cotangent words rel L2 <= {ADJOINT_GATE}; max_abs_err on the 16384 drawn pixels",
+        "bound_ms": b["reverse"][0],
+        "bound_by": b["reverse"][1],
         "library_ms": None,
         "shapes": "ms (device time by torch.profiler inside a warm step) and bound_ms at the bench preset; "
-                  "plain_ms on the 16384 drawn pixels; launches from 16c's steps",
-        **{k: v for k, v in keyed_resources.get("threefry_reverse_kernel", {}).items()},
+                  "bound_ms counts each path's table entries, the records of paths that reached the sky whole, "
+                  "a 32-byte sector of each dark path's last record, and every event written; plain_ms on the "
+                  "16384 drawn pixels; launches from 16c's steps",
+        **keyed_resources.get("threefry_reverse_kernel", {}),
+        "ms_alone": kc["reverse_alone_ms"],
+        "records_on_lit_paths": kc["lit_records"],
+        "dark_paths": kc["dark_paths"],
         "rel_l2": kb["event_err"],
         "rel_l2_by_back": kb["event_err_by_back"],
-        "reduce_ms_in_step": kc["kernel_ms"]["reduce_chunks"] + kc["kernel_ms"]["reduce_partials"],
-        "reduce_bound_ms": kc["bounds"]["reduce"][0],
+        "reduce_ms_in_step": reduce_step_ms,
+        "reduce_bound_ms": b["reduce"][0],
         "launches_grad_reduce_keyed": kc["launches"]["grad_reduce"],
     }]}))
     say(json.dumps({"ok": True, "device": {

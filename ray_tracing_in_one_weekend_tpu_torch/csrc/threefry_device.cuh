@@ -1,16 +1,21 @@
 // Device functions of the keyed (threefry) path: the JAX package's jnp bounce
 // with XLA's fused multiply-adds on the CPU, and the persistent pixel loop
 // that threefry_render_kernel.cu (the forward) and threefry_grad_kernel.cu
-// (the replay) both run.
+// (the forward that records, for the backward) both run.
 //
 // The loop is one template, `trace_pixels<RECORD>`: the forward instantiates
-// it without records, the replay with one 64-byte record a sweep. Both take
-// their decisions (the winner, the root, front face, metal absorbed,
-// must_reflect) by the same instructions, so with the same build flags
-// (-fmad=false, explicit __fmaf_rn, no fast-math) the replay takes the
-// forward's paths bit for bit. Each function is the counterpart of the
-// plain PyTorch function it names (ops/intersect.py, ops/materials.py,
-// ops/integrator.py, models/camera.py), operation for operation.
+// it without records, the recording forward with one 64-byte record a
+// sweep. Both write the image and the work map and take their decisions
+// (the winner, the root, front face, metal absorbed, must_reflect) by the
+// same instructions, so with the same build flags (-fmad=false, explicit
+// __fmaf_rn, no fast-math) the recording forward renders the forward's bits
+// and its records are the forward's paths, so the keyed train step sweeps
+// each bounce once. The recording instance adds a warp-aggregated atomicAdd
+// and one 64-byte record store a sweep; what bounds both on the H100 is
+// the FP32 sweep (threefry_render_kernel.cu's note). Each function is the
+// counterpart of the plain PyTorch function it names (ops/intersect.py,
+// ops/materials.py, ops/integrator.py, models/camera.py), operation for
+// operation.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -35,13 +40,13 @@ constexpr float T_MAX = 1e30f;  // t_max: the JAX path's T_MISS
 constexpr uint32_t CAMERA_DOMAIN = 1u << 20;
 
 // Record words (float4 r[4]; int fields as int32 bits), the layout of the
-// PCG replay (grad_kernel.cu): r[0] = o, d.x; r[1] = d.y, d.z, att.x, att.y;
-// r[2] = att.z, winner (-1 for a miss), trace key k0, k1; r[3] = bounce
-// index, end, 0, 0. end: the path goes on after this bounce, ends without
-// radiance (absorbed, or at the depth limit), or ends at the sky (a miss).
+// PCG replay (grad_kernel.cu) in words 0-13: r[0] = o, d.x; r[1] = d.y, d.z,
+// att.x, att.y; r[2] = att.z, winner (-1 for a miss), trace key k0, k1; r[3]
+// = bounce index, end, then the link: the arena index (int64, low word
+// first) of the same path's previous record, -1 at its first. end: the path
+// goes on after this bounce, ends without radiance (absorbed, or at the
+// depth limit), or ends at the sky (a miss).
 constexpr int END_NONE = 0, END_DARK = 1, END_SKY = 2;
-// flags[0]: a pixel had more sweeps than its slot range; flags[1]: fewer.
-constexpr int FLAG_OVER = 0, FLAG_UNDER = 1;
 
 __device__ __forceinline__ float jnp_dot_fma(vec3 a, vec3 b) {
     return __fmaf_rn(a.z, b.z, __fmaf_rn(a.y, b.y, a.x * b.x));
@@ -229,22 +234,51 @@ __device__ __forceinline__ int next_position(int* queue, int first) {
     return first + base + __popc(mask & ((1u << lane) - 1u));
 }
 
-__device__ __forceinline__ void put_record(float4* rec, vec3 o, vec3 d, vec3 att, int winner, tf::Key k, int depth,
-                                           int end) {
+// The next entry of a 64-bit queue for each active lane: one atomicAdd a
+// warp, through its lowest active lane, so the lanes' entries are
+// consecutive in lane order. The recording forward takes its arena slots so
+// (a converged warp's 32 records are one run of 2 KB), the reverse walk its
+// paths.
+__device__ __forceinline__ long long queue_take(unsigned long long* total) {
+    const unsigned mask = __activemask();
+    const int lane = (int)(threadIdx.x & 31u);
+    const int leader = __ffs(mask) - 1;
+    unsigned long long base = 0;
+    if (lane == leader) base = atomicAdd(total, (unsigned long long)__popc(mask));
+    base = __shfl_sync(mask, base, leader);
+    return (long long)base + __popc(mask & ((1u << lane) - 1u));
+}
+
+// Where the recording forward writes: `records` holds `capacity` records;
+// `total` counts the slots taken (past `capacity` when the arena ran out: a
+// slot there is counted and not written, so `total` ends as the exact
+// number of sweeps); path k = position x spp + sample gets its sweeps in
+// path_count[k] and the slot of its last record in path_last[k].
+struct Arena {
+    float4* records;
+    long long capacity;
+    unsigned long long* total;
+    int* path_count;
+    long long* path_last;
+};
+
+__device__ __forceinline__ void put_record(const Arena& arena, long long slot, vec3 o, vec3 d, vec3 att, int winner,
+                                           tf::Key k, int depth, int end, long long prev) {
+    if (slot >= arena.capacity) return;
+    float4* rec = arena.records + 4 * slot;
     rec[0] = make_float4(o.x, o.y, o.z, d.x);
     rec[1] = make_float4(d.y, d.z, att.x, att.y);
     rec[2] = make_float4(att.z, __int_as_float(winner), __uint_as_float(k.k0), __uint_as_float(k.k1));
-    rec[3] = make_float4(__int_as_float(depth), __int_as_float(end), 0.0f, 0.0f);
+    rec[3] = make_float4(__int_as_float(depth), __int_as_float(end), __int_as_float((int)(prev & 0xFFFFFFFFll)),
+                         __int_as_float((int)(prev >> 32)));
 }
 
-// Where the replay writes a pixel's records: position j owns slots
-// [ev_start[j], ev_start[j] + ev_count[j]).
-struct Slots {
-    const long long* ev_start;
-    const int* ev_count;
-    float4* records;
-    int* flags;
-};
+// A path's last record: its sweeps and where that record lies.
+__device__ __forceinline__ void end_path(const Arena& arena, int j, int s, int spp, int depth, long long slot) {
+    const long long k = (long long)j * spp + s;
+    arena.path_count[k] = depth + 1;
+    arena.path_last[k] = slot;
+}
 
 // Stage the sweep table and the camera in shared memory (every thread of the
 // block, then a barrier).
@@ -258,17 +292,16 @@ __device__ __forceinline__ void load_tables(float4* s_sweep, float* s_cam, const
 
 // The persistent pixel loop (threefry_render_kernel.cu's source note): thread
 // g starts on position g of `pix`, runs the pixel's spp samples a bounce an
-// iteration, then takes its next position from `queue`. Without RECORD it
-// writes out[j] (the sample mean) and work[j] (the sweeps) for each
-// position; with RECORD it writes nothing else but one record a sweep into
-// the position's slots, and raises flags[FLAG_OVER] (and stops) when a pixel
-// would run past its range, flags[FLAG_UNDER] when it ends short of it.
+// iteration, then takes its next position from `queue`. It writes out[j]
+// (the sample mean) and work[j] (the sweeps) for each position; with RECORD
+// also one record a sweep into the arena, in the order the sweeps are made,
+// each linked to its path's previous one, and each path's table entries.
 template <bool RECORD>
 __device__ __forceinline__ void trace_pixels(const float4* __restrict__ table, const float4* s_sweep, int n_spheres,
                                              const float* s_cam, const int* __restrict__ pix, int n, uint32_t key0,
                                              uint32_t key1, int sample_offset, int spp, int max_depth,
                                              float* __restrict__ out, int* __restrict__ work,
-                                             int* __restrict__ queue, Slots slots) {
+                                             int* __restrict__ queue, Arena arena) {
     const int first = (int)(gridDim.x * blockDim.x);  // the queue's first position
     int j = (int)(blockIdx.x * blockDim.x + threadIdx.x);
     if (j >= n) return;
@@ -277,34 +310,22 @@ __device__ __forceinline__ void trace_pixels(const float4* __restrict__ table, c
     vec3 o, d, att;
     tf::Key trace_key;
     int s = 0, depth = 0, bounces = 0;
-    long long slot = 0, slot_end = 0;
-    if constexpr (RECORD) {
-        slot = slots.ev_start[j];
-        slot_end = slot + slots.ev_count[j];
-    }
+    long long prev = -1;  // the path's previous record (RECORD)
     bool busy = false;
     for (;;) {
         if (!busy) {
             if (s == spp) {  // the pixel is done: write it, take the next position
-                if constexpr (RECORD) {
-                    if (slot != slot_end) atomicOr(&slots.flags[FLAG_UNDER], 1);
-                } else {
-                    const float inv = (float)spp;
-                    out[3 * (int64_t)j + 0] = acc.x / inv;
-                    out[3 * (int64_t)j + 1] = acc.y / inv;
-                    out[3 * (int64_t)j + 2] = acc.z / inv;
-                    if (work != nullptr) work[j] = bounces;
-                }
+                const float inv = (float)spp;
+                out[3 * (int64_t)j + 0] = acc.x / inv;
+                out[3 * (int64_t)j + 1] = acc.y / inv;
+                out[3 * (int64_t)j + 2] = acc.z / inv;
+                if (work != nullptr) work[j] = bounces;
                 j = next_position(queue, first);
                 if (j >= n) break;
                 pixel_key = tf::fold_in({key0, key1}, (uint32_t)pix[j]);
                 acc = {0.0f, 0.0f, 0.0f};
                 s = 0;
                 bounces = 0;
-                if constexpr (RECORD) {
-                    slot = slots.ev_start[j];
-                    slot_end = slot + slots.ev_count[j];
-                }
             }
             const int p = pix[j];
             const rt::Cam cam = rt::unpack_cam(s_cam);
@@ -313,29 +334,30 @@ __device__ __forceinline__ void trace_pixels(const float4* __restrict__ table, c
             trace_key = tf::fold_in(k, 1u);
             att = {1.0f, 1.0f, 1.0f};
             depth = 0;
+            if constexpr (RECORD) prev = -1;
             busy = true;
         }
         float t_best;
         int best;
         jnp_closest_hit(s_sweep, n_spheres, o, d, s_cam[20], t_best, best);
         ++bounces;
-        float4* rec = nullptr;
-        if constexpr (RECORD) {
-            if (slot >= slot_end) {
-                atomicOr(&slots.flags[FLAG_OVER], 1);
-                return;
-            }
-            rec = slots.records + 4 * slot++;
-        }
+        long long slot = 0;
+        if constexpr (RECORD) slot = queue_take(arena.total);
         if (!(t_best < rt::T_MISS * 0.5f)) {  // miss: the sky, and the ray retires
-            if constexpr (RECORD) put_record(rec, o, d, att, -1, trace_key, depth, END_SKY);
-            else acc = acc + att * jnp_sky(d);
+            if constexpr (RECORD) {
+                put_record(arena, slot, o, d, att, -1, trace_key, depth, END_SKY, prev);
+                end_path(arena, j, s, spp, depth, slot);
+            }
+            acc = acc + att * jnp_sky(d);
             busy = false;
             ++s;
             continue;
         }
         if (depth + 1 == max_depth) {  // out of depth: dark
-            if constexpr (RECORD) put_record(rec, o, d, att, best, trace_key, depth, END_DARK);
+            if constexpr (RECORD) {
+                put_record(arena, slot, o, d, att, best, trace_key, depth, END_DARK, prev);
+                end_path(arena, j, s, spp, depth, slot);
+            }
             busy = false;
             ++s;
             continue;
@@ -349,12 +371,18 @@ __device__ __forceinline__ void trace_pixels(const float4* __restrict__ table, c
         const vec3 normal = front_face ? outward : -outward;
         vec3 new_dir, mat_att;
         if (!jnp_scatter(d, normal, front_face, r1, r2, tf::fold_in(trace_key, (uint32_t)depth), new_dir, mat_att)) {
-            if constexpr (RECORD) put_record(rec, o, d, att, best, trace_key, depth, END_DARK);
+            if constexpr (RECORD) {
+                put_record(arena, slot, o, d, att, best, trace_key, depth, END_DARK, prev);
+                end_path(arena, j, s, spp, depth, slot);
+            }
             busy = false;  // absorbed: dark
             ++s;
             continue;
         }
-        if constexpr (RECORD) put_record(rec, o, d, att, best, trace_key, depth, END_NONE);
+        if constexpr (RECORD) {
+            put_record(arena, slot, o, d, att, best, trace_key, depth, END_NONE, prev);
+            prev = slot;
+        }
         att = att * mat_att;
         o = point;
         d = new_dir;
@@ -362,31 +390,30 @@ __device__ __forceinline__ void trace_pixels(const float4* __restrict__ table, c
     }
 }
 
-// Resident blocks an SM holds of `kernel` (a BLOCK-thread kernel with a
-// sweep table of `n_spheres` in dynamic shared memory), or minus the CUDA
-// error.
+// Resident blocks an SM holds of `kernel` (a BLOCK-thread kernel with
+// `smem_bytes` of dynamic shared memory: a sweep table's
+// rt::sweep_table_bytes, or 0), or minus the CUDA error.
 template <typename Kernel>
-inline int blocks_per_sm(Kernel kernel, int n_spheres) {
+inline int blocks_per_sm(Kernel kernel, size_t smem_bytes) {
     int blocks = 0;
-    const cudaError_t err =
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, BLOCK, rt::sweep_table_bytes(n_spheres));
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, BLOCK, smem_bytes);
     return err == cudaSuccess ? blocks : -(int)err;
 }
 
-// `kernel`'s persistent grid for `n` positions on the current device: SMs x
-// resident blocks, at most one block a 128 positions. Minus the CUDA error
-// on failure.
+// `kernel`'s persistent grid for `n` items (positions, or paths) on the
+// current device: SMs x resident blocks, at most one block a 128 items.
+// Minus the CUDA error on failure.
 template <typename Kernel>
-inline int persistent_grid(Kernel kernel, int n_spheres, int n) {
+inline int persistent_grid(Kernel kernel, size_t smem_bytes, long long n) {
     int device = 0, sms = 0;
     cudaError_t err = cudaGetDevice(&device);
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return -(int)err;
-    const int per_sm = blocks_per_sm(kernel, n_spheres);
+    const int per_sm = blocks_per_sm(kernel, smem_bytes);
     if (per_sm < 0) return per_sm;
-    const int most = (n + BLOCK - 1) / BLOCK;
+    const long long most = (n + BLOCK - 1) / BLOCK;
     const int grid = sms * (per_sm > 0 ? per_sm : 1);
-    return grid < most ? grid : most;
+    return grid < most ? grid : (int)most;
 }
 
 }  // namespace tfr

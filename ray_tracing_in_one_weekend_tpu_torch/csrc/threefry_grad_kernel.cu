@@ -1,35 +1,61 @@
-// Backward kernels of the keyed (threefry) path, hand-written for Hopper
-// (sm_90a): the gradient of the jnp render with respect to the packed scene.
+// The keyed train step's kernels, hand-written for Hopper (sm_90a): a
+// forward that records its paths, and the backward that walks them: the
+// gradient of the jnp render with respect to the packed scene.
 //
 // Replace the JAX package's parallel/dist.py::render_grads (jax.grad of the
 // jnp path, ops/integrator.py::trace_rays; there is no Pallas kernel) and
-// compute what it computes: the Monte-Carlo-discrete gradient of each
-// (pixel, sample) path, its decisions constants, summed over the paths.
-// The PCG backward (grad_kernel.cu) cannot serve: it recomputes each
-// bounce's draws from the PCG stream, its primal from the packed -2c and
-// |c|^2 - r^2 rows for a unit direction, and clips every step to +-1e6.
-// Here the draws are threefry uniforms from the trace key, the directions
-// are not unit (a = |d|^2), the fused multiply-adds are XLA's, and there is
-// no clip and no disc floor: the jnp path has neither. Two kernels:
+// compute what it computes: the image, and the Monte-Carlo-discrete
+// gradient of each (pixel, sample) path, its decisions constants, summed
+// over the paths. The PCG backward (grad_kernel.cu) cannot serve: it
+// recomputes each bounce's draws from the PCG stream, its primal from the
+// packed -2c and |c|^2 - r^2 rows for a unit direction, and clips every step
+// to +-1e6. Here the draws are threefry uniforms from the trace key, the
+// directions are not unit (a = |d|^2), the fused multiply-adds are XLA's,
+// and there is no clip and no disc floor: the jnp path has neither.
 //
-// * threefry_replay_kernel: the forward's persistent pixel loop
-//   (threefry_device.cuh, trace_pixels<true>), one 64-byte record a sweep:
-//   the pre-bounce o, d, att, the winner (-1 for a miss), the sample's trace
-//   key, the bounce index and how the path goes on. The forward and the
-//   replay take their decisions by the same instructions, so the records
-//   are the forward's paths. A pixel's slots start at the exclusive prefix
-//   sum, in pixel-id order, of the forward's per-pixel sweeps
-//   (kernels/build.py event_slots), so they do not depend on the order in
-//   which the queue hands pixels out. A pixel that would run past its range
-//   or end short of it raises a flag, and the wrapper refuses the records.
-// * threefry_reverse_kernel: one thread a position walks its records from
-//   the last to the first. At each path's last bounce the adjoints start
-//   from zero, from the sky's adjoint if the path reached the sky; each
-//   earlier bounce of such a path takes keyed_bounce_adjoint. Every record
-//   is overwritten in place with its bounce's event, the PCG event layout
-//   (winner, 13 cotangent rows), so grad_kernel.cu's reduction
-//   (grad_reduce_chunks + grad_reduce_partials) turns the events into the
-//   [16, N] cotangent in a fixed order.
+// * threefry_record_kernel: the forward's persistent pixel loop and pixel
+//   queue (threefry_device.cuh, trace_pixels<true>). It writes the image and
+//   the work map, by the forward's instructions, so with its bits; and one
+//   64-byte record a sweep: the pre-bounce o, d, att, the winner (-1 for a
+//   miss), the sample's trace key, the bounce index, how the path goes on,
+//   and the link to the path's previous record. The records go to an arena
+//   in the order they are made: at each sweep the lanes of a warp take
+//   consecutive slots by one atomicAdd, so a converged warp writes one run
+//   of 2 KB in whole 128-byte lines. Each path (position x spp + sample)
+//   leaves its sweeps and its last record's slot in two tables. It
+//   replaces the replay, which ran the forward's loop a second time in the
+//   backward only to learn its decisions, because its record slots followed
+//   the pixel ids and so waited for the forward's per-pixel counts. What
+//   bounds it on the H100 is the forward's: the FP32 sweep (threefry_render_
+//   kernel.cu's note), 3.16 ms at the bench preset; the records add 64
+//   bytes a sweep of stores, 1.75 GB there (0.52 ms at 3.35 TB/s), which
+//   overlap the sweep. Under __maxnreg__ 80 it holds 79 registers and 6
+//   blocks an SM (72 gives 7 blocks and was 2% slower in
+//   probes/sweep_variants.py; PERF.md). The arena is sized from the last
+//   exact count at the same shapes (kernels/build.py); a sweep past its end
+//   is counted and not written, so the counter ends as the exact count and
+//   the wrapper runs the kernel once more at that size.
+// * threefry_reverse_kernel: persistent blocks whose threads each walk one
+//   path at a time, from its last record to its first along the links,
+//   taking the next path from a queue (one atomicAdd a warp): a thread walks
+//   at most max_depth records, and no lane waits for a long path of
+//   another. A path that ended at the sky takes the sky's adjoint at its
+//   last bounce, then keyed_bounce_adjoint at each earlier one; a path that
+//   ended dark writes empty events and reads nothing but its last record's
+//   end word. The event of bounce d goes to slot L[k] + d of a separate
+//   buffer, L the exclusive prefix sum of the paths' sweeps in (pixel id,
+//   sample) order (kernels/build.py path_slots), in the PCG event layout
+//   (winner, 13 cotangent rows): where the replay used to hold them, so
+//   grad_kernel.cu's reduction (grad_reduce_chunks + grad_reduce_partials)
+//   sums the same events in the same order. What bounds it is bytes: the
+//   records read, the events written, the path tables, about 1.07 ms at
+//   the bench preset. The records are random 64-byte reads; what the walk
+//   gains on it comes from the lanes of a warp taking consecutive paths
+//   together (their events lie side by side: handing a lane 2-8 paths at a
+//   time was 7-30% slower), records read by ld.global.nc and events
+//   written by st.global.cs (8%), and a taken path's first bounce walked
+//   in the same iteration (5%), as measured on an H100 (PERF.md); the load
+//   of the previous record goes out before the current bounce's adjoint.
 //
 // keyed_bounce_adjoint is the vector-Jacobian product of the plain keyed
 // bounce (ops/cuda_threefry.py _keyed_bounce: intersect._winner_t, the hit
@@ -44,17 +70,19 @@
 // |c|^2 - r^2 from center and radius, not from rows 12-15.
 //
 // Build with the forward kernel's flags (nvcc -gencode arch=compute_90a,
-// code=sm_90a -O3 -fmad=false, no --use_fast_math): the replay knows the
-// forward's decisions only by recomputing them.
+// code=sm_90a -O3 -fmad=false, no --use_fast_math): the recording forward
+// renders the forward's bits only by computing as it does.
 #include <cuda_runtime.h>
 
 #include "threefry_device.cuh"
 
 namespace tfr {
 
-// The replay's register cap: the forward's loop plus the record stores.
-#ifndef RT_THREEFRY_REPLAY_REGS
-#define RT_THREEFRY_REPLAY_REGS 80
+// The recording forward's register cap: the forward's loop plus the record
+// stores (probes/sweep_variants.py builds others with
+// -DRT_THREEFRY_RECORD_REGS=r).
+#ifndef RT_THREEFRY_RECORD_REGS
+#define RT_THREEFRY_RECORD_REGS 80
 #endif
 
 // The cotangent of a sphere's parameters that a keyed bounce makes.
@@ -221,123 +249,197 @@ __device__ __forceinline__ void keyed_bounce_adjoint(const float4* row, float t_
     db = d_bar;
 }
 
+// The reverse walk reads each record once by ld.global.nc and writes each
+// event once by st.global.cs (evict first): 8% faster than ld.global.cs
+// and plain stores (probes/sweep_variants.py, PERF.md).
+__device__ __forceinline__ float4 load_word4(const float4* p) { return __ldg(p); }
+
+__device__ __forceinline__ void store_word4(float4* p, float4 v) { __stcs(p, v); }
+
 __device__ __forceinline__ void put_keyed_event(float4* ev, int winner, const KeyedPBar& p) {
-    ev[0] = make_float4(__int_as_float(winner), p.c.x, p.c.y, p.c.z);
-    ev[1] = make_float4(p.r, p.albedo.x, p.albedo.y, p.albedo.z);
-    ev[2] = make_float4(p.fuzz, p.ior, 0.0f, 0.0f);
-    ev[3] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    store_word4(ev, make_float4(__int_as_float(winner), p.c.x, p.c.y, p.c.z));
+    store_word4(ev + 1, make_float4(p.r, p.albedo.x, p.albedo.y, p.albedo.z));
+    store_word4(ev + 2, make_float4(p.fuzz, p.ior, 0.0f, 0.0f));
+    store_word4(ev + 3, make_float4(0.0f, 0.0f, 0.0f, 0.0f));
 }
 
-// No sphere, no cotangent: all 16 words written, so none of the record stays.
+// No sphere, no cotangent: all 16 words written (the events buffer starts
+// uninitialized).
 __device__ __forceinline__ void put_empty_keyed_event(float4* ev) {
     const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    ev[0] = make_float4(__int_as_float(-1), 0.0f, 0.0f, 0.0f);
-    ev[1] = z;
-    ev[2] = z;
-    ev[3] = z;
+    store_word4(ev, make_float4(__int_as_float(-1), 0.0f, 0.0f, 0.0f));
+    store_word4(ev + 1, z);
+    store_word4(ev + 2, z);
+    store_word4(ev + 3, z);
 }
 
-__global__ void __maxnreg__(RT_THREEFRY_REPLAY_REGS)
-    threefry_replay_kernel(const float4* __restrict__ table, int n_spheres, const float* __restrict__ cam_vec,
+__global__ void __maxnreg__(RT_THREEFRY_RECORD_REGS)
+    threefry_record_kernel(const float4* __restrict__ table, int n_spheres, const float* __restrict__ cam_vec,
                            const int* __restrict__ pix, int n, uint32_t key0, uint32_t key1, int sample_offset,
-                           int spp, int max_depth, const long long* __restrict__ ev_start,
-                           const int* __restrict__ ev_count, float4* __restrict__ records, int* __restrict__ flags,
-                           int* __restrict__ queue) {
+                           int spp, int max_depth, float* __restrict__ out, int* __restrict__ work,
+                           int* __restrict__ queue, Arena arena) {
     extern __shared__ float4 s_sweep[];
     __shared__ float s_cam[rt::CAM_LEN];
     load_tables(s_sweep, s_cam, table, n_spheres, cam_vec);
-    trace_pixels<true>(table, s_sweep, n_spheres, s_cam, pix, n, key0, key1, sample_offset, spp, max_depth, nullptr,
-                       nullptr, queue, Slots{ev_start, ev_count, records, flags});
+    trace_pixels<true>(table, s_sweep, n_spheres, s_cam, pix, n, key0, key1, sample_offset, spp, max_depth, out,
+                       work, queue, arena);
+}
+
+__device__ __forceinline__ long long record_link(float4 w3) {
+    return (long long)(((unsigned long long)__float_as_uint(w3.w) << 32) | __float_as_uint(w3.z));
+}
+
+__device__ __forceinline__ void load_record(const float4* __restrict__ arena, long long at, float4& w0, float4& w1,
+                                            float4& w2, float4& w3) {
+    const float4* rec = arena + 4 * at;
+    w0 = load_word4(rec);
+    w1 = load_word4(rec + 1);
+    w2 = load_word4(rec + 2);
+    w3 = load_word4(rec + 3);
 }
 
 __global__ void __launch_bounds__(BLOCK)
     threefry_reverse_kernel(const float4* __restrict__ table, const float* __restrict__ cam_vec,
-                            const float* __restrict__ g, const long long* __restrict__ ev_start,
-                            const int* __restrict__ ev_count, float4* __restrict__ records, long long n_records,
-                            int n) {
-    const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (j >= n) return;
-    const long long first = ev_start[j];
-    // A slot range outside the records (not one the replay gave) is left alone.
-    if (first < 0 || first + ev_count[j] > n_records) return;
+                            const float* __restrict__ g, int n, int spp, const float4* __restrict__ arena,
+                            long long capacity, const long long* __restrict__ path_last,
+                            const int* __restrict__ path_count, const long long* __restrict__ slots,
+                            float4* __restrict__ events, long long n_events, unsigned long long* __restrict__ queue) {
+    const long long paths = (long long)n * spp;
+    const long long first_queued = (long long)gridDim.x * blockDim.x;  // the queue's first path
+    long long path = (long long)blockIdx.x * blockDim.x + threadIdx.x;  // the thread's first path, then the queue's
+    bool taken = false;  // the thread's first path is taken: the next comes from the queue
     const float t_min = cam_vec[20];
-    const vec3 gl = {g[j], g[n + j], g[2 * (int64_t)n + j]};
-    // Whether the path being walked carries radiance, and its adjoints.
-    bool live = false;
-    vec3 ob = {0.0f, 0.0f, 0.0f}, db = ob, ab = ob;
-    for (long long i = first + ev_count[j] - 1; i >= first; --i) {
-        float4* rec = records + 4 * i;
-        const float4 w0 = rec[0], w1 = rec[1], w2 = rec[2], w3 = rec[3];
-        const vec3 d = {w0.w, w1.x, w1.y};
-        const vec3 att = {w1.z, w1.w, w2.x};
-        const int end = __float_as_int(w3.y);
-        if (end != END_NONE) {
-            // A path's last bounce: its adjoints start here. Only a path that
-            // reached the sky carries radiance; the bounce itself has no
-            // sphere (a miss) or no radiance.
-            live = end == END_SKY;
-            if (live) {
-                ob = {0.0f, 0.0f, 0.0f};
-                keyed_sky_adjoint(d, att, gl, db, ab);
+    int left = 0;          // events of the path in hand still to write
+    long long base = 0;    // its first event slot
+    bool lit = false;      // it reached the sky, so its bounces carry adjoints
+    float4 w0, w1, w2, w3;  // a lit path's record of bounce left - 1
+    vec3 ob, db, ab;        // the adjoints of that bounce's outputs
+    for (;;) {
+        if (left == 0) {  // take a path: its last bounce now, the rest an iteration each
+            if (taken) path = first_queued + queue_take(queue);
+            taken = true;
+            if (path >= paths) break;
+            const long long first = slots[path], last = path_last[path];
+            const int count = path_count[path];
+            // A pad position (no slots), or a path whose slots lie outside
+            // the buffer, is left alone.
+            if (first < 0 || count <= 0 || first + count > n_events) continue;
+            base = first;
+            // A last record or a link outside the arena leaves the path's
+            // events to the dark paths' branch below, which writes them empty:
+            // no slot stays uninitialized (the wrapper's checks make both
+            // unreachable).
+            if (last < 0 || last >= capacity) {
+                left = count;
+                lit = false;
+                continue;
             }
-            put_empty_keyed_event(rec);
-        } else if (!live) {
-            put_empty_keyed_event(rec);
-        } else {
-            const int best = __float_as_int(w2.y);
-            const tf::Key trace_key = {__float_as_uint(w2.z), __float_as_uint(w2.w)};
-            const tf::Key k = tf::fold_in(trace_key, (uint32_t)__float_as_int(w3.x));
-            KeyedPBar pb;
-            keyed_bounce_adjoint(table + 4 * best, t_min, {w0.x, w0.y, w0.z}, d, att, k, ob, db, ab, pb);
-            put_keyed_event(rec, best, pb);
+            // The last record's end word first: its other words (one 32-byte
+            // sector of two) only for a path that reached the sky.
+            w3 = load_word4(arena + 4 * last + 3);
+            put_empty_keyed_event(events + 4 * (first + count - 1));  // a miss, or no radiance
+            left = count - 1;
+            lit = __float_as_int(w3.y) == END_SKY;
+            if (left == 0) continue;
+            if (lit) {
+                w0 = load_word4(arena + 4 * last);
+                w1 = load_word4(arena + 4 * last + 1);
+                w2 = load_word4(arena + 4 * last + 2);
+                const long long at = record_link(w3);
+                if (at >= 0 && at < capacity) {
+                    const int64_t j = path / spp;
+                    ob = {0.0f, 0.0f, 0.0f};
+                    keyed_sky_adjoint({w0.w, w1.x, w1.y}, {w1.z, w1.w, w2.x},
+                                      {g[j], g[n + j], g[2 * (int64_t)n + j]}, db, ab);
+                    load_record(arena, at, w0, w1, w2, w3);
+                } else {
+                    lit = false;
+                }
+            }
         }
+        --left;
+        if (!lit) {  // a path that ended dark: no bounce of it carries radiance
+            put_empty_keyed_event(events + 4 * (base + left));
+            continue;
+        }
+        // The previous record's load goes out before this bounce's adjoint.
+        const long long next = record_link(w3);
+        const bool more = left > 0 && next >= 0 && next < capacity;
+        float4 n0, n1, n2, n3;
+        if (more) load_record(arena, next, n0, n1, n2, n3);
+        const int best = __float_as_int(w2.y);
+        const tf::Key trace_key = {__float_as_uint(w2.z), __float_as_uint(w2.w)};
+        const tf::Key key = tf::fold_in(trace_key, (uint32_t)__float_as_int(w3.x));
+        KeyedPBar pb;
+        keyed_bounce_adjoint(table + 4 * best, t_min, {w0.x, w0.y, w0.z}, {w0.w, w1.x, w1.y}, {w1.z, w1.w, w2.x},
+                             key, ob, db, ab, pb);
+        put_keyed_event(events + 4 * (base + left), best, pb);
+        if (!more) {  // the path's first bounce; or a broken link, and its earlier events are written empty
+            lit = false;
+            continue;
+        }
+        w0 = n0;
+        w1 = n1;
+        w2 = n2;
+        w3 = n3;
     }
 }
 
 }  // namespace tfr
 
-// The forward's largest scene (threefry_render_kernel.cu): the replay's
-// sweep table is the same.
+// The forward's largest scene (threefry_render_kernel.cu): the recording
+// forward's sweep table is the same.
 extern "C" int rt_threefry_max_spheres();
 
-// Resident replay blocks an SM holds for a scene of `n_spheres`, or minus
-// the CUDA error.
-extern "C" int rt_threefry_replay_blocks_per_sm(int n_spheres) {
-    return tfr::blocks_per_sm(tfr::threefry_replay_kernel, n_spheres);
+// Resident recording blocks an SM holds for a scene of `n_spheres`, or
+// minus the CUDA error.
+extern "C" int rt_threefry_record_blocks_per_sm(int n_spheres) {
+    return tfr::blocks_per_sm(tfr::threefry_record_kernel, rt::sweep_table_bytes(n_spheres));
 }
 
-// Launch the replay of `n` positions on `stream`. table: [n_spheres, 16] f32
-// (the transposed packed scene); cam: [CAM_LEN] f32; pix: [n] i32 global
-// pixel ids; ev_start [n] i64 and ev_count [n] i32: each position's record
-// slots; records: [sum(ev_count), 16] f32; flags: two i32, zero; queue: one
-// i32, zero. All device pointers, the zeros on the stream before the launch.
-// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
-// a scene the table cannot hold or an `n` whose positions past the grid do
-// not fit in int32.
-extern "C" int rt_threefry_replay(const void* table, int n_spheres, const void* cam, const void* pix, int n,
+// Launch the recording forward of `n` positions on `stream`. table:
+// [n_spheres, 16] f32 (the transposed packed scene); cam: [CAM_LEN] f32;
+// pix: [n] i32 global pixel ids; out: [n, 3] f32; work: [n] i32; queue: one
+// i32, zero; records: [capacity, 16] f32; total: one u64, zero; path_count
+// [n * spp] i32 and path_last [n * spp] i64. All device pointers, the zeros
+// on the stream before the launch. Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a scene
+// the table cannot hold or an `n` whose positions past the grid do not fit
+// in int32.
+extern "C" int rt_threefry_record(const void* table, int n_spheres, const void* cam, const void* pix, int n,
                                   unsigned int key0, unsigned int key1, int sample_offset, int spp, int max_depth,
-                                  const void* ev_start, const void* ev_count, void* records, void* flags,
-                                  void* queue, void* stream) {
+                                  void* out, void* work, void* queue, void* records, long long capacity, void* total,
+                                  void* path_count, void* path_last, void* stream) {
     if (n_spheres <= 0 || n_spheres > rt_threefry_max_spheres()) return (int)cudaErrorInvalidValue;
     if (n <= 0) return 0;
-    const int grid = tfr::persistent_grid(tfr::threefry_replay_kernel, n_spheres, n);
+    const int grid = tfr::persistent_grid(tfr::threefry_record_kernel, rt::sweep_table_bytes(n_spheres), n);
     if (grid < 0) return -grid;
     if ((int64_t)n + (int64_t)grid * tfr::BLOCK > INT32_MAX) return (int)cudaErrorInvalidValue;
-    tfr::threefry_replay_kernel<<<grid, tfr::BLOCK, rt::sweep_table_bytes(n_spheres), (cudaStream_t)stream>>>(
+    const tfr::Arena arena{(float4*)records, capacity, (unsigned long long*)total, (int*)path_count,
+                           (long long*)path_last};
+    tfr::threefry_record_kernel<<<grid, tfr::BLOCK, rt::sweep_table_bytes(n_spheres), (cudaStream_t)stream>>>(
         (const float4*)table, n_spheres, (const float*)cam, (const int*)pix, n, key0, key1, sample_offset, spp,
-        max_depth, (const long long*)ev_start, (const int*)ev_count, (float4*)records, (int*)flags, (int*)queue);
+        max_depth, (float*)out, (int*)work, (int*)queue, arena);
     return (int)cudaGetLastError();
 }
 
-// Launch the reverse walk on `stream`: records [n_records, 16] f32 from the
-// replay, with the same ev_start and ev_count, are overwritten by events; g
-// [3, n] f32, each position's radiance cotangent of one sample. Returns
-// cudaGetLastError().
-extern "C" int rt_threefry_reverse(const void* table, const void* cam, const void* g, const void* ev_start,
-                                   const void* ev_count, void* records, long long n_records, int n, void* stream) {
-    if (n <= 0) return 0;
-    tfr::threefry_reverse_kernel<<<(n + tfr::BLOCK - 1) / tfr::BLOCK, tfr::BLOCK, 0, (cudaStream_t)stream>>>(
-        (const float4*)table, (const float*)cam, (const float*)g, (const long long*)ev_start, (const int*)ev_count,
-        (float4*)records, n_records, n);
+// Launch the reverse walk of the n x spp paths on `stream`: records
+// [capacity, 16] f32 and the path tables from the recording forward (no
+// slot past `capacity` taken), slots [n * spp] i64 each path's
+// first event (-1: none), events [n_events, 16] f32 written; g [3, n] f32,
+// each position's radiance cotangent of one sample; queue: one u64, zero on
+// the stream before the launch. Returns cudaGetLastError().
+extern "C" int rt_threefry_reverse(const void* table, const void* cam, const void* g, int n, int spp,
+                                   const void* records, long long capacity, const void* path_last,
+                                   const void* path_count, const void* slots, void* events, long long n_events,
+                                   void* queue, void* stream) {
+    const long long paths = (long long)n * spp;
+    if (paths <= 0) return 0;
+    const int grid = tfr::persistent_grid(tfr::threefry_reverse_kernel, 0, paths);
+    if (grid < 0) return -grid;
+    tfr::threefry_reverse_kernel<<<grid, tfr::BLOCK, 0, (cudaStream_t)stream>>>(
+        (const float4*)table, (const float*)cam, (const float*)g, n, spp, (const float4*)records, capacity,
+        (const long long*)path_last, (const int*)path_count, (const long long*)slots, (float4*)events, n_events,
+        (unsigned long long*)queue);
     return (int)cudaGetLastError();
 }

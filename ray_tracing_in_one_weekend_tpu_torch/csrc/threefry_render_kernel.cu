@@ -12,7 +12,7 @@
 // 1 << 20, bounce i on fold_in(fold_in(., 1), i). The plain version is
 // ops/render.py::render_pixels_threefry, operation for operation. The device
 // functions and the pixel loop below live in threefry_device.cuh
-// (trace_pixels<false>), which the keyed backward's replay
+// (trace_pixels<false>), which the keyed train step's recording forward
 // (threefry_grad_kernel.cu) runs too, with records.
 //
 // Layout: persistent blocks of 128 threads, SMs x resident blocks of them
@@ -104,7 +104,7 @@ THREEFRY_KERNEL threefry_render_kernel(const float4* __restrict__ table, int n_s
     __shared__ float s_cam[rt::CAM_LEN];
     load_tables(s_sweep, s_cam, table, n_spheres, cam_vec);
     trace_pixels<false>(table, s_sweep, n_spheres, s_cam, pix, n, key0, key1, sample_offset, spp, max_depth, out,
-                        work, queue, Slots{});
+                        work, queue, Arena{});
 }
 
 }  // namespace tfr
@@ -120,13 +120,13 @@ extern "C" int rt_threefry_block() { return tfr::BLOCK; }
 // Resident blocks an SM holds for a scene of `n_spheres`, or minus the CUDA
 // error.
 extern "C" int rt_threefry_blocks_per_sm(int n_spheres) {
-    return tfr::blocks_per_sm(tfr::threefry_render_kernel, n_spheres);
+    return tfr::blocks_per_sm(tfr::threefry_render_kernel, rt::sweep_table_bytes(n_spheres));
 }
 
 // The persistent grid for `n` positions on the current device
 // (tfr::persistent_grid), or minus the CUDA error.
 extern "C" int rt_threefry_grid(int n_spheres, int n) {
-    return tfr::persistent_grid(tfr::threefry_render_kernel, n_spheres, n);
+    return tfr::persistent_grid(tfr::threefry_render_kernel, rt::sweep_table_bytes(n_spheres), n);
 }
 
 // Launch the render of `n` positions on `stream`. table: [n_spheres, 16]

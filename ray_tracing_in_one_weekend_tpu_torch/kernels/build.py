@@ -9,10 +9,10 @@ is compiled, so a build takes seconds.
 
 `render_pass` is the wrapper of `csrc/render_kernel.cu`;
 `threefry_render` that of `csrc/threefry_render_kernel.cu` (the jnp
-backend's forward on threefry keys); `threefry_replay` and
-`threefry_reverse` (chained with `grad_reduce` in `threefry_grad_pass`)
-those of the keyed backward's two kernels, `csrc/threefry_grad_kernel.cu`;
-`grad_replay`,
+backend's forward on threefry keys); `threefry_record` (the keyed train
+step's forward, which records its paths) and `threefry_reverse` (chained
+with `grad_reduce` in `threefry_grad_pass`) those of the two kernels of
+`csrc/threefry_grad_kernel.cu`; `grad_replay`,
 `grad_reverse` and `grad_reduce` (chained in `grad_pass`) are those of the
 three kernels of `csrc/grad_kernel.cu`, the backward's replay, its reverse
 walk and its reduction; `chain_fma`,
@@ -23,7 +23,8 @@ tensors, allocates the outputs, launches on PyTorch's current stream,
 raises if the launch failed, and counts its launches in `LAUNCHES`.
 `blocks_per_sm` reads the occupancy of the kernels that sweep the scene,
 and of the reduction's chunk kernel, from the CUDA runtime;
-`threefry_grid` the persistent grid of the keyed kernel.
+`threefry_grid` the persistent grid of the keyed kernel; `path_slots`
+where the keyed reverse writes each path's events.
 """
 
 from __future__ import annotations
@@ -58,7 +59,8 @@ NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 # Launches per kernel since the last `reset_launches()`: what a run reads
 # to show that its main path went through the kernels.
 LAUNCHES = {
-    "render_kernel": 0, "threefry_render_kernel": 0, "threefry_replay": 0, "threefry_reverse": 0,
+    "render_kernel": 0, "threefry_render_kernel": 0, "threefry_record": 0, "threefry_record_rerun": 0,
+    "threefry_reverse": 0,
     "grad_replay": 0, "grad_reverse": 0, "grad_reduce": 0, "bounce_adjoint": 0,
     "chain_fma": 0, "fma_peak": 0, "sweep_probe": 0, "gather_probe": 0, "skinny_probe": 0,
     "skinny_probe_default": 0,
@@ -184,18 +186,20 @@ def load() -> ctypes.CDLL:
         lib.rt_threefry_blocks_per_sm.argtypes = [i32]
         lib.rt_threefry_grid.restype = i32
         lib.rt_threefry_grid.argtypes = [i32, i32]
-        lib.rt_threefry_replay_blocks_per_sm.restype = i32
-        lib.rt_threefry_replay_blocks_per_sm.argtypes = [i32]
-        lib.rt_threefry_replay.restype = i32
-        lib.rt_threefry_replay.argtypes = [
+        lib.rt_threefry_record_blocks_per_sm.restype = i32
+        lib.rt_threefry_record_blocks_per_sm.argtypes = [i32]
+        lib.rt_threefry_record.restype = i32
+        lib.rt_threefry_record.argtypes = [
             ptr, i32, ptr, ptr, i32,  # table, n_spheres, cam, pix, n
             ctypes.c_uint, ctypes.c_uint, i32, i32, i32,  # key0, key1, sample_offset, spp, max_depth
-            ptr, ptr, ptr, ptr, ptr, ptr,  # ev_start, ev_count, records, flags, queue, stream
+            ptr, ptr, ptr,  # out, work, queue
+            ptr, ctypes.c_longlong, ptr, ptr, ptr, ptr,  # records, capacity, total, path_count, path_last, stream
         ]
         lib.rt_threefry_reverse.restype = i32
         lib.rt_threefry_reverse.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ptr,  # table, cam, g, ev_start, ev_count, records
-            ctypes.c_longlong, i32, ptr,  # n_records, n, stream
+            ptr, ptr, ptr, i32, i32,  # table, cam, g, n, spp
+            ptr, ctypes.c_longlong, ptr, ptr, ptr,  # records, capacity, path_last, path_count, slots
+            ptr, ctypes.c_longlong, ptr, ptr,  # events, n_events, queue, stream
         ]
         lib.rt_grad_replay.restype = i32
         lib.rt_grad_replay.argtypes = [
@@ -262,7 +266,7 @@ def _check_spheres(n_spheres, most):
 def blocks_per_sm(kernel: str, tile: int, n_spheres: int) -> int:
     """Resident blocks an SM holds of `kernel` ("render_kernel",
     "grad_replay", "sweep_probe", or "threefry_render_kernel" and
-    "threefry_replay_kernel", whose block is always 128 threads, or
+    "threefry_record_kernel", whose block is always 128 threads, or
     "grad_reduce_chunks", always 256) at `tile` threads a block for a scene
     of `n_spheres`: the CUDA runtime's occupancy from the kernel's
     registers and shared memory."""
@@ -271,8 +275,8 @@ def blocks_per_sm(kernel: str, tile: int, n_spheres: int) -> int:
         n = lib.rt_sweep_probe_blocks_per_sm(n_spheres)
     elif kernel == "threefry_render_kernel":
         n = lib.rt_threefry_blocks_per_sm(n_spheres)
-    elif kernel == "threefry_replay_kernel":
-        n = lib.rt_threefry_replay_blocks_per_sm(n_spheres)
+    elif kernel == "threefry_record_kernel":
+        n = lib.rt_threefry_record_blocks_per_sm(n_spheres)
     elif kernel == "grad_reduce_chunks":
         n = lib.rt_reduce_blocks_per_sm(n_spheres)
     else:
@@ -569,96 +573,191 @@ def grad_reduce(events, n_spheres):
     return out
 
 
-def threefry_grad_pass(table, cam_vec, pix, key, sample_offset, spp, max_depth, work, pixel_offset, n_live, g):
-    """The keyed backward on CUDA tensors -> [16, N] f32, the cotangent of
-    the packed scene: `threefry_replay`, `threefry_reverse` on its records,
-    then `grad_reduce` over the events."""
-    replay = threefry_replay(table, cam_vec, pix, key, sample_offset, spp, max_depth, work, pixel_offset, n_live)
-    return grad_reduce(threefry_reverse(table, cam_vec, replay, g), table.shape[0])
+@dataclasses.dataclass
+class Recording:
+    """The paths of a recording forward (`threefry_record`, or its plain
+    version `ops/cuda_threefry.record_plain`): path k = position x spp +
+    sample of the positions `pix`. The arena holds one 64-byte record a
+    sweep in the order the sweeps were made (int fields as int32 bits): 0-2
+    the pre-bounce o, 3-5 d, 6-8 att, 9 the winning sphere (-1 for a miss),
+    10-11 the sample's trace key, 12 the bounce index, 13 how the path goes
+    on (0 on, 1 ends without radiance, 2 ends at the sky), 14-15 the arena
+    index (int64) of the same path's previous record, -1 at its first: the
+    PCG replay's layout in words 0-13. `total` counts the sweeps made: more
+    than the arena holds when it ran out, and then the records are
+    incomplete (`threefry_grad_pass` records again at that size)."""
+
+    arena: torch.Tensor  # [capacity, 16] f32
+    total: torch.Tensor  # [1] int64, on the arena's device
+    path_count: torch.Tensor  # [n * spp] int32, each path's sweeps
+    path_last: torch.Tensor  # [n * spp] int64, the arena index of each path's last record
+    pix: torch.Tensor  # [n] int32 global pixel ids
+    table: torch.Tensor  # [N, 16] f32, the transposed packed scene
+    cam_vec: torch.Tensor  # [24] f32
+    key: tuple  # the base key's two words
+    sample_offset: int
+    spp: int
+    max_depth: int
+
+    @property
+    def capacity(self) -> int:
+        return self.arena.shape[0]
 
 
-def threefry_replay(table, cam_vec, pix, key, sample_offset, spp, max_depth, work, pixel_offset, n_live) -> Replay:
-    """`threefry_replay_kernel` on CUDA tensors: the keyed forward's paths of
-    global pixel ids `pix` [n] i32, replayed with its persistent loop and
-    pixel queue -> `Replay`, one 64-byte record a sweep in the position's
-    slots (`event_slots`: the ranges follow the pixel ids in increasing
-    order), in sample and bounce order. Record words (int fields as int32
-    bits): 0-2 the pre-bounce o, 3-5 d, 6-8 att, 9 the winning sphere (-1
-    for a miss), 10-11 the sample's trace key, 12 the bounce index, 13 how
-    the path goes on (0 on, 1 ends without radiance, 2 ends at the sky),
-    14-15 zero.
+# The last exact count of sweeps of a recording forward, by (positions, spp,
+# max_depth, spheres): the next arena holds that many and a sixteenth more
+# (a step after an SGD update sweeps a little more or less). Before any,
+# ARENA_FIRST_SWEEPS sweeps a path (the bench preset's cover scene: 2.84).
+_ARENA_TOTALS: dict = {}
+ARENA_MARGIN = 16
+ARENA_FIRST_SWEEPS = 3
 
-    table, cam_vec, key, sample_offset, spp and max_depth as for
-    `threefry_render`; `work` [n_live - pixel_offset] int, the forward's
-    sweeps of each pixel in pixel order (its `work` output); every id of
-    `pix` must lie in [pixel_offset, n_live). Raises if the replay did not
-    take the forward's paths (a pixel's sweeps differ from `work`)."""
+
+def arena_capacity(n: int, spp: int, max_depth: int, n_spheres: int) -> int:
+    """Records the next recording forward's arena holds for these shapes."""
+    total = _ARENA_TOTALS.get((n, spp, max_depth, n_spheres))
+    if total is None:
+        return n * spp * min(max_depth, ARENA_FIRST_SWEEPS)
+    return total + total // ARENA_MARGIN
+
+
+def path_slots(pix, path_count, spp: int, pixel_offset: int, n_live: int):
+    """Where the keyed reverse writes each path's events -> (slots [n * spp]
+    int64, n_events: a 0-d int64 tensor), on the device, with no host sync.
+
+    Path k = position x spp + sample writes the event of its bounce d to
+    slot slots[k] + d: the exclusive prefix sum of the paths' sweeps
+    (`path_count`) in (pixel id, sample) order, i.e. `event_slots`'
+    ev_start of the position plus the sweeps of the pixel's earlier
+    samples, so the events lie where the replay's records lay and the
+    reduction sums them in the same order for any order of `pix`. Pad
+    positions (ids outside [pixel_offset, n_live)) own no slots: -1."""
+    n = pix.shape[0]
+    local = pix.to(torch.int64) - pixel_offset
+    live = (local >= 0) & (pix < n_live)
+    counts = torch.where(live[:, None], path_count.reshape(n, spp).to(torch.int64), 0)
+    # The sweeps of each pixel's earlier samples, from one flat scan in
+    # position order (a scan along the samples' short rows is far slower).
+    flat = counts.reshape(-1)
+    before = (torch.cumsum(flat, 0) - flat).reshape(n, spp)
+    earlier = before - before[:, :1]
+    work = earlier[:, -1] + counts[:, -1]
+    order = torch.argsort(torch.where(live, local, 1 << 40), stable=True)
+    start = torch.empty_like(work)
+    start[order] = torch.cumsum(work[order], 0) - work[order]
+    return torch.where(live[:, None], start[:, None] + earlier, -1).reshape(-1), work.sum()
+
+
+def threefry_record(table, cam_vec, pix, key, sample_offset, spp, max_depth, capacity: int | None = None):
+    """`threefry_record_kernel` on CUDA tensors: the keyed forward of
+    `threefry_render` (same arguments; see there) that also records its
+    paths -> (out [n, 3] f32, work [n] int32, `Recording`). The image and
+    the work map are `threefry_render`'s bits. The arena holds `capacity`
+    records (default `arena_capacity`: the last exact count at these
+    shapes, with a margin); the sweeps past it are counted in `total` and
+    not written. No host sync: `threefry_grad_pass` reads `total`."""
     device = pix.device
     n, n_spheres, k0, k1 = _check_keyed(table, cam_vec, pix, key, sample_offset, spp, max_depth, device,
-                                        "threefry_replay")
-    pixel_offset, n_live = int(pixel_offset), int(n_live)
-    if work.device != device or work.dtype not in (torch.int32, torch.int64) \
-            or tuple(work.shape) != (n_live - pixel_offset,):
-        raise ValueError(f"work must be an integer tensor [{n_live - pixel_offset}] on {device}, got "
-                         f"{work.dtype} {tuple(work.shape)} on {work.device}")
-    if n > 0 and not (int(pix.min()) >= pixel_offset and int(pix.max()) < n_live):
-        raise ValueError(f"pixel ids must lie in [{pixel_offset}, {n_live})")
+                                        "threefry_record")
     lib = load()
-    ev_start, ev_count = event_slots(pix, work, pixel_offset, n_live)
-    records = torch.empty((int(ev_count.sum()), 16), dtype=torch.float32, device=device)
-    flags = torch.zeros(2, dtype=torch.int32, device=device)
+    capacity = arena_capacity(n, spp, max_depth, n_spheres) if capacity is None else int(capacity)
+    if capacity < 0:
+        raise ValueError(f"capacity ({capacity}) must be >= 0")
+    out = torch.empty((n, 3), dtype=torch.float32, device=device)
+    work = torch.empty((n,), dtype=torch.int32, device=device)
+    arena = torch.empty((capacity, 16), dtype=torch.float32, device=device)
+    total = torch.zeros((1,), dtype=torch.int64, device=device)
+    path_count = torch.empty((n * spp,), dtype=torch.int32, device=device)
+    path_last = torch.empty((n * spp,), dtype=torch.int64, device=device)
+    rec = Recording(arena, total, path_count, path_last, pix, table, cam_vec, (k0, k1), int(sample_offset),
+                    int(spp), int(max_depth))
+    if n == 0:
+        return out, work, rec
     queue = torch.zeros((1,), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
-        err = lib.rt_threefry_replay(
+        err = lib.rt_threefry_record(
             table.data_ptr(), n_spheres, cam_vec.data_ptr(), pix.data_ptr(), n, k0, k1, int(sample_offset),
-            int(spp), int(max_depth), ev_start.data_ptr(), ev_count.data_ptr(), records.data_ptr(),
-            flags.data_ptr(), queue.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+            int(spp), int(max_depth), out.data_ptr(), work.data_ptr(), queue.data_ptr(), arena.data_ptr(),
+            capacity, total.data_ptr(), path_count.data_ptr(), path_last.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream,
         )
-    _raise_on(lib, err, "threefry_replay_kernel")
-    LAUNCHES["threefry_replay"] += 1
-    over, under = flags.tolist()
-    if over or under:
-        raise RuntimeError(
-            "threefry_replay_kernel: the replay diverged from the forward render (a pixel had "
-            f"{'more' if over else 'fewer'} sweeps than its work count)"
-        )
-    return Replay(records, ev_start, ev_count)
+    _raise_on(lib, err, "threefry_record_kernel")
+    LAUNCHES["threefry_record"] += 1
+    return out, work, rec
 
 
-def threefry_reverse(table, cam_vec, replay: Replay, g):
-    """`threefry_reverse_kernel` on CUDA tensors: each position walks its
-    records from the last to the first and overwrites each IN PLACE with
-    that bounce's event -> the record buffer, now events [E, 16] f32 in
-    `grad_reverse`'s layout: word 0 the winning sphere as int32 bits (-1 for
-    none), words 1-13 the cotangent of its rows 0-3, 5-9, 12-15 (rows 12-15
-    zero: the keyed sweep reads center and radius), words 14-15 zero.
+def threefry_grad_pass(rec: Recording, g, pixel_offset, n_live):
+    """The keyed backward on CUDA tensors -> [16, N] f32, the cotangent of
+    the packed scene: `threefry_reverse` on the recording's paths, then
+    `grad_reduce` over the events. `rec` as `threefry_record` returned it,
+    every id of its `pix` in [pixel_offset, n_live) (others are pads and
+    add nothing); g [3, n] f32, each position's radiance cotangent of one
+    sample. One host sync reads the sweeps made and the events' count. If
+    the arena ran out, the recording forward runs once more at exactly the
+    sweeps made (counted in LAUNCHES["threefry_record_rerun"]); its paths
+    are the same, so nothing is truncated."""
+    slots, n_events = path_slots(rec.pix, rec.path_count, rec.spp, int(pixel_offset), int(n_live))
+    total, n_events = torch.stack([rec.total[0], n_events]).tolist()
+    rec = complete_recording(rec, total)
+    return grad_reduce(threefry_reverse(rec, slots, n_events, g, total), rec.table.shape[0])
 
-    `replay` as `threefry_replay` returned it, with the same table and
-    cam_vec; the call consumes it (`replay.records` becomes None). g [3, n]
-    f32, each position's radiance cotangent of one sample."""
+
+def complete_recording(rec: Recording, total: int) -> Recording:
+    """`rec`, whose forward made `total` sweeps (`int(rec.total)`), or, if
+    its arena ran out, the recording forward once more at exactly `total`
+    records (counted in LAUNCHES["threefry_record_rerun"] as well as
+    LAUNCHES["threefry_record"]): the same paths, every record kept. The
+    count sizes the next arena at these shapes (`arena_capacity`)."""
+    _ARENA_TOTALS[(rec.pix.shape[0], rec.spp, rec.max_depth, rec.table.shape[0])] = total
+    if total <= rec.capacity:
+        return rec
+    _, _, rec = threefry_record(rec.table, rec.cam_vec, rec.pix, rec.key, rec.sample_offset, rec.spp,
+                                rec.max_depth, capacity=total)
+    LAUNCHES["threefry_record_rerun"] += 1
+    return rec
+
+
+def threefry_reverse(rec: Recording, slots, n_events: int, g, total: int):
+    """`threefry_reverse_kernel` on CUDA tensors: each thread walks a path
+    at a time, from its last record to its first along the links, and
+    writes the event of its bounce d to slot slots[k] + d -> events
+    [n_events, 16]
+    f32 in `grad_reverse`'s layout: word 0 the winning sphere as int32 bits
+    (-1 for none: a miss, or a path that ends without radiance), words
+    1-13 the cotangent of its rows 0-3, 5-9, 12-15 (rows 12-15 zero: the
+    keyed sweep reads center and radius), words 14-15 zero.
+
+    `rec` as `threefry_record` returned it, `total` its sweeps made (which
+    must fit the arena); `slots` and `n_events` as `path_slots` gives them
+    (n_events as an int); g [3, n] f32, each position's radiance cotangent
+    of one sample. The arena is read, not written."""
     device = g.device
     if device.type != "cuda":
         raise ValueError(f"threefry_reverse runs on CUDA tensors, got {device}")
-    records, ev_start, ev_count = replay.records, replay.ev_start, replay.ev_count
-    if records is None:
-        raise ValueError("threefry_reverse: this Replay was reversed already (its records are events now)")
-    n = g.shape[1] if g.dim() == 2 else -1
-    _check_grad_tables(table, cam_vec, device)
+    n, spp, capacity = rec.pix.shape[0], rec.spp, rec.capacity
+    if total > capacity:
+        raise ValueError(f"threefry_reverse: the arena holds {capacity} records of the {total} sweeps made "
+                         "(record again at that size)")
+    _check_grad_tables(rec.table, rec.cam_vec, device)
     _check_tensor("g", g, torch.float32, (3, n), device)
-    _check_tensor("ev_start", ev_start, torch.int64, (n,), device)
-    _check_tensor("ev_count", ev_count, torch.int32, (n,), device)
-    n_events = records.shape[0] if records.dim() == 2 else -1
-    _check_tensor("records", records, torch.float32, (n_events, 16), device)
+    _check_tensor("records", rec.arena, torch.float32, (capacity, 16), device)
+    _check_tensor("path_last", rec.path_last, torch.int64, (n * spp,), device)
+    _check_tensor("path_count", rec.path_count, torch.int32, (n * spp,), device)
+    _check_tensor("slots", slots, torch.int64, (n * spp,), device)
+    if n_events < 0:
+        raise ValueError(f"n_events ({n_events}) must be >= 0")
     lib = load()
-    replay.records = None
+    events = torch.empty((int(n_events), 16), dtype=torch.float32, device=device)
+    queue = torch.zeros((1,), dtype=torch.int64, device=device)
     with torch.cuda.device(device):
         err = lib.rt_threefry_reverse(
-            table.data_ptr(), cam_vec.data_ptr(), g.data_ptr(), ev_start.data_ptr(), ev_count.data_ptr(),
-            records.data_ptr(), n_events, n, torch.cuda.current_stream(device).cuda_stream,
+            rec.table.data_ptr(), rec.cam_vec.data_ptr(), g.data_ptr(), n, spp, rec.arena.data_ptr(), capacity,
+            rec.path_last.data_ptr(), rec.path_count.data_ptr(), slots.data_ptr(), events.data_ptr(),
+            int(n_events), queue.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
         )
     _raise_on(lib, err, "threefry_reverse_kernel")
     LAUNCHES["threefry_reverse"] += 1
-    return records
+    return events
 
 
 def bounce_adjoint(table, t_min, rec, ob, db, ab):

@@ -20,20 +20,25 @@ the card they agree bit for bit where the render kernel and its plain
 version do; against the JAX package on the CPU they agree to float32
 rounding per bounce (tests/test_torch_jnp_render.py holds the gates).
 
-The keyed gradient's backward, the counterpart of `jax.grad` of the jnp
-path (JAX parallel/dist.py:225-282), is `keyed_grad_pass`: on CUDA tensors
-`csrc/threefry_grad_kernel.cu` through `kernels.build.threefry_grad_pass`
-(`threefry_replay_kernel` records every sweep of the forward's paths,
-`threefry_reverse_kernel` turns the records into per-bounce events in
-place by the keyed bounce adjoint, and the PCG backward's fixed-order
-reduction sums them into the [16, N] cotangent of the packed scene). Its
-plain versions are here, record for record: `replay_records_plain`
-(the records of `render_flat_threefry`, whose `trace_rays_threefry`
-returns one a sweep) and
-`reverse_records_plain` (torch.autograd of `_keyed_bounce`, the plain
-keyed bounce, and of the sky, walked from each path's end). Nothing on
-the main path runs them when a card is present; `parallel/dist.py`'s CPU
-path differentiates the plain render itself.
+The keyed train step, the counterpart of `jax.grad` of the jnp path (JAX
+parallel/dist.py:225-282), is `record_keyed` then `keyed_grad_pass`: on
+CUDA tensors `csrc/threefry_grad_kernel.cu` through
+`kernels.build.threefry_record` (the forward, which also records every
+sweep of its paths into an arena in the order it makes them, each record
+linked to its path's previous one) and `kernels.build.threefry_grad_pass`
+(`threefry_reverse_kernel` walks each path back along the links by the
+keyed bounce adjoint and writes its events where `build.path_slots` puts
+them, then the PCG backward's fixed-order reduction sums them into the
+[16, N] cotangent of the packed scene). Their plain versions are here, on
+the CPU the wrappers' own route: `record_plain` (`render_flat_threefry`'s
+image and work map, whose `trace_rays_threefry` returns one record a
+sweep, and the arena, links and path tables), `reverse_paths_plain`
+(torch.autograd of `_keyed_bounce`, the plain keyed bounce, and of the
+sky, walked from each path's end along the links) and the ordered
+reduction. `replay_records_plain` and `reverse_records_plain` keep the
+records and events in their logical order (pixel id, sample, bounce):
+`records_in_logical_order` puts an arena in that order.
+`parallel/dist.py`'s CPU path differentiates the plain render itself.
 """
 
 from __future__ import annotations
@@ -44,7 +49,11 @@ from ray_tracing_in_one_weekend_tpu_torch.models.camera import Camera
 from ray_tracing_in_one_weekend_tpu_torch.models.scene import Scene
 from ray_tracing_in_one_weekend_tpu_torch.ops import intersect, sampling
 from ray_tracing_in_one_weekend_tpu_torch.ops import vecmath as vm
-from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_grad import _EVENT_ROWS, _path_positions
+from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_grad import (
+    _EVENT_ROWS,
+    _path_positions,
+    _reduce_events_ordered,
+)
 from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import _u32, pack_camera, pack_scene
 from ray_tracing_in_one_weekend_tpu_torch.ops.integrator import (
     _END_SKY,
@@ -84,29 +93,105 @@ _PLAIN_PIXELS = {"cuda": 1 << 14, "cpu": 1 << 10}
 _PLAIN_RECORDS = {"cuda": 1 << 20, "cpu": 1 << 16}
 
 
-def keyed_grad_pass(scene: Scene, cam: Camera, pix, base_key, sample_offset, spp, work, g) -> torch.Tensor:
-    """The keyed backward on a CUDA scene -> [16, N] f32, the cotangent of
-    `pack_scene(scene)`: `build.threefry_grad_pass` (replay, reverse,
-    reduction), which raises if a kernel cannot build or launch or the
-    replay leaves the forward's paths. `pix` [n] the distinct global pixel
-    ids of a contiguous run [pix.min(), pix.max()], `work` [n] their
-    forward sweeps in pixel order, `g` [3, n] their radiance cotangents of
-    one sample."""
+def record_keyed(scene: Scene, cam: Camera, pix, base_key=0, spp: int | None = None, sample_offset: int = 0,
+                 p_mat: torch.Tensor | None = None):
+    """The keyed forward that records its paths -> (colors [n, 3], work [n]
+    int32, `build.Recording`) for the distinct global pixel ids `pix`: on a
+    CUDA scene `build.threefry_record` (which raises if it cannot build or
+    launch; the colors are `render_kernel_pixels`' bits), on a CPU scene
+    `record_plain`. `p_mat`: `pack_scene(scene)` where the caller has it."""
     from ray_tracing_in_one_weekend_tpu_torch.kernels import build
 
+    spp = cam.samples_per_pixel if spp is None else spp
+    if scene.device.type != "cuda":
+        return record_plain(scene, cam, pix, base_key, sample_offset, spp)
+    table = (pack_scene(scene) if p_mat is None else p_mat.detach()).T.contiguous()
     pix = torch.as_tensor(pix, device=scene.device).reshape(-1).to(torch.int32).contiguous()
-    start = int(pix.min())
-    return build.threefry_grad_pass(
-        pack_scene(scene).T.contiguous(), pack_camera(cam).to(scene.device), pix, as_key(base_key),
-        sample_offset, spp, cam.max_depth, work, start, start + pix.numel(), g.contiguous(),
-    )
+    return build.threefry_record(table, pack_camera(cam).to(scene.device), pix, as_key(base_key), sample_offset,
+                                 spp, cam.max_depth)
+
+
+def keyed_grad_pass(rec, g, pixel_offset: int, n_live: int) -> torch.Tensor:
+    """The keyed backward of a recording (`record_keyed`) -> [16, N] f32, the
+    cotangent of the packed scene, for `g` [3, n] each position's radiance
+    cotangent of one sample; ids of `rec.pix` outside [pixel_offset, n_live)
+    add nothing. On CUDA tensors `build.threefry_grad_pass` (the reverse
+    kernel and the reduction; it raises if a kernel cannot build or
+    launch); on the CPU `reverse_paths_plain` and the ordered reduction."""
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+
+    g = g.contiguous()
+    if rec.arena.device.type == "cuda":
+        return build.threefry_grad_pass(rec, g, pixel_offset, n_live)
+    slots, n_events = build.path_slots(rec.pix, rec.path_count, rec.spp, pixel_offset, n_live)
+    events = reverse_paths_plain(rec.table.T, rec.cam_vec, rec, slots, int(n_events), g)
+    return _reduce_events_ordered(events, rec.table.shape[0])
+
+
+def record_plain(scene: Scene, cam: Camera, pix, base_key=0, sample_offset: int = 0, spp: int | None = None):
+    """The recording forward in plain PyTorch -> (colors [n, 3], work [n]
+    int32, `build.Recording`), the layout of `build.threefry_record`:
+    `render_flat_threefry`'s image and work map (its bits), and its
+    records in the order it makes them (chunk, sample, bounce), each linked
+    to its path's previous one, with the path tables. The arena holds
+    exactly the sweeps made."""
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.ops.render import render_flat_threefry
+
+    spp = cam.samples_per_pixel if spp is None else spp
+    dev = scene.device
+    pix = torch.as_tensor(pix, device=dev).reshape(-1).to(torch.int32)
+    chunk = _PLAIN_PIXELS.get(dev.type, _PLAIN_PIXELS["cpu"])
+    colors, work, parts = render_flat_threefry(scene, cam, pix, base_key, chunk_size=chunk, spp=spp,
+                                               sample_offset=sample_offset, return_work=True,
+                                               return_records=True)
+    arena = torch.empty(sum(rows.shape[0] for *_, rows in parts), 16, dtype=torch.float32, device=dev)
+    path_count = torch.zeros(pix.numel() * spp, dtype=torch.int32, device=dev)
+    path_last = torch.full((pix.numel() * spp,), -1, dtype=torch.int64, device=dev)  # each path's latest
+    at = 0
+    for lanes, s, depth, rows in parts:  # moved as int32, so every word keeps its bits
+        k = lanes * spp + s
+        idx = torch.arange(at, at + rows.shape[0], device=dev)
+        arena.view(torch.int32)[idx] = rows.view(torch.int32)
+        arena.view(torch.int64)[idx, 7] = path_last[k]  # words 14-15: the link
+        path_last[k] = idx
+        path_count[k] = depth + 1
+        at += rows.shape[0]
+    rec = build.Recording(arena, torch.tensor([at], dtype=torch.int64, device=dev), path_count, path_last, pix,
+                          pack_scene(scene).T.contiguous(), pack_camera(cam).to(dev), as_key(base_key),
+                          sample_offset, spp, cam.max_depth)
+    return colors, work, rec
+
+
+def records_in_logical_order(rec, slots, n_events: int) -> torch.Tensor:
+    """A recording's records in their logical order -> [n_events, 16] f32:
+    the record of bounce d of path k at slots[k] + d (`build.path_slots`),
+    found by walking each path's links from its last record; pad paths
+    (slots -1) are left out. Every word keeps its bits."""
+    dev = rec.arena.device
+    words, links = rec.arena.view(torch.int32), rec.arena.view(torch.int64)[:, 7]
+    counts = rec.path_count.to(torch.int64)
+    out = torch.zeros(n_events, 16, dtype=torch.float32, device=dev)
+    sel = ((slots >= 0) & (counts > 0)).nonzero()[:, 0]
+    at = rec.path_last[sel]
+    r = 0
+    while sel.numel():
+        out.view(torch.int32)[slots[sel] + counts[sel] - 1 - r] = words[at]
+        at = links[at]
+        r += 1
+        keep = counts[sel] > r
+        sel, at = sel[keep], at[keep]
+    return out
 
 
 def replay_records_plain(scene: Scene, cam: Camera, pix, base_key=0, sample_offset: int = 0,
                          spp: int | None = None, pixel_offset: int = 0, n_live: int | None = None):
-    """The keyed replay in plain PyTorch -> `build.Replay`, the layout of
-    `build.threefry_replay` (see there): each pixel's sweeps in sample and
-    bounce order, in slots that follow the pixel ids. `pix` [n] distinct
+    """The keyed paths' records in their logical order, in plain PyTorch ->
+    `build.Replay` (words 0-13 as `build.Recording` describes them, 14-15
+    zero): each pixel's sweeps in sample and bounce order, in slots that
+    follow the pixel ids (`build.event_slots`), where
+    `records_in_logical_order` puts the recording forward's arena and the
+    reverse kernel writes the events. `pix` [n] distinct
     global pixel ids in [pixel_offset, n_live) (default: the image). The
     records are `render_flat_threefry`'s (its keys, camera rays and
     `trace_rays_threefry`'s bounces); the slots come from this replay's own
@@ -216,4 +301,58 @@ def reverse_records_plain(p_mat, cam_vec, replay, g) -> torch.Tensor:
             bars[0, path[sel]], bars[1, path[sel]], bars[2, path[sel]] = ob, db, ab
             events.view(torch.int32)[sel, 0] = winner.to(torch.int32)
             events[sel, 1:14] = pb[:, list(_EVENT_ROWS)]
+    return events
+
+
+def reverse_paths_plain(p_mat, cam_vec, rec, slots, n_events: int, g) -> torch.Tensor:
+    """The keyed reverse kernel in plain PyTorch, a path at a time: a
+    recording (`record_plain` or `build.threefry_record`, its arena in any
+    order) -> events [n_events, 16] f32, the layout of
+    `build.threefry_reverse`, the event of bounce d of path k at slots[k] +
+    d (`build.path_slots`). `p_mat` [16, N] the packed scene, `g` [3, n]
+    each position's radiance cotangent of one sample.
+
+    Step r takes the record r places before each path's end, found along
+    the links, for the paths that reached the sky: at r = 0 the adjoint of
+    att * sky_color(d), then each earlier bounce's vector-Jacobian product
+    of `_keyed_bounce`, from torch.autograd. The paths go in the order of
+    their slots, so each step's batches are `reverse_records_plain`'s and
+    the events its bits."""
+    t_min = float(cam_vec[20])
+    dev = rec.arena.device
+    words, links = rec.arena.view(torch.int32), rec.arena.view(torch.int64)[:, 7]
+    counts = rec.path_count.to(torch.int64)
+    events = torch.zeros(n_events, 16, dtype=torch.float32, device=dev)
+    events.view(torch.int32)[:, 0] = -1
+    paths = ((slots >= 0) & (counts > 0)).nonzero()[:, 0]
+    paths = paths[torch.argsort(slots[paths])]
+    paths = paths[words[rec.path_last[paths], _REC_END] == _END_SKY]  # the paths that reached the sky
+    at = rec.path_last[paths]
+    bars = torch.zeros(3, paths.numel(), 3, dtype=torch.float32, device=dev)  # o, d, att adjoints a path
+    chunk = _PLAIN_RECORDS.get(dev.type, _PLAIN_RECORDS["cpu"])
+    live = torch.arange(paths.numel(), device=dev)  # the paths still walked, as indices into `paths`
+    r = 0
+    while live.numel():
+        for part in live.split(chunk):
+            rows = rec.arena[at[part]]
+            o, d, att = (rows[:, a : a + 3].contiguous() for a in (0, 3, 6))  # as the plain reverse slices them
+            if r == 0:  # the path's last bounce: the sky's adjoint
+                db, ab = _vjp(lambda d, att: att * sky_color(d), (d, att),
+                              (g[:, paths[part] // rec.spp].T.contiguous(),))
+                bars[1, part], bars[2, part] = db, ab
+                continue
+            rw = rows.view(torch.int32)
+            winner = rw[:, _REC_WINNER].to(torch.int64)
+            keys = (_u32(rw[:, _REC_K0]), _u32(rw[:, _REC_K1]))
+            depth = rw[:, _REC_DEPTH].to(torch.int64)
+            cot = tuple(bars[i, part] for i in range(3))
+            ob, db, ab, pb = _vjp(lambda o, d, att, pc: _keyed_bounce(o, d, att, pc, keys, depth, t_min),
+                                  (o, d, att, p_mat[:, winner].T), cot)
+            bars[0, part], bars[1, part], bars[2, part] = ob, db, ab
+            slot = slots[paths[part]] + counts[paths[part]] - 1 - r
+            events.view(torch.int32)[slot, 0] = winner.to(torch.int32)
+            events[slot, 1:14] = pb[:, list(_EVENT_ROWS)]
+        r += 1
+        live = live[counts[paths[live]] > r]
+        at[live] = links[at[live]]
     return events

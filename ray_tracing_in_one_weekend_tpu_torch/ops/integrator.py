@@ -121,10 +121,12 @@ def sky_color(direction: torch.Tensor) -> torch.Tensor:
     return vm.fma(a[..., None], blue, (1.0 - a)[..., None])
 
 
-# Record words of the keyed replay (`build.threefry_replay`; int fields as
-# int32 bits): o, d, att at 0-8, then the winner (-1 for a miss), the trace
-# key's two words, the bounce index and how the path goes on after the
-# bounce. The layout of the PCG records, so `cuda_grad._path_positions`
+# Record words of the keyed recording forward (`build.threefry_record`; int
+# fields as int32 bits): o, d, att at 0-8, then the winner (-1 for a miss),
+# the trace key's two words, the bounce index and how the path goes on after
+# the bounce; words 14-15 hold the arena index of the path's previous record
+# there (here, and in `replay_records_plain`'s logical order, zero). The
+# layout of the PCG records in words 0-13, so `cuda_grad._path_positions`
 # walks both.
 _REC_WINNER, _REC_K0, _REC_K1, _REC_DEPTH, _REC_END = 9, 10, 11, 12, 13
 _END_NONE, _END_DARK, _END_SKY = 0, 1, 2  # goes on; ends without radiance; ends at the sky
@@ -158,7 +160,7 @@ def trace_rays_threefry(
     JAX package's jnp `trace_rays` (integrator.py:50-120). With
     `return_work`, also the [R] int32 sweeps each ray ran: one a bounce it
     was live for, as `csrc/threefry_render_kernel.cu` counts them. With
-    `return_records`, last, the sweeps as the replay kernel records them
+    `return_records`, last, the sweeps as the recording forward records them
     (`_record_rows`): [(rays [L], records [L, 16])], one entry a bounce of
     the L rays still live, in bounce order.
 

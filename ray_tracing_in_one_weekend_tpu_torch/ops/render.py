@@ -166,7 +166,7 @@ def render_pixels_threefry(
     linear sample-mean color [R, 3] on the scene's device, in one piece
     (JAX render.py:39-82), and with `return_work` the [R] int32 sweeps each
     pixel ran over its samples, as the kernel counts them. With
-    `return_records`, last, every sweep as the replay kernel records it:
+    `return_records`, last, every sweep as the recording forward records it:
     [(pixels [L] as positions in the batch, sample, bounce, records
     [L, 16])] (`trace_rays_threefry`'s records, sample by sample).
     `sample_offset` shifts the global sample indices drawn; any subset of

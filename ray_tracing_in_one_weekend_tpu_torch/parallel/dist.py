@@ -25,9 +25,9 @@ padding repeating the last pixel, each rendered by `render_keyed` (the
 kernel on the card, the plain version on the CPU). Its gradient, JAX's
 `render_loss`, `render_grads` and `train_step` (:225-282 there), goes
 through `render_distributed(..., differentiable=True)`: on a CUDA scene the
-backward is the keyed kernels (`ops/cuda_threefry.keyed_grad_pass`), on a
-CPU scene torch.autograd through the plain render, re-rendered a chunk at a
-time. `render_grads_autograd` takes the plain route on any device: the
+forward records its paths (`ops/cuda_threefry.record_keyed`) and the
+backward reverses them (`keyed_grad_pass`), on a CPU scene torch.autograd
+through the plain render, re-rendered a chunk at a time. `render_grads_autograd` takes the plain route on any device: the
 oracle the card holds the kernels against. The PCG streams' autograd
 render keeps its own names, `render_loss_pcg`, `render_grads_pcg` and
 `train_step_pcg`.
@@ -64,7 +64,7 @@ from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_grad import (
     scene_with_params,
 )
 from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import _rank_share, pack_camera, pack_scene
-from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_threefry import keyed_grad_pass
+from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_threefry import keyed_grad_pass, record_keyed
 from ray_tracing_in_one_weekend_tpu_torch.ops.render import (
     DEFAULT_CHUNK,
     render_flat_threefry,
@@ -524,48 +524,59 @@ class _DiffRenderKeyed(torch.autograd.Function):
     vector-Jacobian product is the keyed backward.
 
     Forward: the rank's slab and sample window, the windows' rank-order mean
-    and the slabs' gather, as `render_distributed` does: on a CUDA scene
-    `threefry_render_kernel` (which also counts each pixel's sweeps), on a
-    CPU scene, or with `share.plain`, `render_flat_threefry` without a
-    tape. Backward: every rank holds the whole image's cotangent; it takes
-    its slab's pixels inside the image (each window enters the image with
-    weight 1 / S, each sample its window with 1 / spp) and gets the [16, N]
-    cotangent of the packed scene from `keyed_grad_pass` (the replay, the
-    reverse and the reduction kernels) on the card, or by re-rendering the
-    slab under autograd one chunk at a time; then sums it over the mesh in
-    rank order (`Mesh.sum_all`), so every rank gets the same bits and the
+    and the slabs' gather, as `render_distributed` does: on a CUDA scene,
+    when a backward can follow, `record_keyed` over the slab's pixels
+    inside the image (`threefry_record_kernel`: the forward's bits, and its
+    paths recorded for the backward; the pixels past the image repeat the
+    last one's color), else `threefry_render_kernel`; on a CPU scene, or
+    with `share.plain`, `render_flat_threefry` without a tape. Backward:
+    every rank holds the whole image's cotangent; it takes its slab's
+    pixels inside the image (each window enters the image with weight 1 /
+    S, each sample its window with 1 / spp) and gets the [16, N] cotangent
+    of the packed scene from `keyed_grad_pass` on the recorded paths (the
+    reverse kernel and the reduction) on the card, or by re-rendering the
+    slab under autograd one chunk at a time (the recording goes with the
+    first backward; a second one through a retained graph records the same
+    paths again); then sums it over the mesh in rank order (`Mesh.sum_all`), so every rank gets the same bits and the
     chain rule through `pack_scene` runs once, on the sum."""
 
     @staticmethod
     def forward(ctx, p_mat, scene: Scene, cam: Camera, share: _KeyedShare, mesh):
         idx = _slab_ids(share, p_mat.device)
-        work = None
+        n_live = share.stop - share.start
+        rec = None
         if share.plain or scene.device.type != "cuda":
             colors = render_flat_threefry(scene, cam, idx, share.key, chunk_size=share.chunk_size, spp=share.spp,
                                           sample_offset=share.sample_offset)
+        elif ctx.needs_input_grad[0] and n_live > 0:
+            colors, _, rec = record_keyed(scene, cam, idx[:n_live], share.key, share.spp, share.sample_offset,
+                                          p_mat)
+            colors = torch.cat([colors, colors[-1:].expand(idx.numel() - n_live, 3)])
         else:
-            colors, work = render_keyed(scene, cam, idx, share.key, share.spp, share.sample_offset,
-                                        share.chunk_size, return_work=True)
+            colors = render_keyed(scene, cam, idx, share.key, share.spp, share.sample_offset, share.chunk_size)
         rad = mesh.gather_pixels(mesh.sample_mean(colors.T.contiguous()))[:, : share.n_pixels].contiguous()
         ctx.save_for_backward(p_mat)
-        ctx.scene, ctx.cam, ctx.share, ctx.mesh, ctx.work = scene, cam, share, mesh, work
+        ctx.scene, ctx.cam, ctx.share, ctx.mesh, ctx.rec = scene, cam, share, mesh, rec
         return rad
 
     @staticmethod
     def backward(ctx, grad_rad):
         (p_mat,) = ctx.saved_tensors
         share, mesh = ctx.share, ctx.mesh
+        rec, ctx.rec = ctx.rec, None  # the arena goes with this call
         n_live = share.stop - share.start
         if n_live <= 0 or grad_rad is None:
             grads = torch.zeros_like(p_mat)  # a slab wholly past the image: no launch
         else:
             g = grad_rad[:, share.start : share.stop] / share.samples
             pix = torch.arange(share.start, share.stop, device=p_mat.device)
-            if ctx.work is not None:
-                grads = keyed_grad_pass(ctx.scene, ctx.cam, pix, share.key, share.sample_offset, share.spp,
-                                        ctx.work[:n_live], g / share.spp)
-            else:
+            if share.plain or ctx.scene.device.type != "cuda":
                 grads = _autograd_slab(p_mat, ctx.scene, ctx.cam, pix, g, share)
+            else:
+                if rec is None:  # a second backward through a retained graph: record the same paths again
+                    _, _, rec = record_keyed(ctx.scene, ctx.cam, pix, share.key, share.spp, share.sample_offset,
+                                             p_mat)
+                grads = keyed_grad_pass(rec, g / share.spp, share.start, share.stop)
         return mesh.sum_all(grads), None, None, None, None
 
 

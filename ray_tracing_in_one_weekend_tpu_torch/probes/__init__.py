@@ -12,6 +12,7 @@ needs one CUDA GPU with nvcc:
     python -m ray_tracing_in_one_weekend_tpu_torch.probes.cold_step [--parent DIR]
     python -m ray_tracing_in_one_weekend_tpu_torch.probes.sweep_sched [tile:budget:passes ...]
     python -m ray_tracing_in_one_weekend_tpu_torch.probes.keyed_grad_exact [--chunks N,...]
+    python -m ray_tracing_in_one_weekend_tpu_torch.probes.keyed_step [--warm 5] [--out FILE]
 
 Nothing on the render path imports them.
 """

@@ -5,11 +5,12 @@ float32 reverse's.
     python -m ray_tracing_in_one_weekend_tpu_torch.probes.keyed_grad_exact [--chunks N,...] [--width W] [--device cpu]
 
 The step is `parallel.dist.render_grads` on threefry key 0 (cover scene,
-1200x800, 10 spp, depth 50, zero target). Its paths as the keyed backward
-replays them (`keyed_step_paths`: the forward's image and sweeps, the
-loss's per-sample cotangent, the replay's records) are walked by the
-reverse kernel and by the plain reverse (`cuda_threefry.reverse_records_plain`,
-torch.autograd of the plain keyed bounce), and each walk's events are
+1200x800, 10 spp, depth 50, zero target). Its paths as the keyed forward
+records them (`keyed_step_paths`: the recording forward's image and
+records, the loss's per-sample cotangent) are walked by the reverse
+kernel and by the plain per-path reverse
+(`cuda_threefry.reverse_paths_plain`, torch.autograd of the plain keyed
+bounce), and each walk's events are
 summed in float64 and taken through `pack_scene`'s chain rule as
 `shard_error.exact_grads` takes its sum (`keyed_exact_grads`: the
 kernels' own events, the yardstick of chip_smoke.py's phase 16c). Per
@@ -49,46 +50,43 @@ from ray_tracing_in_one_weekend_tpu_torch.utils.config import (
 
 
 def keyed_step_paths(scene, cam, target, base_key=0):
-    """The keyed step's paths as its backward replays them, on the loss's
-    image cotangent -> (p_mat, cam_vec, replay, g): the records of
-    `build.threefry_replay` on the card, of `cuda_threefry.replay_records_plain`
-    on the CPU, and g [3, n] each pixel's cotangent of one sample (the
-    image's / spp, as `_DiffRenderKeyed` takes it)."""
+    """The keyed step's paths as its forward records them, on the loss's
+    image cotangent -> (image [n, 3], p_mat, cam_vec, rec, slots, n_events,
+    g): the recording of `cuda_threefry.record_keyed` (the kernel on the
+    card, at its exact count; the plain version on the CPU), where its
+    events go (`build.path_slots`: slots and their count), and g [3, n]
+    each pixel's cotangent of one sample (the image's / spp, as
+    `_DiffRenderKeyed` takes it)."""
     from ray_tracing_in_one_weekend_tpu_torch.kernels import build
 
     n, spp, dev = cam.num_pixels, cam.samples_per_pixel, scene.device
     pix = torch.arange(n, device=dev)
-    img, work = rr.render_keyed(scene, cam, pix, base_key, return_work=True)
+    img, _, rec = ct.record_keyed(scene, cam, pix, base_key)
+    rec = build.complete_recording(rec, int(rec.total))
     leaf = img.detach().requires_grad_()
     with torch.enable_grad():
         loss = torch.mean((leaf.reshape(cam.image_height, cam.image_width, 3) - target) ** 2)
         (grad_img,) = torch.autograd.grad(loss, leaf)
     g = (grad_img.T / spp).contiguous()
-    p_mat, cam_vec = cr.pack_scene(scene), cr.pack_camera(cam).to(dev)
-    if dev.type == "cuda":
-        replay = build.threefry_replay(p_mat.T.contiguous(), cam_vec, pix.to(torch.int32), as_key(base_key), 0,
-                                       spp, cam.max_depth, work, 0, n)
-    else:
-        replay = ct.replay_records_plain(scene, cam, pix, base_key)
-    return p_mat, cam_vec, replay, g
+    slots, n_events = build.path_slots(rec.pix, rec.path_count, spp, 0, n)
+    return img, rec.table.T, rec.cam_vec, rec, slots, int(n_events), g
 
 
-def keyed_events(p_mat, cam_vec, replay, g):
-    """The reverse kernel's events on a copy of the records (the card), the
-    plain reverse's on the CPU."""
+def keyed_events(p_mat, cam_vec, rec, slots, n_events, g):
+    """The reverse kernel's events (the card), the plain per-path reverse's
+    on the CPU."""
     from ray_tracing_in_one_weekend_tpu_torch.kernels import build
 
     if g.device.type != "cuda":
-        return ct.reverse_records_plain(p_mat, cam_vec, replay, g)
-    copy = build.Replay(replay.records.clone(), replay.ev_start, replay.ev_count)
-    return build.threefry_reverse(p_mat.T.contiguous(), cam_vec, copy, g)
+        return ct.reverse_paths_plain(p_mat, cam_vec, rec, slots, n_events, g)
+    return build.threefry_reverse(rec, slots, n_events, g, int(rec.total))
 
 
 def keyed_exact_grads(scene, cam, target, base_key=0) -> dict:
     """The keyed step's gradient with its events summed in float64 ->
     float64 tensors by field."""
-    p_mat, cam_vec, replay, g = keyed_step_paths(scene, cam, target, base_key)
-    return params_f64(scene, _sum_events(keyed_events(p_mat, cam_vec, replay, g), p_mat.shape[1]))
+    _, p_mat, cam_vec, rec, slots, n_events, g = keyed_step_paths(scene, cam, target, base_key)
+    return params_f64(scene, _sum_events(keyed_events(p_mat, cam_vec, rec, slots, n_events, g), p_mat.shape[1]))
 
 
 def main(argv=None) -> int:
@@ -111,10 +109,10 @@ def main(argv=None) -> int:
     chunks = [int(c) for c in args.chunks.split(",")] if args.chunks else [cam.num_pixels]
     _, kernels = pdist.render_grads(cg.scene_params(scene), scene, cam, target, 0)
     t0 = time.perf_counter()
-    p_mat, cam_vec, replay, g = keyed_step_paths(scene, cam, target)
+    _, p_mat, cam_vec, rec, slots, n_events, g = keyed_step_paths(scene, cam, target)
     n = p_mat.shape[1]
-    ek = keyed_events(p_mat, cam_vec, replay, g)
-    ep = ct.reverse_records_plain(p_mat, cam_vec, replay, g)
+    ek = keyed_events(p_mat, cam_vec, rec, slots, n_events, g)
+    ep = ct.reverse_paths_plain(p_mat, cam_vec, rec, slots, n_events, g)
     walks_s = time.perf_counter() - t0
     exact, plain = params_f64(scene, _sum_events(ek, n)), params_f64(scene, _sum_events(ep, n))
     mags = {k: float(v.norm()) for k, v in params_f64(scene, _sum_events(ek, n, magnitudes=True)).items()}
@@ -131,7 +129,7 @@ def main(argv=None) -> int:
         peak = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else float("nan")
         oracles[chunk] = (grads, time.perf_counter() - t0, peak)
     print(f"keyed_grad_exact: {cam.image_width}x{cam.image_height}, spp {cam.samples_per_pixel}, depth "
-          f"{cam.max_depth}, {replay.records.shape[0]} events, replay and both reverse walks {walks_s:.1f} s on "
+          f"{cam.max_depth}, {n_events} events, the recording and both reverse walks {walks_s:.1f} s on "
           f"{torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}"
           + (f" [{nvidia_smi()}]" if dev.type == "cuda" else ""))
     for chunk, (_, seconds, peak) in oracles.items():

@@ -266,19 +266,19 @@ def readings(log: str, lib_path: Path, table_bytes: int, runtime=None) -> list[R
     return out
 
 
-def threefry_reading(log: str, lib_path: Path, runtime=None) -> Reading:
-    """The reading of `threefry_render_kernel` (namespace tfr, 128 threads a
-    block, the sweep table one float4 a sphere at 512 slots)."""
+def threefry_reading(log: str, lib_path: Path, runtime=None, kernel: str = THREEFRY_KERNEL) -> Reading:
+    """The reading of `threefry_render_kernel`, or of another kernel of the
+    keyed loop (`threefry_record_kernel`): namespace tfr, 128 threads a
+    block, the sweep table one float4 a sphere at 512 slots."""
     res = ptxas_resources(log)
-    name = next((n for n in res if THREEFRY_KERNEL in n), None)
+    name = next((n for n in res if kernel in n), None)
     r = res.get(name) if name else None
     rules = blocks_per_sm(r.registers, r.smem + TABLE_BYTES * N_SLOTS, TILE) if r is not None else None
     sass = sass_of(lib_path)
     funcs = sass_functions(sass) if sass else {}
-    fname = next((n for n in funcs if THREEFRY_KERNEL in n), None)
+    fname = next((n for n in funcs if kernel in n), None)
     loop = sweep_loop(funcs[fname], "FFMA", FFMA_PER_TEST) if fname else None
-    return Reading(THREEFRY_KERNEL, r, runtime(THREEFRY_KERNEL) if runtime else None, rules, loop,
-                   sass is not None)
+    return Reading(kernel, r, runtime(kernel) if runtime else None, rules, loop, sass is not None)
 
 
 def load_build(root: Path):

@@ -25,6 +25,16 @@ reading and times the whole bench image through each by CUDA events.
 Every build's image and work map must equal the committed build's bit
 for bit.
 
+Then the keyed train step's recording forward, `threefry_record_kernel`:
+builds it at register caps 80 and 72 (-DRT_THREEFRY_RECORD_REGS=r; the
+committed cap 80 first), prints each one's reading and times
+the whole bench image through each by CUDA events, and the reverse walk
+on each one's arena, beside the committed `threefry_render_kernel`. Every
+build's image and work map must be the forward's bits, and its path
+counts, records in logical order (`cuda_threefry.records_in_logical_order`)
+and events the committed build's.
+
+`--parts` picks the parts (default all three: sweep, keyed, record).
 All builds take turns in each of `--rounds` rounds; it prints the best
 and the median of each, and the SM clock and power nvidia-smi read
 meanwhile. Needs one CUDA GPU with nvcc.
@@ -73,6 +83,8 @@ PARENT_TABLE_BYTES = 64
 # The keyed kernel's (group, register cap): the committed design first.
 KEYED_COMMITTED = (8, 72)
 KEYED_VARIANTS = (KEYED_COMMITTED, *((g, r) for g in (8, 4) for r in (64, 72, 80, 96) if (g, r) != KEYED_COMMITTED))
+# The recording forward's register caps: the committed one first.
+RECORD_VARIANTS = (80, 72)
 
 
 def flags_of(group: int, regs: int, keyed: bool = False) -> tuple:
@@ -123,6 +135,20 @@ def keyed_builds(parent: Path | None) -> list[Build]:
         res = mod.build()
         print(f"keyed parent {parent}: {sr.threefry_reading(res.log, res.path).line()}", flush=True)
         out.append(Build(f"keyed parent {parent}", mod))
+    return out
+
+
+def record_builds() -> list[Build]:
+    """Every register cap of the recording forward; prints their readings."""
+    out = []
+    for regs in RECORD_VARIANTS:
+        flags = build.NVCC_FLAGS if regs == RECORD_VARIANTS[0] else (*build.NVCC_FLAGS,
+                                                                      f"-DRT_THREEFRY_RECORD_REGS={regs}")
+        with built_with(flags) as res:
+            r = sr.threefry_reading(res.log, res.path, lambda k: build.blocks_per_sm(k, sr.TILE, sr.N_SLOTS),
+                                    kernel="threefry_record_kernel")
+            print(f"record cap {regs}: {r.line()}", flush=True)
+            out.append(Build(f"record cap {regs}", build, build._LIB))
     return out
 
 
@@ -232,18 +258,73 @@ def keyed_part(args, dev, smi) -> None:
     print(smi_summary(smi_lines, smi), flush=True)
 
 
+def record_part(args, dev, smi) -> None:
+    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_threefry as ct
+
+    config = PRESETS["bench"]
+    scene, cam = make_scene_from_config(config, dev), make_camera_from_config(config, dev)
+    n, spp = cam.num_pixels, cam.samples_per_pixel
+    table = cr.pack_scene(scene).T.contiguous()
+    cam_vec = cr.pack_camera(cam).to(dev)
+    pix = torch.arange(n, dtype=torch.int32, device=dev)
+    render = (table, cam_vec, pix, threefry.as_key(0), 0, spp, cam.max_depth)
+    ref, ref_work = build.threefry_render(*render, work=True)
+    g = (2.0 * ref / ref.numel()).T.contiguous() / spp  # the zero-target loss's cotangent of one sample
+    all_builds = record_builds()
+    ref_tables = ref_records = ref_events = None
+    recs = {}
+    for b in all_builds:
+        with b.on():
+            out, work, rec = build.threefry_record(*render)
+            rec = build.complete_recording(rec, int(rec.total))
+            slots, n_events = build.path_slots(pix, rec.path_count, spp, 0, n)
+            n_events = int(n_events)
+            events = build.threefry_reverse(rec, slots, n_events, g, int(rec.total))
+        if not (torch.equal(out, ref) and torch.equal(work, ref_work)):
+            raise RuntimeError(f"{b.label}: image or work map differs from threefry_render_kernel's")
+        records = ct.records_in_logical_order(rec, slots, n_events).view(torch.int32)[:, :14]
+        if ref_records is None:
+            ref_tables, ref_records, ref_events = rec.path_count, records, events
+        elif not (torch.equal(rec.path_count, ref_tables) and torch.equal(records, ref_records)
+                  and torch.equal(events.view(torch.int32), ref_events.view(torch.int32))):
+            raise RuntimeError(f"{b.label}: path counts, records or events differ from the committed build's")
+        recs[b.label] = (rec, slots, n_events, int(rec.total))
+        del records, events
+    times = {b.label: ([], []) for b in all_builds}
+    forward = []
+    with smi_samples() as smi_lines:
+        for _ in range(args.rounds):
+            forward.append(cuda_ms(lambda: build.threefry_render(*render, work=True), reps=3))
+            for b in all_builds:
+                rec, slots, n_events, total = recs[b.label]
+                with b.on():
+                    times[b.label][0].append(cuda_ms(lambda: build.threefry_record(*render), reps=3))
+                    times[b.label][1].append(cuda_ms(lambda: build.threefry_reverse(rec, slots, n_events, g, total),
+                                                     reps=3))
+    print(f"threefry_render_kernel: bench image (1200x800, 10 spp, depth 50) best / median of {args.rounds} rounds "
+          f"{min(forward):.4f} / {statistics.median(forward):.4f} ms [{smi}]", flush=True)
+    for label, (rt, rv) in times.items():
+        print(f"{label}: bench image best / median of {args.rounds} rounds {min(rt):.4f} / {statistics.median(rt):.4f} "
+              f"ms, its reverse {min(rv):.4f} / {statistics.median(rv):.4f} ms ({ref_records.shape[0]} sweeps); "
+              f"image, work map, path counts, records and events bit-identical "
+              f"[{smi}]", flush=True)
+    print(smi_summary(smi_lines, smi), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=7)
     ap.add_argument("--parent", type=Path, default=None, help="another checkout of the port, timed beside")
+    ap.add_argument("--parts", default="sweep,keyed,record", help="comma-separated: sweep, keyed, record")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("sweep_variants: needs a CUDA GPU", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
-    sweep_part(args, dev, smi)
-    keyed_part(args, dev, smi)
+    parts = {"sweep": sweep_part, "keyed": keyed_part, "record": record_part}
+    for name in args.parts.split(","):
+        parts[name](args, dev, smi)
     return 0
 
 

@@ -4,7 +4,8 @@ These tests need an NVIDIA GPU with nvcc (they build csrc/ on first use)
 and skip without one. They repeat phases 3-5, 7a, 8 and 9 of
 chip_smoke.py (7a: the replay kernel's records and the reverse kernel's
 events against their plain versions; 12b: the milestone scenes; 15c: the jnp
-backend's threefry_render_kernel, in any pixel order), check that the wrappers refuse
+backend's threefry_render_kernel, in any pixel order; 16b: the keyed step's
+recording forward and per-path reverse), check that the wrappers refuse
 what the kernels do not take, and read the sweep kernels' occupancy.
 On the card:
 
@@ -602,50 +603,62 @@ def test_threefry_wrapper_refuses_what_the_kernel_does_not_take(dev):
 
 
 def _keyed_world(dev):
-    from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_threefry as ct
-
     cam = _cam(dev)
     scene = scene_lib.cover_scene(0, device=dev)
     pix = torch.arange(cam.num_pixels, device=dev)
-    _, work = ct.render_kernel_pixels(scene, cam, pix, 3, return_work=True)
-    return scene, cam, pix, work, cr.pack_scene(scene), cr.pack_camera(cam)
+    return scene, cam, pix, cr.pack_scene(scene), cr.pack_camera(cam)
 
 
-def test_keyed_replay_and_reverse_match_plain(dev):
-    """threefry_replay_kernel's records bit-identical to
-    `replay_records_plain`'s (all 16 words, the same slots) on the 64x32
-    image (spp 4, depth 8) of the JAX cover scene, in identity and reversed
-    pixel order; threefry_reverse_kernel's events against
-    `reverse_records_plain`'s on the same records: winners equal, cotangent
-    words within 3e-5 relative L2 (chip_smoke.py's ADJOINT_GATE)."""
+def test_keyed_record_and_reverse_match_plain(dev):
+    """threefry_record_kernel on the 64x32 image (spp 4, depth 8) of the JAX
+    cover scene, in identity and reversed pixel order: its image and work
+    map threefry_render_kernel's bits, its records in logical order
+    (links and `path_slots`) `replay_records_plain`'s words 0-13 bit for
+    bit, its path counts the plain recording's; threefry_reverse_kernel's
+    events against `reverse_records_plain`'s: winners equal, cotangent
+    words within 3e-5 relative L2 (chip_smoke.py's ADJOINT_GATE); an arena
+    too small re-records once in `threefry_grad_pass`, with the same
+    gradient bits."""
     from ray_tracing_in_one_weekend_tpu_torch.kernels import build
     from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_threefry as ct
     from ray_tracing_in_one_weekend_tpu_torch.probes import random_cotangent, rel_l2
 
-    scene, cam, pix, work, p_mat, cam_vec = _keyed_world(dev)
+    scene, cam, pix, p_mat, cam_vec = _keyed_world(dev)
     table, n = p_mat.T.contiguous(), cam.num_pixels
     plain = ct.replay_records_plain(scene, cam, pix, 3)
-    for order in (pix, pix.flip(0)):
-        before = build.LAUNCHES["threefry_replay"]
-        replay = build.threefry_replay(table, cam_vec, order.to(torch.int32), (0, 3), 0, 4, 8, work, 0, n)
-        assert build.LAUNCHES["threefry_replay"] == before + 1
-        assert torch.equal(replay.records.view(torch.int32), plain.records.view(torch.int32))
+    _, _, plain_rec = ct.record_plain(scene, cam, pix, 3)
     g = random_cotangent((3, n), 1, dev) / 4
     want = ct.reverse_records_plain(p_mat, cam_vec, plain, g)
-    replay = build.threefry_replay(table, cam_vec, pix.to(torch.int32), (0, 3), 0, 4, 8, work, 0, n)
-    events = build.threefry_reverse(table, cam_vec, replay, g)
-    assert replay.records is None
-    assert torch.equal(events[:, 0].view(torch.int32), want[:, 0].view(torch.int32))
-    assert rel_l2(events[:, 1:14], want[:, 1:14]) <= 3e-5
+    for order in (pix, pix.flip(0)):
+        args = (table, cam_vec, order.to(torch.int32), (0, 3), 0, 4, 8)
+        ref, ref_work = build.threefry_render(*args, work=True)
+        before = build.LAUNCHES["threefry_record"]
+        out, work, rec = build.threefry_record(*args)
+        assert build.LAUNCHES["threefry_record"] == before + 1
+        assert torch.equal(out, ref) and torch.equal(work, ref_work)
+        assert int(rec.path_count.sum()) == plain.records.shape[0] and int(rec.total) <= rec.capacity
+        slots, n_events = build.path_slots(rec.pix, rec.path_count, 4, 0, n)
+        got = ct.records_in_logical_order(rec, slots, int(n_events))
+        assert torch.equal(got.view(torch.int32)[:, :14], plain.records.view(torch.int32)[:, :14])
+        if order is pix:
+            assert torch.equal(rec.path_count.cpu(), plain_rec.path_count.cpu())
+            events = build.threefry_reverse(rec, slots, int(n_events), g, int(rec.total))
+            assert torch.equal(events[:, 0].view(torch.int32), want[:, 0].view(torch.int32))
+            assert rel_l2(events[:, 1:14], want[:, 1:14]) <= 3e-5
+            grads = build.threefry_grad_pass(rec, g, 0, n)
+    _, _, small = build.threefry_record(table, cam_vec, pix.to(torch.int32), (0, 3), 0, 4, 8, capacity=64)
+    before = build.LAUNCHES["threefry_record_rerun"]
+    assert torch.equal(build.threefry_grad_pass(small, g, 0, n), grads)
+    assert build.LAUNCHES["threefry_record_rerun"] == before + 1
 
 
 def test_keyed_render_grads_on_the_card(dev):
-    """`parallel.dist.render_grads` on a CUDA scene runs the forward kernel,
-    the replay, the reverse and the reduction, once each; its loss is that
-    of the kernel's image bit for bit, and its gradients within 2e-4
-    relative L2 a field (chip_smoke.py's GRAD_GATE) of
-    `render_grads_autograd`'s, which launches nothing; bit-identical run to
-    run."""
+    """`parallel.dist.render_grads` on a CUDA scene runs the recording
+    forward, the reverse and the reduction, once each, and neither
+    threefry_render_kernel nor a re-run; its loss is that of the forward
+    kernel's image bit for bit, and its gradients within 2e-4 relative L2
+    a field (chip_smoke.py's GRAD_GATE) of `render_grads_autograd`'s, which
+    launches nothing; bit-identical run to run."""
     from ray_tracing_in_one_weekend_tpu_torch.kernels import build
     from ray_tracing_in_one_weekend_tpu_torch.ops import render as pr
     from ray_tracing_in_one_weekend_tpu_torch.parallel import dist
@@ -655,8 +668,8 @@ def test_keyed_render_grads_on_the_card(dev):
     target = torch.zeros(cam.image_height, cam.image_width, 3, device=dev)
     build.reset_launches()
     loss, grads = dist.render_grads(dist.scene_params(scene), scene, cam, target, 0)
-    kernels = ("threefry_render_kernel", "threefry_replay", "threefry_reverse", "grad_reduce")
-    assert all(build.LAUNCHES[k] == 1 for k in kernels), build.LAUNCHES
+    assert all(build.LAUNCHES[k] == 1 for k in ("threefry_record", "threefry_reverse", "grad_reduce")), build.LAUNCHES
+    assert build.LAUNCHES["threefry_render_kernel"] == 0 and build.LAUNCHES["threefry_record_rerun"] == 0
     assert torch.equal(loss, torch.mean((pr.render_image(scene, cam, 0) - target) ** 2))
     loss2, grads2 = dist.render_grads(dist.scene_params(scene), scene, cam, target, 0)
     assert torch.equal(loss2, loss) and all(torch.equal(grads2[k], grads[k]) for k in grads)
@@ -668,20 +681,79 @@ def test_keyed_render_grads_on_the_card(dev):
         assert rel_l2(grads[k], grads_a[k]) <= 2e-4, k
 
 
+def test_keyed_backward_twice_through_a_retained_graph(dev):
+    """A second backward through a graph kept by retain_graph=True records
+    the same paths again on the card (the first backward took the arena):
+    one more recording forward, reverse and reduction, no plain route, and
+    the first backward's gradient bits."""
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.parallel import dist
+
+    scene, cam = scene_lib.cover_scene(0, device=dev), _cam(dev, samples_per_pixel=2)
+    target = torch.zeros(cam.image_height, cam.image_width, 3, device=dev)
+    params = {k: v.detach().requires_grad_() for k, v in dist.scene_params(scene).items()}
+    loss = dist.render_loss(params, scene, cam, target, 0)
+    first = torch.autograd.grad(loss, list(params.values()), retain_graph=True)
+    build.reset_launches()
+    second = torch.autograd.grad(loss, list(params.values()))
+    assert all(build.LAUNCHES[k] == 1 for k in ("threefry_record", "threefry_reverse", "grad_reduce")), build.LAUNCHES
+    assert build.LAUNCHES["threefry_render_kernel"] == 0 and build.LAUNCHES["threefry_record_rerun"] == 0
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_keyed_reverse_writes_every_event_of_a_broken_path(dev):
+    """threefry_reverse_kernel on a recording with a cut link (a lit path
+    whose last record links to -1) and a last record outside the arena:
+    every event slot of both paths is written empty (winner -1, zero
+    cotangent), none is left uninitialized, and every other path's events
+    are the whole recording's bits."""
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.probes import random_cotangent
+
+    scene, cam, pix, p_mat, cam_vec = _keyed_world(dev)
+    table, n = p_mat.T.contiguous(), cam.num_pixels
+    _, _, rec = build.threefry_record(table, cam_vec, pix.to(torch.int32), (0, 3), 0, 4, 8)
+    rec = build.complete_recording(rec, int(rec.total))
+    slots, n_events = build.path_slots(rec.pix, rec.path_count, 4, 0, n)
+    n_events, total = int(n_events), int(rec.total)
+    g = random_cotangent((3, n), 1, dev) / 4
+    want = build.threefry_reverse(rec, slots, n_events, g, total)
+    lit = rec.arena.view(torch.int32)[rec.path_last, 13] == 2  # ended at the sky
+    a, b = torch.nonzero(lit & (rec.path_count >= 3)).reshape(-1)[:2].tolist()
+    arena, path_last = rec.arena.clone(), rec.path_last.clone()
+    arena.view(torch.int64)[rec.path_last[a], 7] = -1
+    path_last[b] = rec.capacity
+    for fill in (float("nan"), 7.0):  # the events buffer is torch.empty: leave junk in the block it reuses
+        junk = torch.full((n_events, 16), fill, device=dev)
+        del junk
+        got = build.threefry_reverse(dataclasses.replace(rec, arena=arena, path_last=path_last), slots, n_events,
+                                     g, total)
+        broken = torch.zeros(n_events, dtype=torch.bool, device=dev)
+        for k in (a, b):
+            first, count = int(slots[k]), int(rec.path_count[k])
+            broken[first : first + count] = True
+        empty = torch.zeros(16, device=dev)
+        empty.view(torch.int32)[0] = -1
+        assert torch.equal(got[broken].view(torch.int32), empty.view(torch.int32).expand(int(broken.sum()), 16))
+        assert torch.equal(got[~broken].view(torch.int32), want[~broken].view(torch.int32))
+
+
 def test_keyed_wrappers_refuse_what_the_kernels_do_not_take(dev):
     from ray_tracing_in_one_weekend_tpu_torch.kernels import build
 
-    scene, cam, pix, work, p_mat, cam_vec = _keyed_world(dev)
+    scene, cam, pix, p_mat, cam_vec = _keyed_world(dev)
     table, n = p_mat.T.contiguous(), cam.num_pixels
     pix32 = pix.to(torch.int32)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        build.threefry_replay(table.cpu(), cam_vec.cpu(), pix32.cpu(), (0, 3), 0, 4, 8, work.cpu(), 0, n)
-    with pytest.raises(ValueError, match="must lie in"):
-        build.threefry_replay(table, cam_vec, pix32, (0, 3), 0, 4, 8, work[1:], 1, n)
-    with pytest.raises(RuntimeError, match="diverged"):
-        build.threefry_replay(table, cam_vec, pix32, (0, 3), 0, 4, 8, work + 1, 0, n)
-    replay = build.threefry_replay(table, cam_vec, pix32, (0, 3), 0, 4, 8, work, 0, n)
+        build.threefry_record(table.cpu(), cam_vec.cpu(), pix32.cpu(), (0, 3), 0, 4, 8)
+    with pytest.raises(ValueError, match="capacity"):
+        build.threefry_record(table, cam_vec, pix32, (0, 3), 0, 4, 8, capacity=-1)
+    _, _, rec = build.threefry_record(table, cam_vec, pix32, (0, 3), 0, 4, 8, capacity=16)
+    slots, n_events = build.path_slots(rec.pix, rec.path_count, 4, 0, n)
     g = torch.zeros(3, n, device=dev)
-    build.threefry_reverse(table, cam_vec, replay, g)
-    with pytest.raises(ValueError, match="reversed already"):
-        build.threefry_reverse(table, cam_vec, replay, g)
+    with pytest.raises(ValueError, match="record again"):
+        build.threefry_reverse(rec, slots, int(n_events), g, int(rec.total))
+    with pytest.raises(ValueError, match="shape"):
+        build.threefry_reverse(rec, slots[1:], int(n_events), g, 16)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        build.threefry_reverse(rec, slots, int(n_events), g.cpu(), 16)
