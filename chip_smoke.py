@@ -91,7 +91,12 @@ without the result lines:
    through their entry points (launch counts of all six kernels and
    render_kernel), and the kernels' times at 2048 columns and at 131072
    (enough to fill the card) with their bounds (tensor-core work
-   included) and the torch.matmul yardsticks;
+   included) and the torch.matmul yardsticks; and chain_fma_kernel at
+   CHAIN_REMAINDER steps (its unrolled loop's remainder) within its gate,
+   its registers and the FFMA share of its main loop's SASS (at least
+   CHAIN_FFMA_SHARE; "not available" without cuobjdump), and the sha256
+   of its 2048-column, 512-step output (with `--parent`, which must be the
+   parent checkout's);
 10. the long render (`utils/checkpoint.py`, `utils/resilient.py`, the
    CLI's batched path):
    a. at 150x100, spp 64, batches of 10: the accumulation through the
@@ -276,6 +281,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import shutil
@@ -1059,6 +1065,58 @@ PROBE_REPLACES = {
 }
 
 
+# Steps of phase 9's chain at a length its unrolled loop leaves a remainder
+# of (1000 = 7 x 128 + 104), and the least FFMA share of that loop's SASS.
+CHAIN_REMAINDER = 1000
+CHAIN_FFMA_SHARE = 0.9
+
+
+def chain_digest(chain, xs) -> str:
+    """sha256 of the bytes of `chain(x, 512)` for each x of `xs`, in turn."""
+    from ray_tracing_in_one_weekend_tpu_torch.probes import kernel_parts as kp
+
+    h = hashlib.sha256()
+    for x in xs:
+        h.update(chain(x, kp.CHAIN).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def phase_chain(res, parent=None):
+    """9: chain_fma_kernel at CHAIN_REMAINDER steps against its plain version
+    on seeded inputs of [128, 196] and [128, 2048], its reading, and the
+    sha256 of its outputs at the probe path's 2048 columns and 512 steps
+    (on the probe path's ones, which give one value, then on the seeded
+    [128, 2048]), with `parent` also the parent checkout's kernel's."""
+    import numpy as np
+    import torch
+
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.probes import kernel_parts as kp
+    from ray_tracing_in_one_weekend_tpu_torch.probes import sweep_readings as sr
+
+    dev = torch.device(DEVICE, 0)
+    rng = np.random.default_rng(0)
+    err = 0.0
+    for tile in (196, kp.JAX_TILE):
+        x = torch.from_numpy(rng.uniform(0.5, 2.0, (128, tile)).astype(np.float32)).to(dev)
+        got = kp.chain_fma(x, CHAIN_REMAINDER)
+        want = kp.chain_fma_plain(x, CHAIN_REMAINDER)
+        e = kp.error("chain_fma", got, want)
+        check(e <= kp.GATES["chain_fma"], f"phase 9: chain_fma at [128, {tile}], {CHAIN_REMAINDER} steps: "
+                                          f"error {e:.2e} > {kp.GATES['chain_fma']}")
+        err = max(err, e)
+    reading = kp.chain_reading(res.log, sr.sass_of(res.path))
+    share = reading.ffma_share
+    check(not reading.sass or (share is not None and share >= CHAIN_FFMA_SHARE),
+          f"phase 9: {reading.line()}: the main loop is below {CHAIN_FFMA_SHARE} FFMA")
+    xs = (kp.inputs("chain_fma", kp.JAX_TILE, dev)[0], x)
+    digest = chain_digest(build.chain_fma, xs)
+    parent_digest = chain_digest(sr.load_build(parent).chain_fma, xs) if parent is not None else None
+    check(parent_digest in (None, digest),
+          f"phase 9: chain_fma's {kp.JAX_TILE}-column output {digest} is not the parent's {parent_digest}")
+    return dict(remainder_err=err, reading=reading, sha256=digest, parent_sha256=parent_digest)
+
+
 def phase_probes():
     """9: the six probe kernels against their plain versions at 256, 2048
     and 131072 columns, then the probe path through its entry points with
@@ -1148,6 +1206,11 @@ def probe_entry(name, v, reading=None):
         entry["library_tf32_ms_fill"] = f.library_tf32_ms
     if reading is not None:
         entry.update(reading.fields())
+    if "chain" in v:
+        c = v["chain"]
+        entry.update(c["reading"].fields(), chain_remainder_steps=CHAIN_REMAINDER,
+                     chain_remainder_err=c["remainder_err"], sha256_2048x512=c["sha256"],
+                     parent_sha256_2048x512=c["parent_sha256"])
     return entry
 
 
@@ -2594,7 +2657,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, default=None,
                     help="another checkout of the port: its reduction is timed beside this one's in phase 7c, "
-                         "its keyed train step in phase 16c")
+                         "its keyed train step in phase 16c, its chain probe's output in phase 9")
     parent = ap.parse_args(argv).parent
 
     if not torch.cuda.is_available():
@@ -2842,8 +2905,14 @@ def main(argv=None) -> int:
 
     # 9. the probe path
     probes, probe = phase_probes()
+    chain = probes["chain_fma"]["chain"] = phase_chain(res, parent.resolve() if parent else None)
     say("phase 9 probes: kernel vs plain (error, gate) " + ", ".join(
         f"{k} {v['err']:.2e} ({kp.GATES[k]:g})" for k, v in probes.items()))
+    say(f"phase 9 {chain['reading'].line()}; at {CHAIN_REMAINDER} steps on [128, 196] and [128, {kp.JAX_TILE}] "
+        f"error {chain['remainder_err']:.2e} ({kp.GATES['chain_fma']:g}); sha256 of the {kp.JAX_TILE}-column, "
+        f"{kp.CHAIN}-step output {chain['sha256']}"
+        + (f", the parent's {chain['parent_sha256']} (equal)" if chain["parent_sha256"] else
+           " (no --parent: the parent's not read)"))
     for k, v in probes.items():
         say(f"phase 9 {k}: launches {v['launches']}; {v['timing'].line()}; {v['fill'].line()}; "
             f"plain {v['plain_ms']:.2f} ms at {kp.JAX_TILE} columns [{smi}]")

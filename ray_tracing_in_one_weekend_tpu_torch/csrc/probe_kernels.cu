@@ -8,9 +8,8 @@
 // * chain_fma_kernel     <- scripts/perf_probe.py:47 (`kern` of _vpu_peak_ops):
 //   x [R, tile] -> [R, tile], one dependent chain of `chain` steps
 //   acc = acc * 1.0000001 + 1e-7 per element. One chain per element measures
-//   the FMA's latency on the TPU; here every thread runs one chain, and the
-//   card hides a chain's latency only with enough warps in flight. It is
-//   labelled a chain rate, never the peak.
+//   the FMA's latency on the TPU; here a thread interleaves the chains of a
+//   few elements (below). It is labelled a chain rate, never the peak.
 // * fma_peak_kernel      <- scripts/kernel_parts_probe.py:67 (`fma_kernel`):
 //   x [64, tile] -> [8, tile]; 8 independent accumulators x[8i:8i+8] + i, each
 //   reps x 16 chained steps, summed in order. Eight independent chains per
@@ -32,10 +31,31 @@
 //   current R rounded to bf16, products summed in float32) as <Bf16>.
 //
 // What bounds them, and what the design does about it. The first three are
-// bound by float32 operations: one thread per output column, 128 threads a
-// block, the columns spread over blocks (the TPU's grid of 16 ran one block
-// 16 times, while each column here is independent); the scene table lives in
-// shared memory and is read as broadcasts.
+// bound by float32 operations. fma_peak and the sweep take one thread per
+// output column, 128 threads a block, the columns spread over blocks (the
+// TPU's grid of 16 ran one block 16 times, while each column here is
+// independent); the scene table lives in shared memory and is read as
+// broadcasts.
+//
+// The chain is bound by float32 issue: 2 operations an FFMA at 67 TFLOP/s,
+// one warp FFMA a clock on each of an SM's four schedulers. It reads and
+// writes each element once, 8 bytes against 2 x chain operations, so bytes
+// never bound it, and every issue slot its loop spends on anything but an
+// FFMA is lost. So a thread takes CHAIN_ELEMS elements a grid stride apart
+// (each load and store coalesced) and steps their independent chains
+// together, CHAIN_UNROLL steps a trip through a loop unrolled at compile
+// time, then the chain % CHAIN_UNROLL steps left one at a time: a trip issues
+// CHAIN_UNROLL x CHAIN_ELEMS FFMAs and a counter add, a compare and a branch,
+// and one warp's independent chains cover the FFMA's latency. The grid is the
+// blocks the card holds at once (occupancy x SMs, read once), or fewer for a
+// small n, and strides over the elements: every SM gets an equal share, with
+// no partial last wave. Every warp of the card starts a group at about the
+// same time, so a group's loads would stall them all together (4 MB at 131072
+// columns); each thread loads its next group before it runs this one. A last
+// group with fewer than CHAIN_ELEMS elements runs their chains alone, not
+// masked ones beside them. Each element takes the same steps in the same
+// order as one chain alone, so the bits do not depend on the grid,
+// CHAIN_ELEMS or CHAIN_UNROLL.
 //
 // The two products are what the TPU ran on its matrix unit, so here they run
 // on the tensor cores, by mma.sync m16n8k8: the least time is the tensor
@@ -97,6 +117,9 @@ constexpr int FMA_ACCS = 8;     // independent accumulators of fma_peak
 constexpr int FMA_UNROLL = 16;  // chained steps per accumulator per rep
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
+constexpr int CHAIN_ELEMS = 4;     // elements a chain_fma thread steps together
+constexpr int CHAIN_UNROLL = 128;  // chain steps a trip of its unrolled loop
+
 constexpr int GATHER_ROWS = 16;   // rows of P: one m16 tile
 constexpr int GATHER_COLS = 16;   // columns of OH a block owns: two n8 tiles
 constexpr int GATHER_WARPS = 8;   // K is split over the block's warps
@@ -111,13 +134,50 @@ constexpr int SKINNY_MAX_M = SKINNY_WARPS * SKINNY_TILES * 16;
 
 __device__ __forceinline__ float fma_step(float acc) { return __fmaf_rn(acc, 1.0000001f, 1e-7f); }
 
+// `chain` steps of M independent chains, stepped together: CHAIN_UNROLL
+// steps a trip, then the remainder one at a time.
+template <int M>
+__device__ __forceinline__ void chain_steps(float* a, int chain) {
+    for (int trip = chain / CHAIN_UNROLL; trip > 0; --trip) {
+#pragma unroll
+        for (int u = 0; u < CHAIN_UNROLL; ++u) {
+#pragma unroll
+            for (int e = 0; e < M; ++e) a[e] = fma_step(a[e]);
+        }
+    }
+    for (int left = chain % CHAIN_UNROLL; left > 0; --left) {
+#pragma unroll
+        for (int e = 0; e < M; ++e) a[e] = fma_step(a[e]);
+    }
+}
+
 __global__ void __launch_bounds__(PROBE_BLOCK)
     chain_fma_kernel(const float* __restrict__ x, float* __restrict__ out, long long n, int chain) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    float acc = x[i];
-    for (int k = 0; k < chain; ++k) acc = fma_step(acc);
-    out[i] = acc;
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    float a[CHAIN_ELEMS];
+#pragma unroll
+    for (int e = 0; e < CHAIN_ELEMS; ++e) a[e] = i + e * stride < n ? x[i + e * stride] : 0.0f;
+    for (; i < n; i += CHAIN_ELEMS * stride) {
+        // The next group's loads fly while this one's chains run.
+        const long long next = i + CHAIN_ELEMS * stride;
+        float b[CHAIN_ELEMS];
+#pragma unroll
+        for (int e = 0; e < CHAIN_ELEMS; ++e) b[e] = next + e * stride < n ? x[next + e * stride] : 0.0f;
+        if (i + (CHAIN_ELEMS - 1) * stride < n) {
+            chain_steps<CHAIN_ELEMS>(a, chain);
+        } else {
+            // The last group holds fewer elements: run theirs alone.
+#pragma unroll
+            for (int e = 0; e < CHAIN_ELEMS - 1; ++e)
+                if (i + e * stride < n) chain_steps<1>(a + e, chain);
+        }
+#pragma unroll
+        for (int e = 0; e < CHAIN_ELEMS; ++e) {
+            if (i + e * stride < n) out[i + e * stride] = a[e];
+            a[e] = b[e];
+        }
+    }
 }
 
 __global__ void __launch_bounds__(PROBE_BLOCK)
@@ -428,9 +488,29 @@ static unsigned blocks_for(long long n) { return (unsigned)((n + PROBE_BLOCK - 1
 // cudaGetLastError() after its launch (0 on success), or
 // cudaErrorInvalidValue for a shape its kernel does not take. The wrappers in
 // kernels/build.py check shapes and limits first.
+// The chain's grid: the blocks of chain_fma_kernel the card holds at once
+// (read once), or fewer where n needs fewer; minus the CUDA error.
+static long long chain_grid(long long n) {
+    static int resident = 0;
+    if (resident == 0) {
+        int device = 0, sms = 0, per_sm = 0;
+        cudaError_t err = cudaGetDevice(&device);
+        if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+        if (err == cudaSuccess)
+            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chain_fma_kernel, PROBE_BLOCK, 0);
+        if (err != cudaSuccess) return -(long long)err;
+        resident = sms * per_sm;
+    }
+    const long long most = (n + (long long)CHAIN_ELEMS * PROBE_BLOCK - 1) / ((long long)CHAIN_ELEMS * PROBE_BLOCK);
+    return most < resident ? most : resident;
+}
+
 extern "C" int rt_chain_fma(const void* x, void* out, long long n, int chain, void* stream) {
-    chain_fma_kernel<<<blocks_for(n), PROBE_BLOCK, 0, (cudaStream_t)stream>>>((const float*)x, (float*)out, n,
-                                                                               chain);
+    const long long grid = chain_grid(n);
+    if (grid < 0) return (int)-grid;
+    if (grid == 0) return (int)cudaErrorInvalidValue;
+    chain_fma_kernel<<<(unsigned)grid, PROBE_BLOCK, 0, (cudaStream_t)stream>>>((const float*)x, (float*)out, n,
+                                                                                chain);
     return (int)cudaGetLastError();
 }
 

@@ -108,16 +108,16 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found on PATH or under CUDA_HOME: cannot build csrc/")
 
 
-def _run_all(cmds) -> str:
-    """Run the commands side by side; raise if any fails, else return their
-    output, in order."""
+def _run_all(cmds) -> list[str]:
+    """Run the commands side by side; raise if any fails, else return each
+    one's output, in order."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for c in cmds]
     outs = [p.communicate()[0] for p in procs]
     for cmd, p, out in zip(cmds, procs, outs):
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}")
-    return "".join(outs)
+    return outs
 
 
 def build() -> BuildResult:
@@ -135,9 +135,9 @@ def build() -> BuildResult:
     nvcc = _nvcc()
     t0 = time.perf_counter()
     try:
-        log = _run_all([[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(p), "-o", str(o)]
-                        for p, o in zip(units, objs)])
-        log += _run_all([[nvcc, *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)]])
+        log = "".join(_run_all([[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(p), "-o", str(o)]
+                                for p, o in zip(units, objs)]))
+        log += "".join(_run_all([[nvcc, *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)]]))
     finally:
         for o in objs:
             o.unlink(missing_ok=True)

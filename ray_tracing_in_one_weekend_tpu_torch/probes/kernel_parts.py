@@ -34,7 +34,9 @@ tensors.
 from __future__ import annotations
 
 import dataclasses
+import re
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -57,6 +59,10 @@ OPS_PER_SPHERE_TEST = 15
 OPS_PER_REAL_ROOT = 6
 
 CHAIN = 512  # steps of the chain probe (scripts/perf_probe.py:44)
+# chain_fma_kernel's elements a thread and steps a trip of its unrolled
+# loop: `constexpr int NAME = value;` in csrc/probe_kernels.cu.
+CHAIN_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "probe_kernels.cu"
+CHAIN_CONSTANT = re.compile(r"constexpr int (CHAIN_ELEMS|CHAIN_UNROLL) = (\d+);")
 FMA_ACCS, FMA_UNROLL = 8, 16  # scripts/kernel_parts_probe.py:64-65
 JAX_TILE = 2048  # the scripts' default tile
 FILL_TILE = 131072  # columns that fill 132 SMs several times over
@@ -328,6 +334,68 @@ def bound_ms(ops: float, n_bytes: float, tensor_ms: float = 0.0) -> tuple[float,
     terms = {"operations": ops / PEAK_F32_OPS * 1e3, "bytes": n_bytes / PEAK_BYTES * 1e3, "tensor": tensor_ms}
     by = max(terms, key=terms.get)
     return terms[by], by
+
+
+def chain_design(text: str | None = None) -> dict[str, int]:
+    """{"CHAIN_ELEMS": e, "CHAIN_UNROLL": u} of chain_fma_kernel, read from
+    `text` (default: csrc/probe_kernels.cu)."""
+    found = dict((k, int(v)) for k, v in CHAIN_CONSTANT.findall(CHAIN_SOURCE.read_text() if text is None else text))
+    if set(found) != {"CHAIN_ELEMS", "CHAIN_UNROLL"}:
+        raise ValueError("CHAIN_ELEMS and CHAIN_UNROLL not found in the chain kernel's source")
+    return found
+
+
+@dataclasses.dataclass
+class ChainReading:
+    """chain_fma_kernel's registers (ptxas) and its main loop in SASS: the
+    loop with the most FFMAs, the FFMAs and instructions of one trip."""
+
+    registers: int | None
+    spill_bytes: int | None
+    ffma: int | None
+    instructions: int | None
+    sass: bool  # whether cuobjdump was available
+
+    @property
+    def ffma_share(self) -> float | None:
+        return self.ffma / self.instructions if self.instructions else None
+
+    def line(self) -> str:
+        res = (f"{self.registers} registers, spills {self.spill_bytes} B" if self.registers is not None
+               else "registers not reported")
+        if not self.sass:
+            loop = "main loop's SASS: not available (no cuobjdump)"
+        elif self.instructions is None:
+            loop = "main loop's SASS: not found"
+        else:
+            loop = (f"main loop's SASS {self.ffma} FFMA of {self.instructions} instructions a trip "
+                    f"(FFMA share {self.ffma_share:.4f})")
+        return f"chain_fma_kernel: {res}; {loop}"
+
+    def fields(self) -> dict:
+        """The reading as keys of chip_smoke.py's `kernels` line."""
+        share = self.ffma_share
+        return {"registers": self.registers, "spill_bytes": self.spill_bytes,
+                "main_loop_ffma": self.ffma, "main_loop_instructions": self.instructions,
+                "main_loop_ffma_share": share if share is not None else "not available"}
+
+
+def chain_reading(log: str, sass: str | None) -> ChainReading:
+    """The reading of chain_fma_kernel from a build's nvcc log (ptxas -v)
+    and its library's `cuobjdump -sass` (`sweep_readings.sass_of`; None
+    without cuobjdump)."""
+    from ray_tracing_in_one_weekend_tpu_torch.probes import sweep_readings as sr
+
+    res = sr.ptxas_resources(log)
+    r = next((v for k, v in res.items() if "chain_fma_kernel" in k), None)
+    funcs = sr.sass_functions(sass) if sass else {}
+    listing = next((v for k, v in funcs.items() if "chain_fma_kernel" in k), None)
+    # One marker a "test": the loop's FFMAs (the loops inside the
+    # grid-stride loop: the unrolled one and the remainder's).
+    loop = sr.sweep_loop(listing, "FFMA", 1) if listing else None
+    return ChainReading(r.registers if r else None, r.spill_stores + r.spill_loads if r else None,
+                        round(loop.tests) if loop else None, loop.instructions if loop else None,
+                        sass is not None)
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,7 @@ from ray_tracing_in_one_weekend_tpu_torch.models import milestones
 from ray_tracing_in_one_weekend_tpu_torch.models import scene as scene_lib
 from ray_tracing_in_one_weekend_tpu_torch.models.camera import make_camera
 from ray_tracing_in_one_weekend_tpu_torch.ops import cuda_render as cr
+from ray_tracing_in_one_weekend_tpu_torch.probes import kernel_parts
 from ray_tracing_in_one_weekend_tpu_torch.utils import compare
 
 pytestmark = pytest.mark.cuda
@@ -391,6 +392,31 @@ def test_probe_kernel_matches_plain(dev, name):
         assert got.shape == want.shape and bool(torch.isfinite(got).all())
         err = kp.error(name, got, want)
         assert err <= kp.GATES[name], (name, tile, err)
+
+
+_CHAIN_UNROLL = kernel_parts.chain_design()["CHAIN_UNROLL"]  # read from csrc/probe_kernels.cu
+
+
+@pytest.mark.parametrize("chain", [1, _CHAIN_UNROLL - 1, _CHAIN_UNROLL + 1, 512, 1000])
+@pytest.mark.parametrize("shape", [(128, 196), (3, 5), (1, 1)])
+def test_chain_fma_kernel_edge_cases(dev, chain, shape):
+    """chain_fma_kernel at chain lengths that reach its remainder loop and
+    at shapes that leave a ragged edge for its elements a thread x its
+    block, on seeded inputs: within GATES["chain_fma"] of the plain chain,
+    one launch, and every element moved."""
+    import numpy as np
+
+    from ray_tracing_in_one_weekend_tpu_torch.kernels import build
+    from ray_tracing_in_one_weekend_tpu_torch.probes import kernel_parts as kp
+
+    x = torch.from_numpy(np.random.default_rng(chain).uniform(0.5, 2.0, shape).astype(np.float32)).to(dev)
+    before = build.LAUNCHES["chain_fma"]
+    got = kp.chain_fma(x, chain)
+    assert build.LAUNCHES["chain_fma"] == before + 1
+    want = kp.chain_fma_plain(x, chain)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape and bool((got > x).all())
+    assert kp.error("chain_fma", got, want) <= kp.GATES["chain_fma"]
 
 
 def test_probe_wrappers_refuse_what_the_kernels_do_not_take(dev):

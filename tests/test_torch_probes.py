@@ -67,6 +67,75 @@ def test_chain_plain_matches_jax_kern():
     np.testing.assert_allclose(ours.numpy(), theirs.numpy(), rtol=_fused_steps_rtol(reps * kp.CHAIN), atol=0)
 
 
+@pytest.mark.parametrize("chain", [kp.chain_design()["CHAIN_UNROLL"] + 1, 1000])
+def test_chain_plain_matches_jax_kern_with_remainder(chain):
+    """The same `kern` under fori_loop at a length that is no multiple of
+    chain_fma_kernel's unrolled loop (its remainder loop runs), one call."""
+
+    def kern(x_ref, o_ref):
+        o_ref[:, :] = jax.lax.fori_loop(0, chain, lambda i, acc: acc * 1.0000001 + 0.0000001, x_ref[:, :])
+
+    assert chain % kp.chain_design()["CHAIN_UNROLL"] != 0
+    (x,) = kp.inputs("chain_fma", TILE, "cpu")
+    theirs = _interpret(kern, (128, TILE), x)
+    ours = kp.chain_fma(x, chain)
+    assert float(ours.min()) > 1.0 + chain * 1e-7  # every step moved every element
+    np.testing.assert_allclose(ours.numpy(), theirs, rtol=_fused_steps_rtol(chain), atol=0)
+
+
+def test_chain_design_is_read_from_the_source():
+    """kernel_parts reads chain_fma_kernel's CHAIN_UNROLL and CHAIN_ELEMS
+    from csrc/probe_kernels.cu, and refuses a text without both."""
+    design = kp.chain_design()
+    assert set(design) == {"CHAIN_ELEMS", "CHAIN_UNROLL"} and min(design.values()) >= 1
+    assert kp.chain_design("constexpr int CHAIN_UNROLL = 16;\nconstexpr int CHAIN_ELEMS = 2;") == {
+        "CHAIN_UNROLL": 16, "CHAIN_ELEMS": 2}
+    with pytest.raises(ValueError):
+        kp.chain_design("constexpr int CHAIN_ELEMS = 4;")
+
+
+def _chain_sass():
+    """chain_fma_kernel's shape: a grid-stride loop around an unrolled
+    loop of 8 FFMAs a trip and a remainder loop of 2."""
+    lines, a = [], 0
+
+    def emit(text):
+        nonlocal a
+        lines.append(f"        /*{a:04x}*/                   {text} ;   /* 0x000000000000000000 */\n")
+        a += 0x10
+
+    outer = a
+    emit("LDG.E R4, desc[UR4][R2.64]")
+    head = a
+    for _ in range(8):
+        emit("FFMA R4, R4, R6, R7")
+    emit("IADD3 R8, R8, -0x1, RZ")
+    emit("ISETP.NE.AND P0, PT, R8, RZ, PT")
+    emit(f"@P0 BRA 0x{head:x}")
+    rem = a
+    for _ in range(2):
+        emit("FFMA R4, R4, R6, R7")
+    emit(f"@P1 BRA 0x{rem:x}")
+    emit("STG.E desc[UR4][R2.64], R4")
+    emit(f"@P2 BRA 0x{outer:x}")
+    emit("EXIT")
+    return "\n\tcode for sm_90a\n\t\tFunction : _Z16chain_fma_kernelPKfPfxi\n" + "".join(lines)
+
+
+def test_chain_reading_finds_the_unrolled_loop():
+    """The reading takes the inner loop with the most FFMAs (8 of 11
+    instructions a trip), not the remainder's or the grid-stride loop;
+    without cuobjdump it says so."""
+    log = "ptxas info    : Compiling entry function '_Z16chain_fma_kernelPKfPfxi' for 'sm_90a'\n" \
+          "ptxas info    : Used 18 registers, used 0 barriers, 0 bytes spill stores, 0 bytes spill loads\n"
+    r = kp.chain_reading(log, _chain_sass())
+    assert (r.registers, r.spill_bytes, r.ffma, r.instructions) == (18, 0, 8, 11)
+    assert r.ffma_share == pytest.approx(8 / 11) and "8 FFMA of 11" in r.line()
+    r = kp.chain_reading(log, None)
+    assert r.ffma_share is None and "not available" in r.line()
+    assert r.fields()["main_loop_ffma_share"] == "not available"
+
+
 @pytest.mark.parametrize("reps", [2, 4])
 def test_fma_peak_plain_matches_jax_fma_kernel(reps):
     """scripts/kernel_parts_probe.py:67 `fma_kernel`: 8 accumulators, reps x
