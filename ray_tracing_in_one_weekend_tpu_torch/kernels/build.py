@@ -40,6 +40,8 @@ from pathlib import Path
 
 import torch
 
+from ray_tracing_in_one_weekend_tpu_torch.utils.spans import sync
+
 _PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
@@ -483,11 +485,15 @@ def grad_replay(table, cam_vec, scalars, pix, work, tile, spp, max_depth) -> Rep
     for name, v in (("seed", seed), ("sample_offset", sample_offset), ("n_live", n_live),
                     ("spp", spp), ("max_depth", max_depth)):
         _check_int32(name, v)
-    if not torch.equal(work.round(), work):
+    with sync("replay_work"):
+        whole = torch.equal(work.round(), work)
+    if not whole:
         raise ValueError("work must hold whole bounce counts")
 
     ev_start, ev_count = event_slots(pix, work, pixel_offset, n_live)
-    records = torch.empty((int(ev_count.sum()), 16), dtype=torch.float32, device=device)
+    with sync("replay_events"):
+        n_events = int(ev_count.sum())
+    records = torch.empty((n_events, 16), dtype=torch.float32, device=device)
     flags = torch.zeros(2, dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         err = lib.rt_grad_replay(
@@ -497,7 +503,8 @@ def grad_replay(table, cam_vec, scalars, pix, work, tile, spp, max_depth) -> Rep
         )
     _raise_on(lib, err, "grad_replay_kernel")
     LAUNCHES["grad_replay"] += 1
-    over, under = flags.tolist()
+    with sync("replay_flags"):
+        over, under = flags.tolist()
     if over or under:
         raise RuntimeError(
             "grad_replay_kernel: the replay diverged from the forward render (a lane had "
@@ -697,7 +704,8 @@ def threefry_grad_pass(rec: Recording, g, pixel_offset, n_live):
     sweeps made (counted in LAUNCHES["threefry_record_rerun"]); its paths
     are the same, so nothing is truncated."""
     slots, n_events = path_slots(rec.pix, rec.path_count, rec.spp, int(pixel_offset), int(n_live))
-    total, n_events = torch.stack([rec.total[0], n_events]).tolist()
+    with sync("arena_total"):
+        total, n_events = torch.stack([rec.total[0], n_events]).tolist()
     rec = complete_recording(rec, total)
     return grad_reduce(threefry_reverse(rec, slots, n_events, g, total), rec.table.shape[0])
 

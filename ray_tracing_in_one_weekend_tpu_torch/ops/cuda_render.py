@@ -62,6 +62,7 @@ import torch
 
 from ray_tracing_in_one_weekend_tpu_torch.models.camera import Camera
 from ray_tracing_in_one_weekend_tpu_torch.models.scene import Scene
+from ray_tracing_in_one_weekend_tpu_torch.utils.spans import span, spanned, sync
 
 # Lanes per CUDA block. A multiple of 128, as the JAX kernel's tiles are.
 DEFAULT_TILE = 128
@@ -135,8 +136,12 @@ def pack_camera(cam: Camera, t_min: float = T_MIN_EPS) -> torch.Tensor:
     ):
         v[3 * i : 3 * i + 3] = vec
     v[18] = cam.defocus_angle
-    v[19] = float(cam.image_width)
-    v[20] = float(t_min)
+    # A Python number written into a card's tensor is a copy from pageable
+    # host memory, which waits for the stream.
+    with sync("cam_pack"):
+        v[19] = float(cam.image_width)
+    with sync("cam_pack"):
+        v[20] = float(t_min)
     return v
 
 
@@ -515,6 +520,7 @@ def _init_state(pixel_offset, padded, n_pixels_total, spp, device=None):
 _BLOCK = 128
 
 
+@spanned("rt.sched.compact")
 def _compact(sf, si, tile, spp):
     """Tail compaction: unfinished lanes to dense front blocks, without a
     global lane sort -> (sf, si, inv) with inv [P] int64, the inverse of
@@ -588,10 +594,11 @@ def _multipass(p_mat, cam_vec, scalars, sf, si, tile, spp, max_depth, budget, n_
     for p in range(n_passes):
         last = p == n_passes - 1
         b = spp * max_depth if last else budget[p] if isinstance(budget, (tuple, list)) else budget
-        sf, si = pass_fn(
-            p_mat, cam_vec, (seed, pixel_offset, sample_offset, b),
-            sf, si, tile, spp, max_depth,
-        )
+        with span("rt.sched.pass"):
+            sf, si = pass_fn(
+                p_mat, cam_vec, (seed, pixel_offset, sample_offset, b),
+                sf, si, tile, spp, max_depth,
+            )
         if not last:
             sf, si, inv = _compact(sf, si, tile, spp)
             # Lane inv_total[j] holds pixel j: compose this pass's inverse.
@@ -693,7 +700,9 @@ def _cache_key_for(scene, cam_vec, padded, tile, spp, mesh=None):
     # rank's slab.
     extra = (spp,) if mesh is None else (
         spp, mesh.pixels, mesh.samples, mesh.pixel_index, mesh.sample_index)
-    return _warm_cache_key(scene, cam_vec.cpu().numpy().tobytes(), padded, tile, extra=extra)
+    with sync("cam_key"):
+        cam_bytes = cam_vec.cpu().numpy().tobytes()
+    return _warm_cache_key(scene, cam_bytes, padded, tile, extra=extra)
 
 
 def _rank_share(n_pixels: int, tile: int, spp: int, sample_offset: int, mesh):
@@ -735,6 +744,7 @@ def warm_cache_hit(scene: Scene, cam: Camera, seed: int = 0, tile: int = DEFAULT
     return key is not None and _warm_cache_get(key, seed, sample_offset) is not None
 
 
+@spanned("rt.sched.render")
 def render_with(
     pass_fn,
     scene: Scene,
@@ -802,7 +812,8 @@ def render_with(
         rad, work = mesh.sample_mean(rad), mesh.sample_mean(work)
     if cache_key is not None and work_perm is None:
         # Once per (scene, realization): the full cost sort of this slab.
-        _warm_cache_put(cache_key, _perm_from_hint(work).reshape(2, shard), seed, sample_offset)
+        with span("rt.sched.cache_fill"):
+            _warm_cache_put(cache_key, _perm_from_hint(work).reshape(2, shard), seed, sample_offset)
     if mesh is not None:
         rad, work = mesh.gather_pixels(rad), mesh.gather_pixels(work)
     img = rad[:, :n_pixels].T.reshape(h, w, 3)

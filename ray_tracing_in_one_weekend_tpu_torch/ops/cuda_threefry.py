@@ -66,6 +66,7 @@ from ray_tracing_in_one_weekend_tpu_torch.ops.integrator import (
 )
 from ray_tracing_in_one_weekend_tpu_torch.ops.materials import scatter_sampled
 from ray_tracing_in_one_weekend_tpu_torch.ops.threefry import as_key
+from ray_tracing_in_one_weekend_tpu_torch.utils.spans import spanned
 
 
 def render_kernel_pixels(scene: Scene, cam: Camera, pixel_indices, base_key=0, spp: int | None = None,
@@ -93,6 +94,7 @@ _PLAIN_PIXELS = {"cuda": 1 << 14, "cpu": 1 << 10}
 _PLAIN_RECORDS = {"cuda": 1 << 20, "cpu": 1 << 16}
 
 
+@spanned("rt.keyed.record")
 def record_keyed(scene: Scene, cam: Camera, pix, base_key=0, spp: int | None = None, sample_offset: int = 0,
                  p_mat: torch.Tensor | None = None):
     """The keyed forward that records its paths -> (colors [n, 3], work [n]
@@ -111,6 +113,7 @@ def record_keyed(scene: Scene, cam: Camera, pix, base_key=0, spp: int | None = N
                                  spp, cam.max_depth)
 
 
+@spanned("rt.keyed.grad_pass")
 def keyed_grad_pass(rec, g, pixel_offset: int, n_live: int) -> torch.Tensor:
     """The keyed backward of a recording (`record_keyed`) -> [16, N] f32, the
     cotangent of the packed scene, for `g` [3, n] each position's radiance

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from ray_tracing_in_one_weekend_tpu_torch.utils.spans import spanned
+
 # Clamp ceiling before the 256 scale (reference: src/gpu/color.h:30-33).
 _CLAMP_MAX = 0.999
 
@@ -25,6 +27,7 @@ def linear_to_gamma(linear: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.to(torch.float64)).to(x.dtype)
 
 
+@spanned("rt.to_uint8")
 def to_uint8(linear_image: torch.Tensor) -> torch.Tensor:
     """Linear [H, W, 3] float -> gamma-corrected uint8 [H, W, 3]
     (reference: src/gpu/color.h:16-38)."""

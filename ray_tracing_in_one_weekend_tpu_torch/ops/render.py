@@ -50,6 +50,7 @@ from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import (
 )
 from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_threefry import render_kernel_pixels
 from ray_tracing_in_one_weekend_tpu_torch.ops.integrator import trace_rays, trace_rays_threefry
+from ray_tracing_in_one_weekend_tpu_torch.utils.spans import spanned
 
 # Default pixels per chunk (the JAX package's). A chunk traces
 # chunk · spp rays at once: at the bench preset (10 spp, 512 slots) each
@@ -249,6 +250,7 @@ def render_threefry(
     return colors.reshape(cam.image_height, cam.image_width, 3)
 
 
+@spanned("rt.keyed.render")
 def render_keyed(scene: Scene, cam: Camera, pixel_indices, base_key=0, spp: int | None = None,
                  sample_offset: int = 0, chunk_size: int = DEFAULT_CHUNK, return_work: bool = False):
     """Samples [sample_offset, sample_offset + spp) of the global pixels

@@ -72,6 +72,7 @@ from ray_tracing_in_one_weekend_tpu_torch.ops.render import (
     render_lanes,
 )
 from ray_tracing_in_one_weekend_tpu_torch.ops.threefry import as_key
+from ray_tracing_in_one_weekend_tpu_torch.utils.spans import spanned, sync
 
 PIXEL_AXIS = "pixels"
 SAMPLE_AXIS = "samples"
@@ -151,11 +152,13 @@ class Mesh:
         if group is None:
             return fn(t, group)
         if t.device.type == "cuda":
-            torch.cuda.synchronize(t.device)
+            with sync("mesh"):
+                torch.cuda.synchronize(t.device)
         t0 = time.perf_counter()
         out = fn(t, group)
         if out.device.type == "cuda":
-            torch.cuda.synchronize(out.device)
+            with sync("mesh"):
+                torch.cuda.synchronize(out.device)
         self.seconds["collectives"] += time.perf_counter() - t0
         return out
 
@@ -541,6 +544,7 @@ class _DiffRenderKeyed(torch.autograd.Function):
     chain rule through `pack_scene` runs once, on the sum."""
 
     @staticmethod
+    @spanned("rt.keyed.forward")
     def forward(ctx, p_mat, scene: Scene, cam: Camera, share: _KeyedShare, mesh):
         idx = _slab_ids(share, p_mat.device)
         n_live = share.stop - share.start
@@ -560,6 +564,7 @@ class _DiffRenderKeyed(torch.autograd.Function):
         return rad
 
     @staticmethod
+    @spanned("rt.keyed.backward")
     def backward(ctx, grad_rad):
         (p_mat,) = ctx.saved_tensors
         share, mesh = ctx.share, ctx.mesh
@@ -636,6 +641,7 @@ def render_grads_autograd(params: dict, scene: Scene, cam: Camera, target: torch
     return _loss_and_grads(_render_loss_autograd, params, scene, cam, target, base_key, mesh, chunk_size, spp)
 
 
+@spanned("rt.train_step")
 def train_step(params: dict, scene: Scene, cam: Camera, target: torch.Tensor, base_key=0,
                mesh: Mesh | None = None, chunk_size: int = DEFAULT_CHUNK, spp: int | None = None,
                lr: float = 1e-2):

@@ -5,7 +5,6 @@ needs one CUDA GPU with nvcc:
     python -m ray_tracing_in_one_weekend_tpu_torch.probes.perf_probe
     python -m ray_tracing_in_one_weekend_tpu_torch.probes.kernel_parts
     python -m ray_tracing_in_one_weekend_tpu_torch.probes.fma_contraction
-    python -m ray_tracing_in_one_weekend_tpu_torch.probes.device_idle
     python -m ray_tracing_in_one_weekend_tpu_torch.probes.grad_step
     python -m ray_tracing_in_one_weekend_tpu_torch.probes.sweep_variants [--parent DIR]
     python -m ray_tracing_in_one_weekend_tpu_torch.probes.reduce_parts [--parent DIR]

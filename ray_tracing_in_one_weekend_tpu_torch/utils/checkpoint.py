@@ -39,6 +39,7 @@ from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import (
     render_cuda_distributed,
 )
 from ray_tracing_in_one_weekend_tpu_torch.ops.render import DEFAULT_CHUNK, render_keyed
+from ray_tracing_in_one_weekend_tpu_torch.utils.spans import spanned, sync
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +69,7 @@ def new_state(cam: Camera, device="cuda") -> RenderState:
     )
 
 
+@spanned("rt.accumulate")
 def accumulate(
     state: RenderState,
     scene: Scene,
@@ -136,12 +138,13 @@ def accumulate(
 
 
 def save(state: RenderState, path: str) -> None:
-    arrays = dict(
-        accum=state.accum.cpu().numpy(),
-        spp_done=np.asarray(state.spp_done, np.int32),
-    )
-    if state.work is not None:
-        arrays["work"] = state.work.cpu().numpy()
+    with sync("checkpoint_save"):
+        arrays = dict(
+            accum=state.accum.cpu().numpy(),
+            spp_done=np.asarray(state.spp_done, np.int32),
+        )
+        if state.work is not None:
+            arrays["work"] = state.work.cpu().numpy()
     np.savez_compressed(path, **arrays)
 
 

@@ -1,0 +1,10 @@
+"""The share of the traced window the card sat idle in gaps begun inside
+one of the port's other `rt.*` spans: its host code between launches.
+With `idle_sync_pct` and `idle_client_pct` it adds up to `idle_pct`."""
+
+from rtbench import spans
+
+
+def read(trace):
+    split = spans.idle_split(trace)
+    return None if split is None else split["program"]

@@ -225,7 +225,7 @@ def test_port_never_imports_jax(tmp_path):
         "import ray_tracing_in_one_weekend_tpu_torch as rt\n"
         "from ray_tracing_in_one_weekend_tpu_torch.utils import cli\n"
         "from ray_tracing_in_one_weekend_tpu_torch.kernels import build\n"
-        "from ray_tracing_in_one_weekend_tpu_torch.probes import device_idle, fma_contraction\n"
+        "from ray_tracing_in_one_weekend_tpu_torch.probes import fma_contraction\n"
         "from ray_tracing_in_one_weekend_tpu_torch.probes import kernel_parts, perf_probe\n"
         "from ray_tracing_in_one_weekend_tpu_torch.ops.cuda_render import _compact\n"
         "from ray_tracing_in_one_weekend_tpu_torch.utils import checkpoint, debug, manifest, png, resilient\n"
